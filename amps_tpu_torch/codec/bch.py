@@ -1,5 +1,5 @@
-"""BCH(63,51,t=2) codec for the reverse control channel, the PyTorch port
-of ``amps_tpu.codec.bch``.
+"""BCH(63,51,t=2) codec, the PyTorch port of ``amps_tpu.codec.bch``:
+the (40, 28) forward and (48, 36) reverse shortened codes.
 
 Encode is a GF(2) matmul of the info bits with the parity matrix;
 decode is a syndrome matmul mod 2, a pack to a 12-bit index and a
@@ -131,12 +131,21 @@ def recc_decode_table_packed() -> np.ndarray:
     return _decode_table_packed(48)
 
 
-def recc_bch_encode(info36):
-    """(..., 36) info bits -> (..., 48) coded reverse word (uint8)."""
-    info = torch.as_tensor(info36).to(torch.uint8)
-    P = _device_table("parity", 36, info.device)
+def _encode(info, k_info: int):
+    info = torch.as_tensor(info).to(torch.uint8)
+    P = _device_table("parity", k_info, info.device)
     parity = torch.remainder(info.to(torch.float32) @ P, 2.0)
     return torch.cat([info, parity.to(torch.uint8)], dim=-1)
+
+
+def focc_bch_encode(info28):
+    """(..., 28) info bits -> (..., 40) coded forward word (uint8)."""
+    return _encode(info28, 28)
+
+
+def recc_bch_encode(info36):
+    """(..., 36) info bits -> (..., 48) coded reverse word (uint8)."""
+    return _encode(info36, 36)
 
 
 def recc_bch_decode(rx48):

@@ -12,6 +12,15 @@ def expandbits_np(val: int, nbits: int) -> np.ndarray:
     return ((int(val) >> shifts) & 1).astype(np.uint8)
 
 
+def expandbits(val, nbits: int):
+    """MSB-first expansion: (...,) integer -> (..., nbits) uint8.
+
+    expandbits(6, 3) == [1, 1, 0]."""
+    val = torch.as_tensor(val).to(torch.int64)
+    shifts = torch.arange(nbits - 1, -1, -1, device=val.device)
+    return ((val[..., None] >> shifts) & 1).to(torch.uint8)
+
+
 def packbits(bits, dtype=torch.int32):
     """MSB-first packing: (..., nbits) bits -> (...,) integer."""
     bits = torch.as_tensor(bits)

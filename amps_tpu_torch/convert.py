@@ -1,10 +1,11 @@
 """Carry the JAX side's state across to the port.
 
-The receive path has no learned weights.  Its constant tables
-(prototype taps, DFT matrices, trigger template and detection
-operators, syndrome matrix and decode LUT) are rebuilt in numpy by the
-port itself and held bit-equal to the JAX package's by the tests; what
-crosses over is the carried streaming state.
+The system has no learned weights.  Its constant tables (prototype
+taps, DFT matrices, trigger template and detection operators, syndrome
+matrix and decode LUT) are rebuilt in numpy by the port itself and held
+bit-equal to the JAX package's by the tests; what crosses over is the
+carried streaming state: a JAX receiver's or transmitter's block k
+continues as the port's block k+1.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from amps_tpu_torch.device import resolve_device
 from amps_tpu_torch.dsp.channelizer import AnalyzerState
+from amps_tpu_torch.runtime.state import restore_receiver, restore_transmitter
 
 
 def analyzer_state_from_numpy(history, hop_idx: int,
@@ -23,3 +25,24 @@ def analyzer_state_from_numpy(history, hop_idx: int,
     hist = torch.tensor(np.asarray(history, dtype=np.float32),
                         device=resolve_device(device))
     return AnalyzerState(hist, int(hop_idx))
+
+
+def receiver_state_from_jax(snapshot, rx) -> None:
+    """Restore the numpy dict of ``amps_tpu.runtime.state.
+    snapshot_receiver`` (hist, parity, carry, prev, pw_carry, abs_base,
+    last_seen; the JAX package snapshots no sub-hop residue) into the
+    port's MultichannelReceiver ``rx`` of the same spec."""
+    snap = {k: snapshot[k] for k in ("kind", "hist", "parity", "carry",
+                                     "prev", "pw_carry", "abs_base",
+                                     "last_seen")}
+    snap["residue"] = np.zeros((0, 2), np.float32)
+    snap["last_block_len"] = np.int64(0)
+    restore_receiver(snap, rx)
+
+
+def transmitter_state_from_jax(arrays, tx) -> None:
+    """Restore the arrays of ``amps_tpu.runtime.state.save_transmitter``
+    (synthesis carry, hop index, phase accumulators, FOCC queues; pass
+    ``np.load(path)``) into the port's MultichannelTransmitter ``tx``
+    with the same control channels."""
+    restore_transmitter(arrays, tx)

@@ -35,13 +35,8 @@
 // recomputes one hop behind its tile (the discriminator's y[n-1]) and
 // sps-1 hops ahead (the last symbol's window) instead of carrying state
 // between blocks.
-//   * Per sub-tile of 64 hops and chunk of 32 values of m, the input rows
-//     the hop windows share are copied to shared memory once (cp.async,
-//     double-buffered one chunk ahead), folded, and contracted over m in
-//     f32 FMA against the cos/sin tables.
-//   * Channels k and M - k share their cos rows and negate their sin rows,
-//     so a block owns 32 such pairs and a thread a 2-pair x 4-hop register
-//     micro-tile of four partial sums: half the FMAs of the dense DFT.
+//   * The fold and the channel-pair transform of each 64-hop sub-tile are
+//     analysis_tile.cuh's, shared with rx_front.cu.
 //   * The hop sign, discriminator and power run on the micro-tile in
 //     registers (the previous hop comes from the neighbouring lane by a
 //     warp shuffle); the demod goes to a 128-hop ring per channel that is
@@ -55,65 +50,12 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "analysis_tile.cuh"
+
 namespace {
 
 constexpr int kTileHops = 384;   // hops owned by a block (RSSI_BLOCK)
-constexpr int kThreads = 256;
-constexpr int KU = 32;           // channel pairs (u, M-u) per block
-constexpr int KC = 2 * KU;       // channels per block
-constexpr int HS = 64;           // hops per transform sub-tile
-constexpr int MK = 32;           // contraction chunk (values of m)
-constexpr int FS = HS + 4;       // fold row stride: float4-aligned
 constexpr int kRing = 128;       // demod ring per channel (>= HS + 2 sps - 2)
-constexpr int kMaxT = 16;        // taps per phase held in registers
-constexpr int FH = MK * HS / kThreads;  // hops a thread folds per chunk
-
-static_assert(KU * HS == kThreads * 8, "2x4 pair-hop micro-tile per thread");
-static_assert(kThreads / MK == 8 && 8 * FH == HS,
-              "fold: 8 thread groups of FH same-parity hops cover the sub-tile");
-static_assert(MK * KU % kThreads == 0 && MK * HS % kThreads == 0 &&
-              kMaxT * MK % kThreads == 0, "staging");
-
-// amps_tpu.dsp.fm.fast_atan2 with the same constants and the same
-// operation order; the _rn intrinsics keep nvcc from contracting the
-// polynomial into FMAs, so equal inputs give equal bits.
-__device__ __forceinline__ float fast_atan2(float y, float x) {
-  const float ax = fabsf(x), ay = fabsf(y);
-  const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
-  const float z = lo / fmaxf(hi, 1e-30f);
-  const float z2 = __fmul_rn(z, z);
-  float p = __fmul_rn(z2, -0.085133f);
-  p = __fmul_rn(z2, __fadd_rn(0.180141f, p));
-  p = __fmul_rn(z2, __fadd_rn(-0.3302995f, p));
-  float base = __fmul_rn(z, __fadd_rn(0.999866f, p));
-  base = (ay > ax) ? __fsub_rn(static_cast<float>(3.14159265358979323846 / 2), base) : base;
-  base = (x < 0.f) ? __fsub_rn(static_cast<float>(3.14159265358979323846), base) : base;
-  return (y < 0.f) ? -base : base;
-}
-
-// N = 4 or 8 bytes from global to shared memory without passing through
-// registers; with valid = false the destination is zero-filled.
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::
-               "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "n"(N), "r"(valid ? N : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Output channel of slot s of the block whose first pair index is u0:
-// slots [0, KU) hold channels u, slots [KU, KC) their partners M - u
-// (channel M/2 for u = 0).
-__device__ __forceinline__ int slot_channel(int s, int u0, int M) {
-  const int u = u0 + (s % KU);
-  if (s < KU) return u;
-  return u ? M - u : M / 2;
-}
 
 __global__ void __launch_bounds__(kThreads, 2)
 rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
@@ -127,191 +69,35 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
                  int ntile) {
   extern __shared__ __align__(16) float smem[];
   const int HY = kTileHops + sps;       // analysis hops: h0-1 .. h0+384+sps-2
-  float* Ec = smem;                     // [MK][KU]
-  float* Es = Ec + MK * KU;
-  float* Fr = Es + MK * KU;             // [MK][FS]
-  float* Fi = Fr + MK * FS;
-  float* Cf = Fi + MK * FS;             // [kMaxT][MK] fold coefficients
-  float* yc_r = Cf + kMaxT * MK;        // [2][KC] last y of a sub-tile
+  const int tile = blockIdx.x;
+  const int h0 = tile * kTileHops;
+  AnalysisTile at(smem, x, planar, n_ext, coef, cu, su, M, T, Nh, h0,
+                  blockIdx.y * KU);
+  float* yc_r = smem + transform_smem_floats(T);  // [2][KC] last y of a sub-tile
   float* yc_i = yc_r + 2 * KC;
   float* pwp = yc_i + 2 * KC;           // [KC][16] power partials
   float* ring = pwp + 16 * KC;          // [KC][kRing] demod, by hop mod kRing
-  const int xrows = HS + 2 * T - 2;     // input rows a chunk's windows read
-  float2* Xs = reinterpret_cast<float2*>(ring + KC * kRing);  // [2][xrows][MK]
 
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int u0 = blockIdx.y * KU;
-  const int h0 = tile * kTileHops;
-  const int P = M / 2;
-  const int ty = tid >> 4, tx = tid & 15;  // transform: pairs 2ty.., hops 4tx..
+  const int tid = at.tid, tx = at.tx, u0 = at.u0;
   const int S = kTileHops / sps;           // symbols a block owns
   const int j0 = h0 / sps;
   const float w = 1.0f / static_cast<float>(sps);
   float pw_acc[4] = {0.f, 0.f, 0.f, 0.f};
   int jd = 0;                              // symbols dumped so far
 
-  const int mm = tid % MK;   // the fold's value of m within a chunk
-  const long long nrow = n_ext / P;
-
-  // One chunk (sub-tile i0, values m0 .. m0+MK-1) of operands is fetched
-  // one chunk ahead, so that its loads are in flight during the previous
-  // chunk's fold and contraction.  Sample nP + tM + m is row n + 2t (+1
-  // for m >= P), column m mod P of the input, so the chunk's hop windows
-  // share HS + 2T - 2 rows of MK samples: each is loaded once, not once
-  // per tap, by cp.async into one of two shared buffers.  The table
-  // slices and fold coefficients go through registers.
-  constexpr int EQ = MK * KU / kThreads;
-  float pc[EQ], ps[EQ], pcf[kMaxT / (kThreads / MK)];
-  auto fetch = [&](int i0, int m0, float2* X) {
-    const int hb = h0 - 1 + i0 + (m0 >= P ? 1 : 0);
-    const int c0 = m0 >= P ? m0 - P : m0;
-    for (int e = tid; e < xrows * MK; e += kThreads) {
-      const long long row = hb + e / MK;
-      const bool ok = row >= 0 && row < nrow;
-      const long long i = ok ? row * P + c0 + e % MK : 0;
-      if (planar) {
-        cp_async<4>(&X[e].x, x + i, ok);
-        cp_async<4>(&X[e].y, x + n_ext + i, ok);
-      } else {
-        cp_async<8>(&X[e], x + 2 * i, ok);
-      }
-    }
-    cp_async_commit();
-#pragma unroll
-    for (int q = 0; q < EQ; ++q) {
-      const int e = tid + q * kThreads;   // = (m - m0) * KU + pair
-      const size_t g = static_cast<size_t>(m0 + e / KU) * P + u0 + e % KU;
-      pc[q] = __ldg(cu + g);
-      ps[q] = __ldg(su + g);
-    }
-#pragma unroll
-    for (int q = 0; q < kMaxT / (kThreads / MK); ++q) {
-      const int t = tid / MK + q * (kThreads / MK);
-      pcf[q] = t < T ? __ldg(coef + t * M + m0 + mm) : 0.f;
-    }
-  };
-
-  int buf = 0;
-  fetch(0, 0, Xs);
+  at.start();
   for (int i0 = 0; i0 < HY; i0 += HS) {
-    // per pair u and hop: A = Σ fr·c, B = Σ fi·s, C = Σ fi·c, D = Σ fr·s
     float A[2][4], B[2][4], C[2][4], D[2][4];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) A[a][b] = B[a][b] = C[a][b] = D[a][b] = 0.f;
-
-    for (int m0 = 0; m0 < M; m0 += MK) {
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < EQ; ++q) {
-        Ec[tid + q * kThreads] = pc[q];
-        Es[tid + q * kThreads] = ps[q];
-      }
-#pragma unroll
-      for (int q = 0; q < kMaxT / (kThreads / MK); ++q)
-        Cf[tid + q * kThreads] = pcf[q];
-      cp_async_wait_all();
-      __syncthreads();
-      const float2* X = Xs + buf * xrows * MK;
-      buf ^= 1;
-      if (m0 + MK < M)
-        fetch(i0, m0 + MK, Xs + buf * xrows * MK);
-      else if (i0 + HS < HY)
-        fetch(i0 + HS, 0, Xs + buf * xrows * MK);
-      // fold the (MK x HS) slice of the hop windows from the staged rows.
-      // A thread folds one m for FH hops of one parity, b + 2j: hop b + 2j
-      // tap t reads row b + 2(j + t), so its FH windows share FH + T - 1
-      // rows, each read from shared memory once; the taps still add in
-      // order t = 0, 1, ... for every hop.
-      {
-        const int g = tid / MK;
-        const int b = 2 * FH * (g >> 1) + (g & 1);
-        float cf[kMaxT], fr[FH], fi[FH];
-#pragma unroll
-        for (int t = 0; t < kMaxT; ++t) cf[t] = Cf[t * MK + mm];
-#pragma unroll
-        for (int j = 0; j < FH; ++j) fr[j] = fi[j] = 0.f;
-#pragma unroll
-        for (int i = 0; i < FH + kMaxT - 1; ++i) {
-          if (i < FH + T - 1) {
-            const float2 xv = X[(b + 2 * i) * MK + mm];
-            const float xr = xv.x, xi = xv.y;
-#pragma unroll
-            for (int j = 0; j < FH; ++j) {
-              const int t = i - j;
-              if (t >= 0 && t < kMaxT && t < T) {
-                fr[j] = fmaf(cf[t], xr, fr[j]);
-                fi[j] = fmaf(cf[t], xi, fi[j]);
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < FH; ++j) {
-          const int hc = b + 2 * j;
-          const int n = h0 - 1 + i0 + hc;
-          const bool live = i0 + hc < HY && n >= 0 && n < Nh;
-          Fr[mm * FS + hc] = live ? fr[j] : 0.f;
-          Fi[mm * FS + hc] = live ? fi[j] : 0.f;
-        }
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < MK; ++kk) {
-        const float2 c2 = *reinterpret_cast<const float2*>(Ec + kk * KU + ty * 2);
-        const float2 s2 = *reinterpret_cast<const float2*>(Es + kk * KU + ty * 2);
-        const float4 vr = *reinterpret_cast<const float4*>(Fr + kk * FS + tx * 4);
-        const float4 vi = *reinterpret_cast<const float4*>(Fi + kk * FS + tx * 4);
-        const float c[2] = {c2.x, c2.y};
-        const float s[2] = {s2.x, s2.y};
-        const float fr4[4] = {vr.x, vr.y, vr.z, vr.w};
-        const float fi4[4] = {vi.x, vi.y, vi.z, vi.w};
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            A[a][b] = fmaf(fr4[b], c[a], A[a][b]);
-            B[a][b] = fmaf(fi4[b], s[a], B[a][b]);
-            C[a][b] = fmaf(fi4[b], c[a], C[a][b]);
-            D[a][b] = fmaf(fr4[b], s[a], D[a][b]);
-          }
-      }
-    }
-    // y_u = (A + B, C - D), y_{M-u} = (A - B, C + D) since cos is even and
-    // sin odd in k; for u = 0 the sin column holds channel M/2's (-1)^m,
-    // so y_0 = (A, C) and y_{M/2} = (D, B).  Then the hop-parity sign
-    // (-1)^{k(n+parity)}: k and M - k share parity, M/2 is even.  The
-    // thread's 4 channels (c = a: slot 2ty + a; c = 2 + a: its partner)
-    // x 4 hops (4tx + b) stay in registers for the discriminator.
+    at.transform(i0, HY, A, B, C, D);
     const int sub = i0 / HS;
     float yr[4][4], yi[4][4];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int u = u0 + ty * 2 + a;
-        const int n = h0 - 1 + i0 + tx * 4 + b;
-        const float sg = ((u & 1) && ((n + hop0_parity) & 1)) ? -1.f : 1.f;
-        if (u) {
-          yr[a][b] = sg * (A[a][b] + B[a][b]);
-          yi[a][b] = sg * (C[a][b] - D[a][b]);
-          yr[2 + a][b] = sg * (A[a][b] - B[a][b]);
-          yi[2 + a][b] = sg * (C[a][b] + D[a][b]);
-        } else {
-          yr[a][b] = sg * A[a][b];
-          yi[a][b] = sg * C[a][b];
-          yr[2 + a][b] = sg * D[a][b];
-          yi[2 + a][b] = sg * B[a][b];
-        }
-      }
+    at.channels(i0, hop0_parity, A, B, C, D, yr, yi);
     // discriminator and band power.  The hop before 4tx is the last hop of
     // the lane to the left (same ty), or for tx = 0 the previous
     // sub-tile's last hop, kept in a double-buffered carry.
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int slot = (c < 2 ? 0 : KU) + ty * 2 + (c & 1);
+      const int slot = at.slot(c);
       const float lr = __shfl_up_sync(0xffffffffu, yr[c][3], 1);
       const float li = __shfl_up_sync(0xffffffffu, yi[c][3], 1);
       float qr = tx ? lr : yc_r[((sub + 1) & 1) * KC + slot];
@@ -362,7 +148,7 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
   // band power: each thread's partial sums per channel, added over tx in order
 #pragma unroll
   for (int c = 0; c < 4; ++c)
-    pwp[((c < 2 ? 0 : KU) + ty * 2 + (c & 1)) * 16 + tx] = pw_acc[c];
+    pwp[at.slot(c) * 16 + tx] = pw_acc[c];
   __syncthreads();
   if (tid < KC) {
     float s = 0.f;
@@ -373,9 +159,8 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 }
 
 size_t smem_bytes(int T) {
-  return sizeof(float) * (2 * MK * KU + 2 * MK * FS + kMaxT * MK + 4 * KC +
-                          16 * KC + KC * kRing) +
-         sizeof(float2) * 2 * (HS + 2 * T - 2) * MK;
+  return sizeof(float) * (transform_smem_floats(T) + 4 * KC + 16 * KC +
+                          KC * kRing);
 }
 
 }  // namespace

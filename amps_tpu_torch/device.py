@@ -16,12 +16,17 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device`` (None means the CPU).  A CUDA
-    device asked for on a machine without one raises: the port never
-    falls back to the CPU silently."""
+    """``device`` as a ``torch.device`` (None means the CPU; "cuda" the
+    current CUDA device, with its index, so that it compares equal to a
+    tensor's device).  A CUDA device asked for on a machine without one
+    raises: the port never falls back to the CPU silently."""
     dev = torch.device("cpu" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not "
+                               "available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -14,10 +14,12 @@ ported; the JAX package's other folds match it up to f32 summation
 order and raise ``NotImplementedError`` here.  The constant tables are
 built in numpy exactly as the JAX package builds them.
 
-This module is the PLAIN analysis: on the receive path, stages 1-3
-(analysis, discriminator, integrate-and-dump) run fused in
-``amps_tpu_torch.kernels.rx_phases``.  The synthesis bank is used to
-build test traffic.
+This module is the PLAIN analysis and synthesis: on the receive path
+the analysis runs fused with the discriminator in
+``amps_tpu_torch.kernels.rx_phases`` and ``kernels.rx_front``, and the
+transmitter's synthesis runs in ``kernels.synth``, whose plain version
+is ``_synthesize_block``.  ``synthesize`` stays plain: it builds test
+traffic independently of the kernels.
 """
 
 from __future__ import annotations

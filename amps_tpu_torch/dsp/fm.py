@@ -57,6 +57,32 @@ def fm_modulate_symbols(symbols, sensitivity: float, phase_accum0=0):
     return expj(phase), accum[..., -1]
 
 
+def fsk_manchester_baseband(bits, sps: int, sensitivity: float,
+                            phase_accum0=0):
+    """FSK baseband of a Manchester-coded bit stream as a two-template
+    map.  Each bit's 2*sps ±1 samples sum to zero, so the integer phase
+    accumulator returns to its start after every bit and a bit's
+    waveform is one of two fixed (2*sps, 2) templates, evaluated with
+    the ops of ``fm_modulate_symbols``: bit-exact against
+    fm_modulate_symbols(manchester_encode_symbols(bits, sps)).
+
+    bits: (..., n) 0/1; ``phase_accum0`` an int or (...,) ints.  Returns
+    (iq (..., n*2*sps, 2) float32, accum_end (...,) int32, equal to
+    phase_accum0)."""
+    bits = torch.as_tensor(bits)
+    dev = bits.device
+    half = np.concatenate([np.arange(1, sps + 1), np.arange(sps - 1, -1, -1)])
+    ramp = torch.as_tensor(np.stack([half, -half]).astype(np.int32),
+                           device=dev)                      # (2, 2*sps)
+    a0 = torch.as_tensor(phase_accum0, dtype=torch.int32, device=dev)
+    accum = ramp + a0[..., None, None]                      # (..., 2, 2*sps)
+    table = expj(accum.to(torch.float32) * float(np.float32(sensitivity)))
+    sel = (bits != 0)[..., None, None]
+    out = torch.where(sel, table[..., None, 1, :, :], table[..., None, 0, :, :])
+    accum_end = a0.expand(bits.shape[:-1])
+    return out.reshape(bits.shape[:-1] + (-1, 2)), accum_end
+
+
 def quadrature_demod_planar(xr, xi, gain: float = 1.0, prev=None,
                             return_power=False):
     """quadrature_demod on planar I/Q planes: demod[n] =

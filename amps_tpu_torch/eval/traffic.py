@@ -70,13 +70,12 @@ def synthesize_reverse_band(events: Sequence[BurstEvent], spec,
     burst placed; white Gaussian noise of ``noise_sigma`` from
     numpy ``default_rng(seed)``.  ``spec`` is a MultichannelSpec."""
     dev = resolve_device(device)
-    pipe = spec.pipe
-    sens = 2 * np.pi * pipe.deviation_hz / pipe.chan_rate
     Y = torch.zeros((total_hops, spec.num_channels, 2), dtype=torch.float32,
                     device=dev)
     for ev in events:
         syms = burst_symbols(ev.words, dcc=ev.dcc, sps=spec.chan_sps)
-        bb, _ = fm_modulate_symbols(torch.as_tensor(syms, device=dev), sens)
+        bb, _ = fm_modulate_symbols(torch.as_tensor(syms, device=dev),
+                                    spec.fm_sensitivity)
         n = min(bb.shape[0], total_hops - ev.start_hop)
         Y[ev.start_hop: ev.start_hop + n, ev.channel] = bb[:n]
     x, _ = chz.synthesize(Y, spec.chz_spec,

@@ -39,8 +39,9 @@ def _is_planar(x: torch.Tensor) -> bool:
     return x.ndim == 2 and x.shape[0] == 2 and x.shape[1] != 2
 
 
-def _geometry(x_ext: torch.Tensor, M: int, T: int, sps: int):
-    """(planar, n_ext, Nh, nsym) of a history-prepended input block."""
+def block_geometry(x_ext: torch.Tensor, M: int, T: int):
+    """(planar, n_ext, Nh) of a history-prepended input block of the
+    front-end kernels."""
     planar = _is_planar(x_ext)
     if not planar and not (x_ext.ndim == 2 and x_ext.shape[1] == 2):
         raise ValueError(f"x_ext must be (n, 2) or (2, n), got "
@@ -50,7 +51,12 @@ def _geometry(x_ext: torch.Tensor, M: int, T: int, sps: int):
     if M % 2 or n_ext % P:
         raise ValueError(f"x_ext length {n_ext} is not a multiple of the "
                          f"hop {P}")
-    Nh = n_ext // P - (2 * T - 1)
+    return planar, n_ext, n_ext // P - (2 * T - 1)
+
+
+def _geometry(x_ext: torch.Tensor, M: int, T: int, sps: int):
+    """(planar, n_ext, Nh, nsym) of a history-prepended input block."""
+    planar, n_ext, Nh = block_geometry(x_ext, M, T)
     if Nh < sps:
         raise ValueError(f"block of {Nh} hops is shorter than sps={sps}")
     return planar, n_ext, Nh, (Nh - sps + 1) // sps

@@ -1,0 +1,112 @@
+"""Synthesis channelizer: M channel basebands -> one wideband stream.
+
+``synthesize_block`` is the wrapper: a CUDA tensor launches the
+hand-written kernels in ``csrc/synth.cu`` (the Hopper port of
+``amps_tpu/pallas/synthesizer_kernel.py::synthesize_pallas``) or raises;
+a CPU tensor computes the kernel's plain version,
+``synthesize_block_reference`` -- the port's
+``dsp.channelizer._synthesize_block``.  There is no fallback from one to
+the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from amps_tpu_torch.dsp import channelizer as chz
+from amps_tpu_torch.kernels import build
+from amps_tpu_torch.kernels.rx_phases import _tables
+
+COLUMN_TILE = 64           # output columns per transform block (csrc 2*KU)
+
+# kernel launches since import (or since the caller last reset it);
+# incremented only where the kernel is launched
+LAUNCHES = 0
+
+
+def _check(Y, M: int, T: int, carry):
+    if Y.ndim != 3 or Y.shape[1:] != (M, 2):
+        raise ValueError(f"Y must be (Nh, {M}, 2), got {tuple(Y.shape)}")
+    if M % 2 or T < 1:
+        raise ValueError(f"need an even M and T >= 1 (M={M}, T={T})")
+    want = (M * T - M // 2, 2)
+    if tuple(carry.shape) != want:
+        raise ValueError(f"carry must be {want}, got {tuple(carry.shape)}")
+
+
+def synthesize_block_reference(Y, M: int, T: int, hop0_parity: int, carry,
+                               split: int = -1):
+    """Plain PyTorch version of the kernel, on any device; split=-1
+    takes the channelizer's default (two-stage at M >= 512)."""
+    _check(Y, M, T, carry)
+    if split < 0:
+        split = chz.default_split(M)
+    return chz._synthesize_block(Y, M, T, int(hop0_parity) % 2, carry, split)
+
+
+@functools.cache
+def _launcher():
+    lib = build.load()
+    fn = lib.synth_launch
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    fn.restype = i
+    lib.synth_column_tile.restype = i
+    if lib.synth_column_tile() != COLUMN_TILE:
+        raise RuntimeError(f"synth_column_tile of the built kernel != "
+                           f"{COLUMN_TILE}")
+    return fn
+
+
+@functools.cache
+def _gain_taps(M: int, T: int, device: torch.device) -> torch.Tensor:
+    """(T, M) prototype taps times P, as the plain version forms them."""
+    return (torch.as_tensor(chz.prototype_taps(M, T), device=device)
+            .reshape(T, M) * np.float32(M // 2))
+
+
+def synthesize_block(Y, M: int, T: int, hop0_parity: int, carry):
+    """Synthesis of one block: Y (Nh, M, 2) float32 hop-major channel
+    basebands, hop0_parity the absolute parity of its first hop, carry
+    the (L-P, 2) overlap-add tail of the previous block.  Returns
+    (x (Nh*M/2, 2), new carry (L-P, 2)), float32."""
+    global LAUNCHES
+    if not isinstance(Y, torch.Tensor) or not isinstance(carry, torch.Tensor):
+        raise TypeError("Y and carry must be torch.Tensors")
+    if Y.device.type == "cpu":
+        return synthesize_block_reference(Y, M, T, hop0_parity, carry)
+    if Y.device.type != "cuda" or carry.device != Y.device:
+        raise ValueError(f"unsupported devices {Y.device}, {carry.device}")
+    _check(Y, M, T, carry)
+    if Y.dtype != torch.float32 or carry.dtype != torch.float32:
+        raise ValueError("Y and carry must be float32")
+    if M % COLUMN_TILE:
+        raise ValueError(f"kernel needs M % {COLUMN_TILE} == 0 (M={M})")
+    Y = Y.contiguous()
+    carry = carry.contiguous()
+    if Y.data_ptr() % 8 or carry.data_ptr() % 8:
+        # the kernels read both as float2
+        raise ValueError("Y and carry must be 8-byte aligned")
+    dev = Y.device
+    Nh = Y.shape[0]
+    P = M // 2
+    _, cu, su = _tables(M, T, dev)
+    gm = _gain_taps(M, T, dev)
+    u = torch.empty((2, Nh, M), dtype=torch.float32, device=dev)
+    out = torch.empty((Nh * P, 2), dtype=torch.float32, device=dev)
+    new_carry = torch.empty_like(carry)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _launcher()(Y.data_ptr(), cu.data_ptr(), su.data_ptr(),
+                         gm.data_ptr(), carry.data_ptr(), u.data_ptr(),
+                         out.data_ptr(), new_carry.data_ptr(), M, T, Nh,
+                         int(hop0_parity) % 2, stream)
+    if rc != 0:
+        raise RuntimeError(f"synth kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out, new_carry

@@ -1,16 +1,22 @@
-"""The multichannel receive block, single device — the PyTorch port of
-``amps_tpu.parallel.pipeline`` (``MultichannelSpec`` and
-``rx_multichannel_block``).
+"""The multichannel transmit and receive blocks, single device — the
+PyTorch port of ``amps_tpu.parallel.pipeline`` (``MultichannelSpec``,
+``tx_multichannel_block`` and ``rx_multichannel_block``).
 
-  wideband (N, 2) or planar (2, N)
+  TX: word pairs (C, F, 2, 28)
+    -> FOCC frame bits (C, F*463)                          [tx.focc]
+    -> FSK baseband at the channel rate (C, n, 2)          [dsp.fm]
+    -> synthesis channelizer -> wideband (n*M/2, 2)        [kernels.synth]
+
+  RX: wideband (N, 2) or planar (2, N)
     -> analysis + discriminator + integrate-and-dump      [kernels.rx_phases]
        -> phase streams (C, sps, nsym), 384-hop power partials
     -> trigger correlation + greedy NMS                    [rx.correlator]
     -> capture with trigger gate, per-burst rssi           [rx.correlator]
     -> 5-repeat BCH word decode                            [rx.decoder]
 
-Stages 1-3 run as one hand-written CUDA kernel for a CUDA input and as
-its plain PyTorch version for a CPU input; nothing else chooses.
+The synthesis and RX stages 1-3 each run as a hand-written CUDA kernel
+for a CUDA input and as its plain PyTorch version for a CPU input;
+nothing else chooses.
 """
 
 from __future__ import annotations
@@ -18,12 +24,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from amps_tpu_torch.config import PipelineConfig
 from amps_tpu_torch.dsp import channelizer as chz
+from amps_tpu_torch.dsp.fm import fsk_manchester_baseband
 from amps_tpu_torch.kernels.rx_phases import analyze_phases
+from amps_tpu_torch.kernels.synth import synthesize_block
 from amps_tpu_torch.rx import correlator, decoder
+from amps_tpu_torch.tx.focc import focc_frame_bits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +71,27 @@ class MultichannelSpec:
     @property
     def chan_sps(self) -> int:
         return self.pipe.chan_sps  # 3 samples/Manchester symbol @ 60k
+
+    @property
+    def fm_sensitivity(self) -> float:
+        """FSK phase step per ±1 symbol sample at the channel rate."""
+        return 2.0 * np.pi * self.pipe.deviation_hz / self.pipe.chan_rate
+
+
+def tx_multichannel_block(word_pairs, spec: MultichannelSpec):
+    """(M, F, 2, 28) word pairs, one FOCC superframe per channel ->
+    wideband float32 ((F*463*2*sps) * M/2, 2), on the input's device (a
+    numpy input runs on the CPU).  The synthesis is the ``kernels.synth``
+    wrapper, from a zero carry at hop 0."""
+    bits = focc_frame_bits(word_pairs)
+    dev = bits.device
+    bb, _ = fsk_manchester_baseband(bits, spec.chan_sps,
+                                    spec.fm_sensitivity)   # (M, n, 2)
+    state = chz.synthesizer_init(spec.chz_spec, device=dev)
+    x, _ = synthesize_block(bb.transpose(0, 1).contiguous(),
+                            spec.num_channels, spec.taps_per_phase, 0,
+                            state.carry)
+    return x
 
 
 def rx_multichannel_block(x, spec: MultichannelSpec, max_bursts: int = 2,

@@ -1,0 +1,449 @@
+"""The base station's streaming duplex, the PyTorch port of
+``amps_tpu.runtime.streamer`` (``MultichannelReceiver``,
+``MultichannelTransmitter``, ``BurstReport``, ``decode_dcc`` and the
+receive block ``_rx_stream_block``).
+
+* ``MultichannelTransmitter.next_block`` produces one FOCC superframe of
+  the forward band: every control channel's frame bits and FSK baseband
+  in one batch, scattered into the (hops, M, 2) channel plane, then the
+  synthesis channelizer (``kernels.synth``), with its overlap-add carry,
+  hop parity and phase accumulators carried across blocks.
+* ``MultichannelReceiver.push`` streams wideband blocks of the reverse
+  band through the receive block with all state carried: analyzer
+  history, hop parity, the previous channel sample, a demod overlap
+  long enough that a burst straddling a block is caught whole in the
+  next window, the power-series overlap of the per-burst rssi, and
+  absolute-position dedup of bursts found twice.  The front end is
+  ``kernels.rx_front``.
+
+Reports are selected on the device (top ``max_reports`` deliverable
+slots, as the JAX package does) and fetched when the block is drained;
+a block with more deliverable slots than that fetches the full report
+planes instead, so no report is ever dropped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from amps_tpu_torch.config import SystemConfig
+from amps_tpu_torch.device import as_tensor, resolve_device
+from amps_tpu_torch.dsp import channelizer as chz
+from amps_tpu_torch.dsp.fm import fsk_manchester_baseband
+from amps_tpu_torch.eval.traffic import CODED_DCC
+from amps_tpu_torch.kernels.rx_front import analyze_demod
+from amps_tpu_torch.kernels.synth import synthesize_block
+from amps_tpu_torch.parallel.pipeline import MultichannelSpec
+from amps_tpu_torch.rx import correlator, decoder
+from amps_tpu_torch.tx.focc import FoccStream, focc_frame_bits
+
+# minimum-Hamming-distance decode of the 7-bit coded DCC (553 2.6.1.2)
+_DCC_CODES = np.array([CODED_DCC[d] for d in range(4)], np.int32)
+
+
+def decode_dcc(bits7) -> int:
+    b = np.asarray(bits7, np.int32).reshape(1, 7)
+    return int(np.argmin(np.abs(_DCC_CODES - b).sum(axis=1)))
+
+
+def _rx_stream_block(x, hist, demod_carry, prev_iq, pw_carry,
+                     spec: MultichannelSpec, hop_parity: int,
+                     max_bursts: int, threshold: float, front_end):
+    """One streaming receive step with carried state.
+
+    x: (N, 2) new wideband samples, N a multiple of M/2.  hist: (L-P, 2)
+    analyzer history.  demod_carry, pw_carry: (M, OVR) demod and
+    power-series overlap of the previous window.  prev_iq: (M, 2) last
+    channel sample.  ``front_end`` is ``kernels.rx_front.analyze_demod``
+    or its plain version.  Returns a dict of the candidate planes
+    (starts, valid, quality, hard, rssi), chan_power, demod_new and the
+    new state (hist, carry, prev, pw_carry)."""
+    M, T, sps = spec.num_channels, spec.taps_per_phase, spec.chan_sps
+    x_ext = torch.cat([hist, x], dim=0).contiguous()
+    demod_new, last, pw_new = front_end(x_ext, M, T, hop_parity, prev_iq)
+    Nh = demod_new.shape[-1]
+    chan_power = torch.sqrt(torch.mean(pw_new, dim=-1))
+    demod = torch.cat([demod_carry, demod_new], dim=-1)
+    pw_blk = correlator.window_power_blocks([pw_carry, pw_new])
+    # io_bf16: bf16 phase-stream plane; the carried demod stays f32
+    dsp = demod.to(torch.bfloat16) if spec.io_bf16 else demod
+    phases = correlator.symbol_phase_streams(dsp, sps)
+    starts, valid, quality = correlator.find_bursts_phases(
+        phases, sps, max_bursts, threshold, out_bf16=spec.corr_bf16)
+    # only bursts whose whole capture fits this window; one cut off by
+    # the block edge is found complete in the next window's overlap
+    valid = valid & (starts + correlator.CAPTURE_SYMBOLS * sps
+                     <= demod.shape[-1])
+    rssi = correlator.burst_rssi_blocks(pw_blk, starts, sps)
+    lead = correlator.TRIGGER_SYMBOLS if spec.max_trigger_errors >= 0 else 0
+    ext = correlator.extract_from_phases(
+        phases, starts, sps,
+        hard_dtype=torch.bfloat16 if spec.io_bf16 else torch.uint8,
+        lead=lead)
+    if spec.max_trigger_errors >= 0:
+        valid = correlator.apply_trigger_gate_soft(
+            valid, ext[2], spec.max_trigger_errors, starts, sps)
+    ovr = demod_carry.shape[-1]
+    if Nh >= ovr:
+        new_pw_carry = pw_new[:, Nh - ovr:]
+    else:
+        new_pw_carry = torch.cat([pw_carry[:, Nh:], pw_new], dim=-1)
+    return {
+        "starts": starts, "valid": valid, "quality": quality,
+        "hard": ext[0], "rssi": rssi, "chan_power": chan_power,
+        "demod_new": demod_new,
+        "hist": x_ext[x_ext.shape[0] - (M * T - M // 2):].clone(),
+        "carry": demod[:, demod.shape[-1] - ovr:].clone(),
+        "prev": last, "pw_carry": new_pw_carry.clone(),
+    }
+
+
+def _compact_reports(planes, min_rssi: float, R: int, require_word_a: bool):
+    """Device-side selection of the top-R candidate slots (deliverable
+    first, then by trigger quality) and their report fields.
+    'Deliverable' applies the host gates (min_rssi, require_word_a) to
+    the same f32 values, so a ghost the host would discard cannot evict
+    a genuine burst from the R slots; n_valid counts deliverable slots."""
+    starts, valid, quality, words, ok, bad, dccs, rssi = planes
+    M, K = valid.shape
+    deliverable = valid & (rssi.to(torch.float32)
+                           >= float(np.float32(min_rssi)))
+    if require_word_a:
+        deliverable = deliverable & ok[..., 0].to(torch.bool)
+    prio = torch.where(deliverable, 1.0 + quality.to(torch.float32),
+                       torch.zeros((), device=valid.device))
+    vals, idx = torch.topk(prio.reshape(-1), R)
+
+    def sel(a):
+        return a.reshape((M * K,) + a.shape[2:])[idx]
+
+    return {"idx": idx, "cvalid": vals > 0.0, "starts": sel(starts),
+            "quality": sel(quality).to(torch.float32),
+            "rssi": sel(rssi).to(torch.float32), "words": sel(words),
+            "ok": sel(ok), "bad": sel(bad), "dccs": sel(dccs),
+            "n_valid": torch.sum(deliverable)}
+
+
+def _candidates(fields):
+    """Host arrays (idx, cvalid, starts, quality, rssi, words, ok, bad,
+    dccs) of fetched report fields."""
+    f = {k: v.cpu().numpy() for k, v in fields.items()}
+    return (f["idx"].astype(np.int64), f["cvalid"].astype(bool),
+            f["starts"].astype(np.int64), f["quality"].astype(np.float32),
+            f["rssi"].astype(np.float32), f["words"], f["ok"].astype(bool),
+            f["bad"], f["dccs"])
+
+
+@dataclasses.dataclass
+class BurstReport:
+    channel: int
+    abs_symbol: int          # absolute Manchester-symbol index of capture
+    quality: float
+    words: np.ndarray        # (7, 36)
+    word_ok: np.ndarray      # (7,)
+    bad_symbols: np.ndarray  # (8,)
+    rssi: float = 0.0        # band power over the burst's own capture
+    dcc: int = -1            # decoded digital color code
+
+
+class MultichannelReceiver:
+    """Streaming wideband receiver over the channelizer bank.
+
+    ``device``: where the carried state lives and the blocks are
+    processed; on the CPU the front end is the kernel's plain version,
+    a CUDA device runs the ``rx_front`` kernel.  None: the device of
+    the first block pushed (the CPU for an array-like block).  Host data
+    (numpy, CPU tensors) is copied to the receiver's device; a block on
+    any other device than the receiver's raises, so work handed over on
+    the card is never moved to the host.
+
+    ``front_end``: the receive front end, ``kernels.rx_front.
+    analyze_demod``; ``analyze_demod_reference`` runs its plain version
+    on any device (to compare the two on one stream).
+
+    ``pipeline_depth``: blocks kept in flight.  At depth K > 1,
+    ``push(block_i)`` only waits for block i-K, so the device computes
+    block i while the host delivers reports of earlier blocks; call
+    ``flush()`` to drain the tail.  Reports are then late by up to K-1
+    blocks.
+
+    ``policy``: 5-repeat word combining, "majority" (bit-wise vote
+    before BCH) or "first_ok" (first decodable repeat).
+
+    ``min_rssi``: drop reports whose band power over the burst's own
+    capture is below this level (FM capture ghosts decode cleanly at
+    20+ dB below any real transmission).  ``require_word_a``: drop
+    reports whose Word A failed BCH decode.
+
+    ``tap_demod_path``: append each block's raw (M, Nh) float32 demod
+    to this file.  ``max_reports``: report slots fetched per block
+    before the full planes are (``report_overflows`` counts those
+    blocks).  ``supervision_slots`` needs the voice receive path, which
+    is not ported yet: a non-empty tuple raises."""
+
+    def __init__(self, spec: MultichannelSpec,
+                 on_burst: Optional[Callable[[BurstReport], None]] = None,
+                 max_bursts: int = 4, threshold: float = 0.55,
+                 policy: str = "majority",
+                 tap_demod_path: Optional[str] = None,
+                 pipeline_depth: int = 1,
+                 min_rssi: float = 0.0,
+                 require_word_a: bool = True,
+                 supervision_slots: tuple = (),
+                 max_reports: int = 64,
+                 device=None,
+                 front_end: Callable = analyze_demod):
+        if spec.fold != "bank":
+            raise NotImplementedError(
+                f"fold={spec.fold!r}: only the production fold 'bank' is "
+                "ported")
+        if supervision_slots:
+            raise NotImplementedError(
+                "supervision_slots needs rx/voice.py, which is not ported "
+                "yet (ROADMAP Queue 1, M5)")
+        self.spec = spec
+        M, T = spec.num_channels, spec.taps_per_phase
+        self.M, self.T = M, T
+        self.sps = spec.chan_sps
+        self.device = resolve_device(device)
+        self._placed = device is not None
+        self._front_end = front_end
+        self.max_bursts = max_bursts
+        self.threshold = threshold
+        self.min_rssi = min_rssi
+        self.require_word_a = require_word_a
+        self.max_reports = min(max_reports, M * max_bursts)
+        self.report_overflows = 0
+        self.policy = policy
+        self.on_burst = on_burst
+        # overlap: a burst (trigger + capture) must fit in the carry so
+        # one spanning a block boundary is wholly inside the next window
+        self.ovr = (correlator.TRIGGER_SYMBOLS
+                    + correlator.CAPTURE_SYMBOLS) * self.sps
+        dev = self.device
+        self._hist = torch.zeros((M * T - M // 2, 2), device=dev)
+        self._parity = 0
+        self._carry = torch.zeros((M, self.ovr), device=dev)
+        self._pw_carry = torch.zeros((M, self.ovr), device=dev)
+        self._prev = torch.zeros((M, 2), device=dev)
+        self._abs_base = -self.ovr  # demod[0]'s absolute channel-sample idx
+        self._last_seen = np.full(M, -10**12, np.int64)
+        self.reports: List[BurstReport] = []
+        self._tap = open(tap_demod_path, "ab") if tap_demod_path else None
+        self.depth = max(1, pipeline_depth)
+        self._inflight: List[dict] = []
+        self._last_block_len = 0
+        # non-hop-multiple tail buffered between pushes
+        self._residue = None
+
+    def _place(self, x_block) -> torch.Tensor:
+        """The block as a float32 tensor on the receiver's device; a
+        receiver built without a device first moves its state to the
+        device of the first block (see the class docstring)."""
+        if isinstance(x_block, torch.Tensor) and \
+                x_block.device != self.device:
+            if not self._placed:
+                dev = x_block.device
+                self._hist, self._carry, self._pw_carry, self._prev = (
+                    t.to(dev) for t in (self._hist, self._carry,
+                                        self._pw_carry, self._prev))
+                if self._residue is not None:
+                    self._residue = self._residue.to(dev)
+                self.device = dev
+            elif x_block.device.type != "cpu":
+                raise ValueError(
+                    f"block on {x_block.device}, receiver on {self.device}: "
+                    "build the receiver with the device of its blocks")
+        self._placed = True
+        return as_tensor(x_block, device=self.device)
+
+    def push(self, x_block) -> List[BurstReport]:
+        """Process one wideband block ((N, 2), any N); returns the new
+        deduplicated burst reports -- of this block at depth 1, of
+        blocks up to ``pipeline_depth``-1 behind otherwise.  The
+        analyzer consumes whole hops (M/2 samples): a sub-hop tail is
+        buffered and prepended to the next push."""
+        P = self.M // 2
+        x = self._place(x_block)
+        if self._residue is not None and self._residue.shape[0]:
+            x = torch.cat([self._residue, x], dim=0)
+        self._residue = None
+        rem = x.shape[0] % P
+        if rem:
+            self._residue = x[x.shape[0] - rem:].clone()
+            x = x[: x.shape[0] - rem]
+        if x.shape[0] == 0:
+            return []
+        self._last_block_len = int(x.shape[0])
+        blk = _rx_stream_block(x, self._hist, self._carry, self._prev,
+                               self._pw_carry, self.spec, self._parity,
+                               self.max_bursts, self.threshold,
+                               self._front_end)
+        self._hist, self._carry = blk["hist"], blk["carry"]
+        self._prev, self._pw_carry = blk["prev"], blk["pw_carry"]
+        dec = decoder.decode_bursts(blk["hard"], policy=self.policy,
+                                    repeat_gate=self.spec.decode_repeat_gate)
+        planes = (blk["starts"], blk["valid"], blk["quality"], dec.words,
+                  dec.word_ok, dec.bad_symbols, dec.dcc_bits, blk["rssi"])
+        # device tensors only: the host waits when the entry is drained;
+        # the full planes stay referenced for the overflow fetch
+        self._inflight.append(dict(
+            comp=_compact_reports(planes, self.min_rssi, self.max_reports,
+                                  self.require_word_a),
+            full=planes,
+            demod=blk["demod_new"] if self._tap is not None else None,
+            abs_base=self._abs_base))
+        nh = x.shape[0] // P
+        self._parity = (self._parity + nh) % 2
+        self._abs_base += nh
+        out: List[BurstReport] = []
+        while len(self._inflight) >= self.depth:
+            out.extend(self._drain_one(self._inflight.pop(0)))
+        return out
+
+    def flush(self, pad_tail: bool = False) -> List[BurstReport]:
+        """Drain every in-flight block (end of stream).  ``pad_tail``:
+        first push one zero block, so a burst pending in the carried
+        overlap is completed against trailing silence and reported."""
+        out: List[BurstReport] = []
+        if pad_tail and self._last_block_len:
+            out.extend(self.push(torch.zeros((self._last_block_len, 2),
+                                             device=self.device)))
+        elif self._residue is not None and self._residue.shape[0]:
+            # a buffered sub-hop tail, against just enough zeros to
+            # complete one hop
+            pad = self.M // 2 - self._residue.shape[0] % (self.M // 2)
+            out.extend(self.push(torch.zeros((pad, 2), device=self.device)))
+        while self._inflight:
+            out.extend(self._drain_one(self._inflight.pop(0)))
+        if self._tap is not None:
+            self._tap.flush()
+        return out
+
+    def close(self) -> None:
+        """Close the demod tap file.  Idempotent."""
+        if self._tap is not None:
+            self._tap.close()
+            self._tap = None
+
+    def _drain_one(self, e: dict) -> List[BurstReport]:
+        # the report fetch comes first: it is where a device failure
+        # surfaces, before anything of the block is delivered
+        cand = _candidates(e["comp"])
+        if int(e["comp"]["n_valid"]) > len(cand[0]):
+            # more deliverable slots than max_reports: fetch the full
+            # planes (ascending flat c*K+k index, as below) so that no
+            # report is dropped; counted after the fallible fetch
+            names = ("starts", "cvalid", "quality", "words", "ok", "bad",
+                     "dccs", "rssi")
+            full = {n: a.reshape((-1,) + a.shape[2:])
+                    for n, a in zip(names, e["full"])}
+            full["idx"] = torch.arange(full["cvalid"].shape[0])
+            cand = _candidates(full)
+            self.report_overflows += 1
+        idx, cvalid, starts, quality, rssi_pb, words, ok, bad, dccs = cand
+        if self._tap is not None and e["demod"] is not None:
+            e["demod"].cpu().numpy().astype(np.float32).tofile(self._tap)
+        out = []
+        # ascending flat (c*K+k) index: the (c, k) order of the full planes
+        for r in np.argsort(idx, kind="stable"):
+            if not cvalid[r]:
+                continue
+            c = int(idx[r]) // self.max_bursts
+            rssi = float(rssi_pb[r])
+            if rssi < self.min_rssi:
+                continue
+            if self.require_word_a and not ok[r, 0]:
+                continue
+            abs_sample = e["abs_base"] + int(starts[r])
+            # dedup: the same burst found again in the overlap
+            if abs(abs_sample - self._last_seen[c]) < \
+                    correlator.CAPTURE_SYMBOLS * self.sps // 2:
+                continue
+            self._last_seen[c] = abs_sample
+            rep = BurstReport(c, abs_sample // self.sps, float(quality[r]),
+                              words[r], ok[r], bad[r], rssi=rssi,
+                              dcc=decode_dcc(dccs[r]))
+            out.append(rep)
+            if self.on_burst:
+                self.on_burst(rep)
+        self.reports.extend(out)
+        return out
+
+
+class MultichannelTransmitter:
+    """Streaming wideband transmitter: one FOCC stream per control
+    channel; the other bank slots are silent unless a baseband source is
+    installed with ``set_channel_source``.  ``device``: where the band
+    is synthesized (default the CPU, where the synthesis is the kernel's
+    plain version; a CUDA device runs the ``synth`` kernel).
+    ``synthesize``: the synthesis, ``kernels.synth.synthesize_block``;
+    ``synthesize_block_reference`` runs its plain version on any device
+    (to compare the two)."""
+
+    def __init__(self, spec: MultichannelSpec,
+                 system: Optional[SystemConfig] = None,
+                 control_channels: Optional[List[int]] = None,
+                 device=None,
+                 synthesize: Callable = synthesize_block):
+        self.spec = spec
+        self.system = system or SystemConfig()
+        M = spec.num_channels
+        self.M = M
+        self.sps = spec.chan_sps
+        self.device = resolve_device(device)
+        ctrl = (control_channels if control_channels is not None
+                else list(range(M)))
+        self.focc: Dict[int, FoccStream] = {
+            k: FoccStream(self.system, sps=self.sps) for k in ctrl}
+        self._sources: Dict[int, Callable[[int], np.ndarray]] = {}
+        self._state = chz.synthesizer_init(spec.chz_spec, device=self.device)
+        self._accum = {k: 0 for k in ctrl}
+        self._synthesize = synthesize
+
+    def set_channel_source(self, k: int,
+                           source: Callable[[int], np.ndarray]) -> None:
+        """Install a baseband source for slot k: source(n) -> (n, 2)
+        riq (e.g. a voice+SAT generator or an FVC burst stream)."""
+        self._sources[k] = source
+
+    def _baseband(self) -> torch.Tensor:
+        """(hops, M, 2) channel plane of the next superframe: all control
+        channels framed and modulated as one batch, then the sources."""
+        if not self.focc:
+            raise ValueError("no control channels configured")
+        dev = self.device
+        ks = sorted(self.focc)
+        pairs = np.stack([self.focc[k].next_word_pairs() for k in ks])
+        bits = focc_frame_bits(torch.as_tensor(pairs, device=dev))
+        acc0 = torch.as_tensor([self._accum[k] for k in ks],
+                               dtype=torch.int32, device=dev)
+        # Manchester bits are DC-balanced, so the accumulator is a fixed
+        # point; carried anyway
+        bb, acc = fsk_manchester_baseband(bits, self.sps,
+                                          self.spec.fm_sensitivity, acc0)
+        self._accum.update(zip(ks, acc.cpu().tolist()))
+        n_hops = bb.shape[1]
+        Y = torch.zeros((n_hops, self.M, 2), device=dev)
+        Y[:, torch.as_tensor(ks, device=dev)] = bb.transpose(0, 1)
+        if self._sources:
+            sk = sorted(self._sources)
+            src = np.stack([np.asarray(self._sources[k](n_hops), np.float32)
+                            for k in sk], axis=1)
+            Y[:, torch.as_tensor(sk, device=dev)] = torch.as_tensor(
+                src, device=dev)
+        return Y
+
+    def next_block(self) -> torch.Tensor:
+        """One superframe of wideband samples, (hops * M/2, 2) float32."""
+        Y = self._baseband()
+        x, carry = self._synthesize(Y, self.M, self.spec.taps_per_phase,
+                                    self._state.hop_idx % 2,
+                                    self._state.carry)
+        self._state = chz.SynthesizerState(carry,
+                                           self._state.hop_idx + Y.shape[0])
+        return x

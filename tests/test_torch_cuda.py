@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA front-end kernel against its plain
-version, and the receive block on the card against the same block on
-the CPU.  Every test here needs a CUDA device and skips without one.
+"""The port on the card: each CUDA kernel against its plain version, and
+the receive block, the streaming receiver and the transmitter on the
+card against the same on the CPU.  Every test here needs a CUDA device
+and skips without one.
 
 This file imports neither ``jax`` nor ``amps_tpu``, so it runs on a
 machine without JAX:
@@ -17,8 +18,13 @@ import pytest
 import torch
 
 from amps_tpu_torch.eval.traffic import BurstEvent, synthesize_reverse_band
+from amps_tpu_torch.kernels import rx_front as K2
 from amps_tpu_torch.kernels import rx_phases as K
+from amps_tpu_torch.kernels import synth as K4
 from amps_tpu_torch.parallel import pipeline as pl
+from amps_tpu_torch.rx.correlator import window_power_blocks
+from amps_tpu_torch.runtime.streamer import (MultichannelReceiver,
+                                             MultichannelTransmitter)
 
 BRANCH_CUT_FRACTION = 1e-5
 
@@ -96,3 +102,206 @@ def test_rx_block_on_card_matches_cpu(cuda_device):
     for ev in events:
         assert torch.equal(got["words"][ev.channel, 0, :3],
                            torch.as_tensor(ev.words))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Nh,parity,planar", [
+    (256, 1000, 0, False),
+    (1024, 800, 1, True),
+    (64, 384, 1, False),       # one hop past a whole tile of 383
+])
+def test_rx_front_kernel_matches_plain_version_on_card(cuda_device, M, Nh,
+                                                       parity, planar):
+    T = 8
+    x = torch.as_tensor(_x_ext(M, T, Nh, seed=M + 1), device=cuda_device)
+    if planar:
+        x = x.t().contiguous()
+    prev = torch.randn((M, 2), device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(M))
+    before = K2.LAUNCHES
+    d, last, pw = K2.analyze_demod(x, M, T, parity, prev)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES == before + 1
+    rd, rlast, rpw = K2.analyze_demod_reference(x, M, T, parity, prev)
+    err = (d - rd).abs()
+    assert (err > 1e-3).sum().item() <= int(BRANCH_CUT_FRACTION * err.numel())
+    # power as the 384-hop block means the rssi uses (a sample near zero
+    # carries the roundoff of the strong ones, up to ~1e-2 of its size)
+    blk, rblk = (window_power_blocks([p]) for p in (pw, rpw))
+    assert ((blk - rblk).abs() / rblk).max().item() <= 1e-4
+    assert ((last - rlast).abs().max() / rlast.pow(2).mean().sqrt()).item() \
+        <= 1e-4
+
+
+@pytest.mark.cuda
+def test_rx_front_kernel_chained_calls_equal_one(cuda_device):
+    M, T = 256, 8
+    P = M // 2
+    N1, N2 = 1001, 700
+    x = torch.as_tensor(_x_ext(M, T, N1 + N2, seed=5), device=cuda_device)
+    zero = torch.zeros((M, 2), device=cuda_device)
+    d, last, pw = K2.analyze_demod(x, M, T, 0, zero)
+    da, la, pa = K2.analyze_demod(x[: (N1 + 2 * T - 1) * P].contiguous(), M,
+                                  T, 0, zero)
+    db, lb, pb = K2.analyze_demod(x[N1 * P:].contiguous(), M, T, N1 % 2, la)
+    assert torch.equal(torch.cat([da, db], 1), d)
+    assert torch.equal(torch.cat([pa, pb], 1), pw)
+    assert torch.equal(lb, last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Nh,parity", [
+    (64, 300, 0), (256, 1000, 1), (1024, 257, 1), (128, 3, 0)])
+def test_synth_kernel_matches_plain_version_on_card(cuda_device, M, Nh,
+                                                    parity):
+    T = 8
+    g = torch.Generator(cuda_device).manual_seed(Nh)
+    Y = torch.randn((Nh, M, 2), device=cuda_device, generator=g)
+    carry = torch.randn((M * T - M // 2, 2), device=cuda_device, generator=g)
+    before = K4.LAUNCHES
+    x, c = K4.synthesize_block(Y, M, T, parity, carry)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == before + 1
+    rx, rc = K4.synthesize_block_reference(Y, M, T, parity, carry)
+    rms = rx.pow(2).mean().sqrt()
+    assert ((x - rx).abs().max() / rms).item() <= 1e-4
+    assert ((c - rc).abs().max() / rms).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_cannot_run(cuda_device):
+    Y = torch.zeros((10, 96, 2), device=cuda_device)
+    with pytest.raises(ValueError):            # M not a multiple of 64
+        K4.synthesize_block(Y, 96, 8, 0,
+                            torch.zeros((96 * 8 - 48, 2), device=cuda_device))
+    x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
+    with pytest.raises(ValueError):
+        K2.analyze_demod(x, 96, 8, 0, torch.zeros((96, 2), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_synth_rejects_misaligned_input(cuda_device):
+    M, T, Nh = 64, 8, 16
+    Y = torch.zeros(Nh * M * 2 + 1, device=cuda_device)[1:].view(Nh, M, 2)
+    carry = torch.zeros((M * T - M // 2, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        K4.synthesize_block(Y, M, T, 0, carry)
+
+
+def _duplex_band(M, total_hops):
+    spec = pl.MultichannelSpec(num_channels=M, taps_per_phase=8, fold="bank")
+    rng = np.random.default_rng(M)
+    burst = (30 + 11 + 7 + 7 * 240) * 2 * 3
+    events = [BurstEvent(c, h, rng.integers(0, 2, (3, 36)).astype(np.uint8))
+              for c, h in ((1, 300), (M - 2, 5000),
+                           (M // 2, total_hops - 4 - burst))]
+    return spec, events, synthesize_reverse_band(events, spec, total_hops,
+                                                 noise_sigma=0.001)
+
+
+@pytest.mark.cuda
+def test_streaming_receiver_on_card_matches_cpu(cuda_device):
+    """f32 spec, M=64, ragged pushes at depth 2: the kernel front end on
+    the card and the plain one on the CPU give the same report list."""
+    M = 64
+    spec, events, x = _duplex_band(M, 20000)
+    n = 4095 * M // 2 + 5
+    blocks = [x[i: i + n] for i in range(0, x.shape[0], n)]
+
+    def run(device):
+        rx = MultichannelReceiver(spec, threshold=0.5, pipeline_depth=2,
+                                  device=device)
+        reps = []
+        for b in blocks:
+            reps += rx.push(b.to(device))
+        return reps + rx.flush(pad_tail=True)
+
+    want = run("cpu")
+    before = K2.LAUNCHES
+    got = run(cuda_device)
+    assert K2.LAUNCHES - before == len(blocks) + 1     # + the pad block
+    key = [(r.channel, r.abs_symbol, r.words.tolist(), r.word_ok.tolist(),
+            r.dcc) for r in got]
+    assert key == [(r.channel, r.abs_symbol, r.words.tolist(),
+                    r.word_ok.tolist(), r.dcc) for r in want]
+    assert sorted(r.channel for r in got) == sorted(e.channel for e in events)
+
+
+@pytest.mark.cuda
+def test_receiver_without_device_runs_kernel_on_card(cuda_device):
+    """A receiver built without a device and handed blocks on the card
+    places itself there and launches the rx_front kernel on every push;
+    a receiver on the CPU refuses such a block."""
+    M = 64
+    spec, events, x = _duplex_band(M, 20000)
+    n = 4095 * M // 2 + 5
+    blocks = [x[i: i + n].to(cuda_device) for i in range(0, x.shape[0], n)]
+    rx = MultichannelReceiver(spec, threshold=0.5)
+    before = K2.LAUNCHES
+    reps = []
+    for b in blocks:
+        reps += rx.push(b)
+    reps += rx.flush(pad_tail=True)
+    assert K2.LAUNCHES - before == len(blocks) + 1     # + the pad block
+    assert rx.device == cuda_device and rx._carry.device == cuda_device
+    assert sorted(r.channel for r in reps) == sorted(e.channel for e in events)
+    with pytest.raises(ValueError):
+        MultichannelReceiver(spec, device="cpu").push(blocks[0])
+
+
+@pytest.mark.cuda
+def test_resilient_receiver_recovers_on_card(cuda_device, monkeypatch):
+    """ResilientReceiver over a factory that names no device: the blocks
+    on the card run the kernel, and after an injected push failure the
+    replay places the fresh receiver on the card again."""
+    from amps_tpu_torch.runtime.resilient import ResilientReceiver
+    M = 64
+    spec, events, x = _duplex_band(M, 20000)
+    n = 4096 * M // 2
+    blocks = [x[i: i + n].to(cuda_device) for i in range(0, x.shape[0], n)]
+    orig, calls = MultichannelReceiver.push, {"n": 0}
+
+    def push(self, b):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise RuntimeError("injected device loss")
+        return orig(self, b)
+
+    monkeypatch.setattr(MultichannelReceiver, "push", push)
+    res = ResilientReceiver(lambda: MultichannelReceiver(spec, threshold=0.5),
+                            checkpoint_blocks=2)
+    before = K2.LAUNCHES
+    reps = []
+    for b in blocks:
+        reps += res.push(b)
+    reps += res.flush()
+    assert res.recoveries == 1 and res.rx.device == cuda_device
+    # each block once (the failed one in the replay), + the pad block
+    assert K2.LAUNCHES - before == len(blocks) + 1
+    assert sorted(r.channel for r in reps) == sorted(e.channel for e in events)
+
+
+@pytest.mark.cuda
+def test_transmitter_on_card_matches_cpu(cuda_device):
+    spec = pl.MultichannelSpec(num_channels=64, taps_per_phase=8)
+    txs = [MultichannelTransmitter(spec, control_channels=[0, 5, 63],
+                                   device=d) for d in ("cpu", cuda_device)]
+    before = K4.LAUNCHES
+    for _ in range(2):
+        want, got = (tx.next_block() for tx in txs)
+        assert (got.cpu() - want).abs().max().item() <= 2e-4
+    assert K4.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_tx_block_on_card_matches_cpu(cuda_device):
+    spec = pl.MultichannelSpec(num_channels=64, taps_per_phase=8)
+    wp = np.random.default_rng(3).integers(0, 2, (64, 2, 2, 28)).astype(
+        np.uint8)
+    want = pl.tx_multichannel_block(wp, spec)
+    before = K4.LAUNCHES
+    got = pl.tx_multichannel_block(torch.as_tensor(wp, device=cuda_device),
+                                   spec)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == before + 1
+    assert (got.cpu() - want).abs().max().item() <= 2e-4

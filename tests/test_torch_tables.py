@@ -103,13 +103,16 @@ def test_bits_match_jax(nbits):
 
 
 def test_port_imports_without_jax():
-    """The port must run where JAX is not installed."""
+    """The port must run where JAX is not installed: every module of it
+    imports with jax and amps_tpu blocked."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['amps_tpu'] = None\n"
-            "import amps_tpu_torch.parallel.pipeline\n"
-            "import amps_tpu_torch.eval.traffic\n"
-            "import amps_tpu_torch.convert\n"
+            "import importlib, pkgutil, amps_tpu_torch\n"
+            "for m in pkgutil.walk_packages(amps_tpu_torch.__path__,\n"
+            "                               'amps_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'amps_tpu_torch.runtime.resilient' in sys.modules\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'amps_tpu') and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
