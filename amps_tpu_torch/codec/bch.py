@@ -1,5 +1,5 @@
 """BCH(63,51,t=2) codec, the PyTorch port of ``amps_tpu.codec.bch``:
-the (40, 28) forward and (48, 36) reverse shortened codes.
+the (40, 28) forward and (48, 36) reverse shortened codes, both ways.
 
 Encode is a GF(2) matmul of the info bits with the parity matrix;
 decode is a syndrome matmul mod 2, a pack to a 12-bit index and a
@@ -154,3 +154,14 @@ def recc_bch_decode(rx48):
     g = _syndrome_packed(rx48, 48)
     ok = (g & (1 << 16)) != 0
     return apply_error_pattern(rx48, g, 36), ok
+
+
+def focc_bch_decode(rx40):
+    """(..., 40) received bits -> ((..., 28) corrected info bits, (...) ok).
+
+    The base station never decodes the forward code; the mobile side
+    (``ms.focc_rx``, ``ms.fvc_rx``) does."""
+    rx40 = torch.as_tensor(rx40)
+    g = _syndrome_packed(rx40, 40)
+    ok = (g & (1 << 16)) != 0
+    return apply_error_pattern(rx40, g, 28), ok

@@ -21,7 +21,8 @@ from amps_tpu_torch.runtime.state import restore_receiver, restore_transmitter
 def analyzer_state_from_numpy(history, hop_idx: int,
                               device=None) -> AnalyzerState:
     """A JAX ``AnalyzerState`` (history as numpy, hop index) as the port's,
-    so a JAX receiver's block k continues as the port's block k+1."""
+    so a JAX receiver's block k continues as the port's block k+1; on
+    ``device`` (default the current CUDA device, the CPU when named)."""
     hist = torch.tensor(np.asarray(history, dtype=np.float32),
                         device=resolve_device(device))
     return AnalyzerState(hist, int(hop_idx))

@@ -19,8 +19,9 @@
 // What bounds it on an H100.  The dense transform, as in rx_phases.cu:
 // 2·M² real FMAs per hop with the channel-pair symmetry, ~17 G FMA for a
 // 1<<22-sample block at M = 1024, against 16 MB of input and 2 x 32 MB
-// of output.  Arithmetic bounds it; the output is written once,
-// coalesced.
+// of output.  Arithmetic bounds this design; the output is written once,
+// coalesced.  The function itself needs only an FFT-sized transform
+// (5·M·log2 M flops a hop), which leaves the bytes as its bound.
 //
 // Design.  Grid = (hop tiles of 383 hops) x (channel tiles of 64).  A
 // block computes the 384 analysis hops h0-1 .. h0+382, six whole 64-hop

@@ -24,7 +24,9 @@
 // half that with the channel-pair symmetry used below — against 32 MB of
 // input and ~12 MB of output, so the kernel is bound by arithmetic: the
 // f32 FMA pipe, the shared-memory reads that feed it, and the latency at
-// the block's barriers.  It computes the transform in f32 FMA for every
+// the block's barriers.  The function itself needs only an FFT-sized
+// transform (5·M·log2 M flops a hop), which leaves the bytes as its
+// bound.  It computes the transform in f32 FMA for every
 // spec (transform_bf16 is accepted by the caller and not used); the later
 // step is bf16 wgmma and/or the two-stage Cooley-Tukey split
 // (dsp/channelizer.py _dft_split_mats, ~7.5x fewer MACs at M = 1024).

@@ -16,7 +16,10 @@
 // hop, 2·M² with the channel-pair symmetry below: ~105 G FMA for one
 // M = 1024 superframe (50004 hops), against 410 MB of input, 410 MB of
 // u planes written and read once, and 205 MB of output.  The transform
-// is bound by the f32 FMA pipe; the overlap-add by device memory.
+// is bound by the f32 FMA pipe; the overlap-add by device memory.  The
+// function itself needs only an FFT-sized transform (5·M·log2 M flops a
+// hop) and no u planes, which leaves the Y and output bytes as its
+// bound.
 //
 // Design.  Two kernels on the caller's stream.
 //   * synth_transform_kernel: a tiled f32 SIMT GEMM.  Grid = (hop tiles

@@ -16,11 +16,12 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device`` (None means the CPU; "cuda" the
-    current CUDA device, with its index, so that it compares equal to a
-    tensor's device).  A CUDA device asked for on a machine without one
-    raises: the port never falls back to the CPU silently."""
-    dev = torch.device("cpu" if device is None else device)
+    """The device of an entry point: ``device`` as a ``torch.device``,
+    where None and "cuda" mean the current CUDA device, with its index,
+    so that it compares equal to a tensor's device.  The CPU is used only
+    when named.  A CUDA device asked for on a machine without one raises:
+    the port never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but CUDA is not "
@@ -33,7 +34,10 @@ def resolve_device(device=None) -> torch.device:
 def as_tensor(x, dtype=torch.float32, device=None) -> torch.Tensor:
     """Tensor of ``dtype`` on ``device`` (default: the input's own device
     for tensors, the CPU for numpy/array-likes)."""
+    if device is None:
+        dev = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    else:
+        dev = resolve_device(device)
     if isinstance(x, torch.Tensor):
-        dev = x.device if device is None else resolve_device(device)
         return x.to(device=dev, dtype=dtype)
-    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
+    return torch.as_tensor(x, dtype=dtype, device=dev)

@@ -2,8 +2,11 @@
 PyTorch port of ``amps_tpu.dsp.fm``.
 
 ``fast_atan2`` keeps the JAX package's constants and operation order
-exactly (the CUDA kernel in ``csrc/rx_phases.cu`` repeats them), so the
+exactly (the CUDA kernels in ``csrc/`` repeat them), so the
 discriminator agrees to the last bit wherever its inputs do.
+``fm_modulate`` accumulates the phase as a float32 cumsum, whose
+summation order differs between backends: over a long block the phase
+agrees with the JAX package's to a tolerance, not to the bit.
 """
 
 from __future__ import annotations
@@ -55,6 +58,16 @@ def fm_modulate_symbols(symbols, sensitivity: float, phase_accum0=0):
         + torch.as_tensor(phase_accum0, dtype=torch.int32, device=s.device)
     phase = accum.to(torch.float32) * float(np.float32(sensitivity))
     return expj(phase), accum[..., -1]
+
+
+def fm_modulate(x, sensitivity: float, phase0=0.0):
+    """FM-modulate a float signal (..., n): phase = sens * cumsum(x) +
+    phase0.  Returns (iq riq (..., n, 2), final unwrapped phase (...,));
+    callers streaming long signals wrap phase0 mod 2π between blocks."""
+    x = as_tensor(x)
+    phase = torch.cumsum(x, dim=-1) * float(np.float32(sensitivity)) \
+        + float(phase0)
+    return expj(phase), phase[..., -1]
 
 
 def fsk_manchester_baseband(bits, sps: int, sensitivity: float,
@@ -111,3 +124,20 @@ def quadrature_demod_planar(xr, xi, gain: float = 1.0, prev=None,
     if return_power:
         return demod, last, torch.sqrt(torch.mean(re * re + im * im, dim=-1))
     return demod, last
+
+
+def quadrature_demod(x, gain: float = 1.0, prev=None):
+    """GR analog_quadrature_demod_cf on riq (..., n, 2):
+    y[n] = gain * arg(x[n] conj(x[n-1])), with x[-1] = ``prev`` ((..., 2))
+    or 0 (the first output is then 0).  Returns (demod (..., n) float32,
+    last sample (..., 2))."""
+    x = as_tensor(x)
+    if prev is None:
+        prev_s = torch.zeros_like(x[..., :1, :])
+    else:
+        prev_s = as_tensor(prev, device=x.device)[..., None, :]
+    s = torch.cat([prev_s, x[..., :-1, :]], dim=-2)
+    xr, xi, sr, si = x[..., 0], x[..., 1], s[..., 0], s[..., 1]
+    re = xr * sr + xi * si
+    im = xi * sr - xr * si
+    return fast_atan2(im, re) * float(np.float32(gain)), x[..., -1, :]

@@ -1,9 +1,17 @@
-"""Window functions for the prototype filter (``amps_tpu.dsp.windows._window``,
-numpy, bit-equal)."""
+"""Window functions and GNU Radio ``firdes.low_pass`` filter design, the
+port of ``amps_tpu.dsp.windows`` (numpy, bit-equal)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+_WINDOW_ATT_DB = {
+    "hamming": 53.0,     # GR WIN_HAMMING (firdes default)
+    "hann": 44.0,
+    "blackman": 74.0,    # GR WIN_BLACKMAN
+    "blackman_harris": 92.0,
+    "rectangular": 21.0,
+}
 
 
 def _window(kind: str, n: int) -> np.ndarray:
@@ -23,3 +31,30 @@ def _window(kind: str, n: int) -> np.ndarray:
     if kind == "rectangular":
         return np.ones(n)
     raise ValueError(f"unknown window {kind}")
+
+
+def compute_ntaps(fs: float, transition: float, window: str) -> int:
+    """GR's tap count: the window's attenuation over 22 * transition/fs,
+    forced odd."""
+    ntaps = int(_WINDOW_ATT_DB[window] / (22.0 * (transition / fs)))
+    if (ntaps & 1) == 0:
+        ntaps += 1
+    return ntaps
+
+
+def firdes_low_pass(gain: float, fs: float, cutoff: float, transition: float,
+                    window: str = "hamming",
+                    ntaps: int | None = None) -> np.ndarray:
+    """GR firdes.low_pass: windowed sinc at ``cutoff`` Hz, normalized so the
+    DC gain equals ``gain``.  Returns float32 taps (odd length)."""
+    if ntaps is None:
+        ntaps = compute_ntaps(fs, transition, window)
+    w = _window(window, ntaps)
+    m = (ntaps - 1) // 2
+    fwT0 = 2 * np.pi * cutoff / fs
+    n = np.arange(ntaps) - m
+    safe_n = np.where(n == 0, 1, n)
+    taps = np.where(n == 0, fwT0 / np.pi,
+                    np.sin(safe_n * fwT0) / (safe_n * np.pi)) * w
+    taps = taps * (gain / taps.sum())
+    return taps.astype(np.float32)

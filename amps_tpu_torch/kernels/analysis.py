@@ -1,0 +1,203 @@
+"""Analysis channelizer: polyphase fold + M-point DFT of one streaming
+block, writing the channel-major baseband planes; and what the front-end
+kernels built on this analysis share.
+
+``analyze_block`` is the wrapper: a CUDA tensor launches the
+hand-written kernel in ``csrc/analysis.cu`` (the Hopper port of
+``amps_tpu/pallas/channelizer_kernel.py::analyze_chmajor_pallas``,
+without its even-parity and whole-tile limits) or raises; a CPU tensor
+computes the kernel's plain version, ``analyze_reference``.  There is no
+fallback from one to the other.  ``dsp.channelizer.analyze`` calls the
+wrapper.
+
+The receive kernels (``kernels.rx_phases``, ``kernels.rx_front``) run the
+same analysis tile (``csrc/analysis_tile.cuh``) under other epilogues:
+their plain versions start from ``analyze_reference``, and their
+wrappers share ``card_block`` (the checks of an input block on the
+card), ``_tables``, ``bind`` and ``launch``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from amps_tpu_torch.dsp.polyphase import (_analysis_consts, _dft_mats,
+                                          _hop_sign)
+from amps_tpu_torch.kernels import build
+
+CHANNEL_TILE = 64          # channels per thread block (csrc KC)
+MAX_TAPS = 16              # taps per phase the tile holds (csrc kMaxT)
+TILE_HOPS = 128            # hops per thread block (csrc kTileHops)
+
+# kernel launches since import (or since the caller last reset it);
+# incremented only where the kernel is launched
+LAUNCHES = 0
+
+
+def block_geometry(x_ext: torch.Tensor, M: int, T: int):
+    """(planar, n_ext, Nh) of one history-prepended input block of the
+    front-end kernels: (n_ext, 2) riq or (2, n_ext) planar planes, whole
+    hops of M/2 samples, at least one hop past the history."""
+    planar = x_ext.ndim == 2 and x_ext.shape[0] == 2 and x_ext.shape[1] != 2
+    if not planar and not (x_ext.ndim == 2 and x_ext.shape[1] == 2):
+        raise ValueError(f"x_ext must be (n, 2) or (2, n), got "
+                         f"{tuple(x_ext.shape)}")
+    P = M // 2
+    n_ext = x_ext.shape[1] if planar else x_ext.shape[0]
+    if M % 2 or n_ext % P:
+        raise ValueError(f"x_ext length {n_ext} is not a multiple of the "
+                         f"hop {P}")
+    Nh = n_ext // P - (2 * T - 1)
+    if Nh < 1:
+        raise ValueError(f"x_ext of {n_ext} samples holds no hop past the "
+                         f"history")
+    return planar, n_ext, Nh
+
+
+def _fold_banks(x_ext: torch.Tensor, M: int, T: int, planar_in: bool):
+    """Polyphase fold of the bank path: (..., 2, Nh, P) even and odd
+    parity banks as T shifted multiply-adds over P-sample blocks
+    (sample nP + tM + q_w lives in block n + 2t (+1 if q_w >= P))."""
+    P = M // 2
+    n_ext = x_ext.shape[-1 if planar_in else -2]
+    Nh = (n_ext - (M * T - P)) // P
+    nblk = n_ext // P
+    batch = x_ext.shape[:-2]
+    if planar_in:
+        xpl = x_ext[..., : nblk * P]
+    else:
+        xpl = x_ext[..., : nblk * P, :].transpose(-1, -2)
+    bl = xpl.reshape(batch + (2, nblk, P)).to(torch.float32)
+    coef = _analysis_consts(M, T, bl.device)[0]
+    ke, ko = coef[:, :P], coef[:, P:]
+    acc_e = ke[0] * bl[..., 0:Nh, :]
+    acc_o = ko[0] * bl[..., 1:1 + Nh, :]
+    for t in range(1, T):
+        acc_e = acc_e + ke[t] * bl[..., 2 * t: 2 * t + Nh, :]
+        acc_o = acc_o + ko[t] * bl[..., 2 * t + 1: 2 * t + 1 + Nh, :]
+    return acc_e, acc_o, Nh
+
+
+def analyze_reference(x_ext, M: int, T: int, hop0_parity: int = 0,
+                      planar: bool = False, planar_in: bool = False):
+    """Plain PyTorch version of the kernel, on any device: x_ext
+    (..., L-P+N, 2) riq with the history prepended (N = Nh*P), or
+    (..., 2, L-P+N) planar planes when ``planar_in``.  Returns Y
+    (..., M, Nh, 2) channel-major, or (..., 2, M, Nh) when ``planar``.
+    The transform runs in float32."""
+    acc_e, acc_o, Nh = _fold_banks(x_ext, M, T, planar_in)
+    er, ei = acc_e[..., 0, :, :], acc_e[..., 1, :, :]
+    or_, oi = acc_o[..., 0, :, :], acc_o[..., 1, :, :]
+    _, Co, So, Ce, Se, rc, rs = _analysis_consts(M, T, acc_e.device)
+
+    def dot(A, v):   # einsum("kq,...nq->...kn")
+        return A @ v.transpose(-1, -2)
+
+    yr = dot(Co, or_) - dot(So, oi) + dot(Ce, er) - dot(Se, ei)
+    yi = dot(So, or_) + dot(Co, oi) + dot(Se, er) + dot(Ce, ei)
+    yr2 = yr * rc - yi * rs
+    yi2 = yr * rs + yi * rc
+    sgn = _hop_sign(M, Nh, int(hop0_parity) % 2, acc_e.device)
+    if planar:
+        return torch.stack([yr2 * sgn, yi2 * sgn], dim=-3)
+    return torch.stack([yr2 * sgn, yi2 * sgn], dim=-1)
+
+
+@functools.cache
+def _tables(M: int, T: int, device: torch.device):
+    """The kernels' tables on device: fold coefficients (T, M) and the
+    (M, M/2) cos/sin columns of the channel pairs (u, M - u), u < M/2;
+    sin column 0 (sin 0 = 0) carries channel M/2's cos column (-1)^m."""
+    C, S = _dft_mats(M)
+    P = M // 2
+    cu = np.ascontiguousarray(C[:, :P])
+    su = np.ascontiguousarray(S[:, :P])
+    su[:, 0] = C[:, P]
+    coef = _analysis_consts(M, T, device)[0]
+    return (coef, *(torch.as_tensor(a, device=device) for a in (cu, su)))
+
+
+def card_block(x_ext: torch.Tensor, M: int, T: int):
+    """The checks every front-end kernel makes of its input block on the
+    card: a contiguous float32 CUDA tensor of whole hops (``block_geometry``),
+    M a multiple of CHANNEL_TILE, 1 <= T <= MAX_TAPS, and the alignment
+    of its layout (8 bytes riq, 4 planar).  Returns (planar, n_ext, Nh)."""
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_ext.device}")
+    if x_ext.dtype != torch.float32 or not x_ext.is_contiguous():
+        raise ValueError("x_ext must be contiguous float32")
+    if M % CHANNEL_TILE or not 1 <= T <= MAX_TAPS:
+        raise ValueError(f"kernel needs M % {CHANNEL_TILE} == 0 and "
+                         f"1 <= T <= {MAX_TAPS} (M={M}, T={T})")
+    planar, n_ext, Nh = block_geometry(x_ext, M, T)
+    if x_ext.data_ptr() % (4 if planar else 8):
+        raise ValueError("x_ext must be 8-byte aligned (interleaved) or "
+                         "4-byte aligned (planar)")
+    return planar, n_ext, Nh
+
+
+def bind(symbol: str, argtypes, **tile_constants):
+    """The launcher ``symbol`` of the built library with its argument
+    types (it returns a cudaError_t), once the library's tile constants
+    (a C function each, named by the keyword) are the wrapper's."""
+    lib = build.load()
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    for name, want in tile_constants.items():
+        getattr(lib, name).restype = ctypes.c_int
+        if getattr(lib, name)() != want:
+            raise RuntimeError(f"{name} of the built kernel != {want}")
+    return fn
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call the launcher ``fn`` with ``args`` and the device's current
+    stream; raise if it returns a CUDA error."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+@functools.cache
+def _launcher():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return bind("analysis_launch",
+                [p, i, ctypes.c_longlong, p, p, p, p, i, i, i, i, i, p],
+                analysis_channel_tile=CHANNEL_TILE,
+                analysis_tile_hops=TILE_HOPS)
+
+
+def analyze_block(x_ext, M: int, T: int, hop0_parity: int = 0,
+                  planar: bool = False, planar_in: bool = False):
+    """Analysis of one streaming block.
+
+    x_ext: ((Nh + 2T - 1) * M/2, 2) float32 riq, or (2, ...) planar
+    planes when ``planar_in``, with the analyzer history already
+    prepended; hop0_parity the absolute parity of the block's first hop.
+    Returns Y (M, Nh, 2) float32, or (2, M, Nh) when ``planar``:
+    y_k[n] = (-1)^{k(n+parity)} sum_m f_n[m] e^{-j2πkm/M} of the folded
+    hop-n window f_n."""
+    global LAUNCHES
+    if not isinstance(x_ext, torch.Tensor):
+        raise TypeError("x_ext must be a torch.Tensor")
+    if x_ext.device.type == "cpu":
+        return analyze_reference(x_ext, M, T, hop0_parity, planar, planar_in)
+    is_planar, n_ext, Nh = card_block(x_ext, M, T)
+    if is_planar != planar_in:
+        raise ValueError(f"x_ext of shape {tuple(x_ext.shape)} with "
+                         f"planar_in={planar_in}")
+    dev = x_ext.device
+    coef, cu, su = _tables(M, T, dev)
+    y = torch.empty((2, M, Nh) if planar else (M, Nh, 2),
+                    dtype=torch.float32, device=dev)
+    launch("analysis", _launcher(), dev, x_ext.data_ptr(), int(planar_in),
+           n_ext, coef.data_ptr(), cu.data_ptr(), su.data_ptr(), y.data_ptr(),
+           int(planar), M, T, Nh, int(hop0_parity) % 2)
+    LAUNCHES += 1
+    return y

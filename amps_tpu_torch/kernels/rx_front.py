@@ -19,11 +19,11 @@ import functools
 
 import torch
 
-from amps_tpu_torch.dsp import channelizer as chz
 from amps_tpu_torch.dsp.fm import quadrature_demod_planar
-from amps_tpu_torch.kernels import build
-from amps_tpu_torch.kernels.rx_phases import (CHANNEL_TILE, MAX_TAPS,
-                                              _tables, block_geometry)
+from amps_tpu_torch.kernels.analysis import (CHANNEL_TILE, _tables,
+                                             analyze_reference, bind,
+                                             block_geometry, card_block,
+                                             launch)
 
 TILE_HOPS = 383            # demod hops per thread block (csrc kTileHops)
 
@@ -32,24 +32,19 @@ TILE_HOPS = 383            # demod hops per thread block (csrc kTileHops)
 LAUNCHES = 0
 
 
-def _geometry(x_ext: torch.Tensor, M: int, T: int, prev_iq):
-    """(planar, n_ext, Nh) of a history-prepended input block."""
-    planar, n_ext, Nh = block_geometry(x_ext, M, T)
-    if Nh < 1:
-        raise ValueError(f"x_ext of {n_ext} samples holds no hop past the "
-                         f"history")
+def _check_prev(prev_iq: torch.Tensor, M: int) -> None:
     if tuple(prev_iq.shape) != (M, 2):
         raise ValueError(f"prev_iq must be ({M}, 2), got "
                          f"{tuple(prev_iq.shape)}")
-    return planar, n_ext, Nh
 
 
 def analyze_demod_reference(x_ext, M: int, T: int, hop0_parity: int,
                             prev_iq):
     """Plain PyTorch version of the kernel, on any device."""
-    planar, _, _ = _geometry(x_ext, M, T, prev_iq)
-    ypl = chz._analyze_block_chmajor(x_ext, M, T, int(hop0_parity) % 2,
-                                     "bank", planar=True, planar_in=planar)
+    planar, _, _ = block_geometry(x_ext, M, T)
+    _check_prev(prev_iq, M)
+    ypl = analyze_reference(x_ext, M, T, hop0_parity, planar=True,
+                            planar_in=planar)
     demod, (lr, li), pw = quadrature_demod_planar(
         ypl[0], ypl[1], prev=(prev_iq[:, 0], prev_iq[:, 1]),
         return_power="series")
@@ -58,19 +53,12 @@ def analyze_demod_reference(x_ext, M: int, T: int, hop0_parity: int,
 
 @functools.cache
 def _launcher():
-    lib = build.load()
-    fn = lib.rx_front_launch
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    fn.argtypes = [p, i, ctypes.c_longlong, p, p, p, p, p, p, p,
-                   i, i, i, i, p]
-    fn.restype = i
-    for name, want in (("rx_front_channel_tile", CHANNEL_TILE),
-                       ("rx_front_tile_hops", TILE_HOPS)):
-        getattr(lib, name).restype = i
-        if getattr(lib, name)() != want:
-            raise RuntimeError(f"{name} of the built kernel != {want}")
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return bind("rx_front_launch",
+                [p, i, ctypes.c_longlong, p, p, p, p, p, p, p,
+                 i, i, i, i, p],
+                rx_front_channel_tile=CHANNEL_TILE,
+                rx_front_tile_hops=TILE_HOPS)
 
 
 def analyze_demod(x_ext, M: int, T: int, hop0_parity: int, prev_iq):
@@ -89,33 +77,20 @@ def analyze_demod(x_ext, M: int, T: int, hop0_parity: int, prev_iq):
         raise TypeError("x_ext and prev_iq must be torch.Tensors")
     if x_ext.device.type == "cpu":
         return analyze_demod_reference(x_ext, M, T, hop0_parity, prev_iq)
-    if x_ext.device.type != "cuda" or prev_iq.device != x_ext.device:
-        raise ValueError(f"unsupported devices {x_ext.device}, "
-                         f"{prev_iq.device}")
-    if x_ext.dtype != torch.float32 or prev_iq.dtype != torch.float32 \
-            or not x_ext.is_contiguous():
-        raise ValueError("x_ext must be contiguous float32, prev_iq float32")
-    if M % CHANNEL_TILE or not 1 <= T <= MAX_TAPS:
-        raise ValueError(f"kernel needs M % {CHANNEL_TILE} == 0 and "
-                         f"1 <= T <= {MAX_TAPS} (M={M}, T={T})")
-    planar, n_ext, Nh = _geometry(x_ext, M, T, prev_iq)
-    if x_ext.data_ptr() % (4 if planar else 8):
-        raise ValueError("x_ext must be 8-byte aligned (interleaved) or "
-                         "4-byte aligned (planar)")
+    planar, n_ext, Nh = card_block(x_ext, M, T)
+    if prev_iq.device != x_ext.device or prev_iq.dtype != torch.float32:
+        raise ValueError(f"prev_iq must be float32 on {x_ext.device}, got "
+                         f"{prev_iq.dtype} on {prev_iq.device}")
+    _check_prev(prev_iq, M)
     dev = x_ext.device
     coef, cu, su = _tables(M, T, dev)
     prev = prev_iq.contiguous()
     demod = torch.empty((M, Nh), dtype=torch.float32, device=dev)
     pw = torch.empty((M, Nh), dtype=torch.float32, device=dev)
     last = torch.empty((M, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _launcher()(x_ext.data_ptr(), int(planar), n_ext,
-                         coef.data_ptr(), cu.data_ptr(), su.data_ptr(),
-                         prev.data_ptr(), demod.data_ptr(), pw.data_ptr(),
-                         last.data_ptr(), M, T, Nh, int(hop0_parity) % 2,
-                         stream)
-    if rc != 0:
-        raise RuntimeError(f"rx_front kernel launch failed: CUDA error {rc}")
+    launch("rx_front", _launcher(), dev, x_ext.data_ptr(), int(planar),
+           n_ext, coef.data_ptr(), cu.data_ptr(), su.data_ptr(),
+           prev.data_ptr(), demod.data_ptr(), pw.data_ptr(), last.data_ptr(),
+           M, T, Nh, int(hop0_parity) % 2)
     LAUNCHES += 1
     return demod, last, pw

@@ -18,8 +18,7 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.dsp import channelizer as chz
-from amps_tpu_torch.kernels import build
-from amps_tpu_torch.kernels.rx_phases import _tables
+from amps_tpu_torch.kernels.analysis import _tables, bind, launch
 
 COLUMN_TILE = 64           # output columns per transform block (csrc 2*KU)
 
@@ -50,17 +49,9 @@ def synthesize_block_reference(Y, M: int, T: int, hop0_parity: int, carry,
 
 @functools.cache
 def _launcher():
-    lib = build.load()
-    fn = lib.synth_launch
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
-    fn.restype = i
-    lib.synth_column_tile.restype = i
-    if lib.synth_column_tile() != COLUMN_TILE:
-        raise RuntimeError(f"synth_column_tile of the built kernel != "
-                           f"{COLUMN_TILE}")
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return bind("synth_launch", [p, p, p, p, p, p, p, p, i, i, i, i, p],
+                synth_column_tile=COLUMN_TILE)
 
 
 @functools.cache
@@ -100,13 +91,9 @@ def synthesize_block(Y, M: int, T: int, hop0_parity: int, carry):
     u = torch.empty((2, Nh, M), dtype=torch.float32, device=dev)
     out = torch.empty((Nh * P, 2), dtype=torch.float32, device=dev)
     new_carry = torch.empty_like(carry)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _launcher()(Y.data_ptr(), cu.data_ptr(), su.data_ptr(),
-                         gm.data_ptr(), carry.data_ptr(), u.data_ptr(),
-                         out.data_ptr(), new_carry.data_ptr(), M, T, Nh,
-                         int(hop0_parity) % 2, stream)
-    if rc != 0:
-        raise RuntimeError(f"synth kernel launch failed: CUDA error {rc}")
+    launch("synth", _launcher(), dev, Y.data_ptr(), cu.data_ptr(),
+           su.data_ptr(), gm.data_ptr(), carry.data_ptr(), u.data_ptr(),
+           out.data_ptr(), new_carry.data_ptr(), M, T, Nh,
+           int(hop0_parity) % 2)
     LAUNCHES += 1
     return out, new_carry

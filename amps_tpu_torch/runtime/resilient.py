@@ -49,7 +49,6 @@ class ResilientReceiver:
         self.on_burst = on_burst
         self._snap = snapshot_receiver(self.rx)
         self._ring: List = []
-        self._device = None              # of the last tensor block pushed
         self._delivered = set()          # (channel, abs_symbol)
         self.recoveries = 0
 
@@ -73,17 +72,13 @@ class ResilientReceiver:
         restore_receiver(self._snap, self.rx)
         raw: List[BurstReport] = []
         for blk in self._ring:
-            # back to the device the blocks came on, so that a receiver
-            # built without a device is placed there again
-            raw += self.rx.push(blk if self._device is None
-                                else torch.as_tensor(blk).to(self._device))
+            raw += self.rx.push(blk)       # copied to the receiver's device
         return raw
 
     def push(self, block) -> List[BurstReport]:
         # the ring keeps a host copy, which survives a lost device; the
         # block itself goes to the receiver where it lies
         if isinstance(block, torch.Tensor):
-            self._device = block.device
             self._ring.append(block.detach().cpu())
         else:
             block = np.asarray(block)

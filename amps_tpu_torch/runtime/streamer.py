@@ -34,12 +34,12 @@ from amps_tpu_torch.config import SystemConfig
 from amps_tpu_torch.device import as_tensor, resolve_device
 from amps_tpu_torch.dsp import channelizer as chz
 from amps_tpu_torch.dsp.fm import fsk_manchester_baseband
-from amps_tpu_torch.eval.traffic import CODED_DCC
 from amps_tpu_torch.kernels.rx_front import analyze_demod
 from amps_tpu_torch.kernels.synth import synthesize_block
 from amps_tpu_torch.parallel.pipeline import MultichannelSpec
 from amps_tpu_torch.rx import correlator, decoder
 from amps_tpu_torch.tx.focc import FoccStream, focc_frame_bits
+from amps_tpu_torch.tx.recc_ms import CODED_DCC
 
 # minimum-Hamming-distance decode of the 7-bit coded DCC (553 2.6.1.2)
 _DCC_CODES = np.array([CODED_DCC[d] for d in range(4)], np.int32)
@@ -154,12 +154,13 @@ class MultichannelReceiver:
     """Streaming wideband receiver over the channelizer bank.
 
     ``device``: where the carried state lives and the blocks are
-    processed; on the CPU the front end is the kernel's plain version,
-    a CUDA device runs the ``rx_front`` kernel.  None: the device of
-    the first block pushed (the CPU for an array-like block).  Host data
-    (numpy, CPU tensors) is copied to the receiver's device; a block on
-    any other device than the receiver's raises, so work handed over on
-    the card is never moved to the host.
+    processed, the current CUDA device unless another is named (without
+    CUDA the default raises; the CPU is used only as ``device="cpu"``).
+    A CUDA device runs the ``rx_front`` kernel; on the CPU the front end
+    is the kernel's plain version.  Host data (numpy, CPU tensors) is
+    copied to the receiver's device; a block on any other device than
+    the receiver's raises, so work handed over on the card is never
+    moved to the host.
 
     ``front_end``: the receive front end, ``kernels.rx_front.
     analyze_demod``; ``analyze_demod_reference`` runs its plain version
@@ -210,7 +211,6 @@ class MultichannelReceiver:
         self.M, self.T = M, T
         self.sps = spec.chan_sps
         self.device = resolve_device(device)
-        self._placed = device is not None
         self._front_end = front_end
         self.max_bursts = max_bursts
         self.threshold = threshold
@@ -240,27 +240,6 @@ class MultichannelReceiver:
         # non-hop-multiple tail buffered between pushes
         self._residue = None
 
-    def _place(self, x_block) -> torch.Tensor:
-        """The block as a float32 tensor on the receiver's device; a
-        receiver built without a device first moves its state to the
-        device of the first block (see the class docstring)."""
-        if isinstance(x_block, torch.Tensor) and \
-                x_block.device != self.device:
-            if not self._placed:
-                dev = x_block.device
-                self._hist, self._carry, self._pw_carry, self._prev = (
-                    t.to(dev) for t in (self._hist, self._carry,
-                                        self._pw_carry, self._prev))
-                if self._residue is not None:
-                    self._residue = self._residue.to(dev)
-                self.device = dev
-            elif x_block.device.type != "cpu":
-                raise ValueError(
-                    f"block on {x_block.device}, receiver on {self.device}: "
-                    "build the receiver with the device of its blocks")
-        self._placed = True
-        return as_tensor(x_block, device=self.device)
-
     def push(self, x_block) -> List[BurstReport]:
         """Process one wideband block ((N, 2), any N); returns the new
         deduplicated burst reports -- of this block at depth 1, of
@@ -268,7 +247,12 @@ class MultichannelReceiver:
         analyzer consumes whole hops (M/2 samples): a sub-hop tail is
         buffered and prepended to the next push."""
         P = self.M // 2
-        x = self._place(x_block)
+        if isinstance(x_block, torch.Tensor) and \
+                x_block.device.type != "cpu" and x_block.device != self.device:
+            raise ValueError(
+                f"block on {x_block.device}, receiver on {self.device}: "
+                "build the receiver with the device of its blocks")
+        x = as_tensor(x_block, device=self.device)
         if self._residue is not None and self._residue.shape[0]:
             x = torch.cat([self._residue, x], dim=0)
         self._residue = None
@@ -379,8 +363,9 @@ class MultichannelTransmitter:
     """Streaming wideband transmitter: one FOCC stream per control
     channel; the other bank slots are silent unless a baseband source is
     installed with ``set_channel_source``.  ``device``: where the band
-    is synthesized (default the CPU, where the synthesis is the kernel's
-    plain version; a CUDA device runs the ``synth`` kernel).
+    is synthesized, the current CUDA device unless another is named
+    (without CUDA the default raises): a CUDA device runs the ``synth``
+    kernel, ``device="cpu"`` its plain version.
     ``synthesize``: the synthesis, ``kernels.synth.synthesize_block``;
     ``synthesize_block_reference`` runs its plain version on any device
     (to compare the two)."""

@@ -1,11 +1,13 @@
-"""GPU smoke run of the PyTorch/CUDA port.  It builds the three CUDA
-kernels of the ported path (rx_phases, rx_front, synth), holds each
-against its plain PyTorch version at M=1024 and 256, drives the
-1024-channel receive block and the station's streaming duplex end to
-end -- MultichannelTransmitter superframes read back through the
-rx_phases kernel, and planted bursts streamed through
-MultichannelReceiver -- and times kernels and paths against their plain
-versions.
+"""GPU smoke run of the PyTorch/CUDA port.  It builds the four CUDA
+kernels of the ported paths (rx_phases, rx_front, synth, analysis),
+holds each against its plain PyTorch version at M=1024 and 256, drives
+the 1024-channel receive block, the station's streaming duplex --
+MultichannelTransmitter superframes read back through the rx_phases
+kernel, and planted bursts streamed through MultichannelReceiver -- and
+a whole call over channelized RF: BaseStation, the transmitter, the
+mobile simulator's ear on the analysis kernel, its RECC bursts through
+the receiver; and times kernels and paths against their plain versions,
+their bounds and a cuFFT yardstick.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -13,13 +15,17 @@ Run from the repository root on a machine with one CUDA card:
 
 Every check raises on failure.  The last line of standard output is a
 JSON object naming the device; the line before it lists each kernel of
-the path with its launches on the main path, its error against the
-plain version and both times.  Without a CUDA card it exits non-zero.
+the paths with its launches on its main path, its error against the
+plain version, both times, its bound (the least time of the function:
+an FFT-sized transform and the fold against the bytes moved), the f32
+time of the dense DFT it computes instead, and the cuFFT time of its
+transform alone.  Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -49,6 +55,12 @@ TX_PEAK_RTOL = 2e-5
 SERIES_RTOL = 1e-4
 LAST_RTOL = 1e-4           # last channel sample: max |err| / its RMS
 RX_PUSH = 1 << 22          # samples per receiver push
+ANALYSIS_ATOL = 2e-4       # analysis, kernel vs plain, unit-amplitude channels
+CALL_LOG = ["paged", "assigned 355", "ringing", "answered",
+            "handoff 355->356", "hang_up"]
+# published H100 SXM peaks: f32 outside the tensor cores, HBM3
+F32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
 
 
 def log(*a):
@@ -274,8 +286,8 @@ def rx_duplex_events(M: int, T: int, total_hops: int, seed: int):
 def stream_reports(MR, spec, blocks, front_end=None, depth=2,
                    pad_tail=True):
     """Report list of one receiver over the blocks, flushed.  The
-    receiver is built without a device, as a caller that hands it blocks
-    on the card would: it must place itself there."""
+    receiver is built without a device, so it lives on the card, where
+    the blocks are."""
     kw = {} if front_end is None else {"front_end": front_end}
     rx = MR(spec, pipeline_depth=depth, **kw)
     reps = []
@@ -465,6 +477,12 @@ def phase_times(dev, M, T, card, n_timed=10):
         "kernel": lambda: S.synthesize_block(Y, M, T, 0, carry),
         "plain": lambda: S.synthesize_block_reference(Y, M, T, 0, carry),
     }, n_timed)}
+    # the synthesis reads Y and the carry and writes Nh*P samples and the
+    # new carry
+    sy = out["synth"]
+    sy["bound"], sy["bound_by"], sy["dense"] = bound(
+        M, T, Nh, 2 * nbytes(carry) + nbytes(Y) + Nh * P * 8)
+    sy["fft"] = fft_ms(M, Nh, dev, inverse=True)
     prod = pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank",
                                io_bf16=True, corr_bf16=True,
                                transform_bf16=True)
@@ -477,6 +495,13 @@ def phase_times(dev, M, T, card, n_timed=10):
         "kernel": lambda: R.analyze_demod(x_ext, M, T, 0, prev),
         "plain": lambda: R.analyze_demod_reference(x_ext, M, T, 0, prev),
     }, n_timed)
+    # reads the block, its tables and prev; writes demod and power planes
+    # and `last`; the discriminator's few operations a sample are left out
+    fe = out["rx_front"]
+    fe["bound"], fe["bound_by"], fe["dense"] = bound(
+        M, T, Nh, nbytes(x_ext, prev, *R._tables(M, T, dev))
+        + 2 * M * Nh * 4 + nbytes(prev))
+    fe["fft"] = fft_ms(M, Nh, dev)
     rxs = {"kernel": MultichannelReceiver(prod, device=dev),
            "plain": MultichannelReceiver(
                prod, device=dev, front_end=R.analyze_demod_reference)}
@@ -495,10 +520,237 @@ def phase_times(dev, M, T, card, n_timed=10):
              n),
             ("next_block", "MultichannelTransmitter.next_block, one "
              "superframe, all channels", n_sf)):
-        for k, ms in out[name].items():
+        for k in ("kernel", "plain"):
+            ms = out[name][k]
             log(f"  {label}, {k}: {ms:.3f} ms, "
                 f"{samples / ms / 1e3:.1f} Msamples/s")
+        if "bound" in out[name]:
+            log(f"  {label}: bound {out[name]['bound']:.3f} ms "
+                f"({out[name]['bound_by']}), dense DFT at the f32 peak "
+                f"{out[name]['dense']:.3f} ms, cuFFT of the plane "
+                f"{out[name]['fft']:.3f} ms")
     return out
+
+
+def bound(M, T, Nh, nbytes):
+    """(least ms, what sets it, dense ms) of one bank pass over Nh hops
+    that moves ``nbytes``, at the published H100 SXM peaks.  The least
+    work of the function is an FFT-sized transform, 5·M·log2(M) flops a
+    hop (the radix-2 count of an M-point complex FFT), plus the polyphase
+    fold or overlap-add, 2·T·M FMAs a hop.  The third number is the f32
+    time of the dense channel-pair DFT the kernels compute instead,
+    2·M² FMAs a hop: the floor of their own algorithm, not of the
+    function."""
+    flops = Nh * (5 * M * math.log2(M) + 4 * T * M)
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_S
+    dense = 2 * Nh * (2 * M * M + 2 * T * M) / F32_FLOPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", dense * 1e3)
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def fft_ms(M, Nh, dev, inverse=False):
+    """The transform-only yardstick: cuFFT over M of the (Nh, M) complex64
+    plane (timed here, never called by the port)."""
+    g = torch.Generator(dev).manual_seed(Nh)
+    z = torch.randn((Nh, M), dtype=torch.complex64, device=dev, generator=g)
+    f = torch.fft.ifft if inverse else torch.fft.fft
+    return timed({"fft": lambda: f(z, dim=-1)}, 10)["fft"]
+
+
+def phase_analysis(dev, T, card, n_timed=10):
+    """Phase 10: the analysis kernel (K1) against its plain version on
+    unit-amplitude channels at M = 1024 and 256, Nh = 8192 and a
+    superframe's 50004 hops; both parities, riq and planar in and out;
+    two chained calls equal one.  Returns ({(M, Nh): max abs error},
+    {(M, Nh): times})."""
+    from amps_tpu_torch.eval.traffic import unit_channel_band
+    from amps_tpu_torch.kernels import analysis as KA
+    log(f"phase 10: analysis kernel vs plain version (unit-amplitude "
+        f"channels, atol {ANALYSIS_ATOL}); times median of {n_timed}, CUDA "
+        f"events, on {card}")
+    errs, times = {}, {}
+    for M in (1024, 256):
+        for Nh in (8192, 50004):
+            x = unit_channel_band(M, T, Nh, M + Nh, dev)
+            xp = x.t().contiguous()
+            err = 0.0
+            for parity in (0, 1):
+                for xi, pin, pout in ((x, False, False), (xp, True, True),
+                                      (x, False, True)):
+                    y = KA.analyze_block(xi, M, T, parity, pout, pin)
+                    ry = KA.analyze_reference(xi, M, T, parity, pout, pin)
+                    sync(dev)
+                    assert y.shape == ry.shape and torch.isfinite(y).all()
+                    e = (y - ry).abs().max().item()
+                    err = max(err, e)
+                    assert e <= ANALYSIS_ATOL, (M, Nh, parity, pin, pout, e)
+                    del y, ry
+            P = M // 2
+            n1 = Nh // 2 + 1
+            y = KA.analyze_block(x, M, T, 0)
+            ya = KA.analyze_block(x[: (n1 + 2 * T - 1) * P].contiguous(), M,
+                                  T, 0)
+            yb = KA.analyze_block(x[n1 * P:].contiguous(), M, T, n1 % 2)
+            sync(dev)
+            assert torch.equal(torch.cat([ya, yb], 1), y), (M, Nh)
+            del y, ya, yb
+            errs[M, Nh] = err
+            t = timed({"kernel": lambda: KA.analyze_block(x, M, T, 0),
+                       "plain": lambda: KA.analyze_reference(x, M, T, 0)},
+                      n_timed)
+            t["fft"] = fft_ms(M, Nh, dev)
+            tables = KA._tables(M, T, dev)
+            t["bound"], t["bound_by"], t["dense"] = bound(
+                M, T, Nh, nbytes(x, *tables) + M * Nh * 8)
+            times[M, Nh] = t
+            log(f"  M={M} Nh={Nh}: max|err| {err:.3e} over both parities, "
+                f"riq/planar; two chained calls equal one bit for bit; "
+                f"kernel {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
+                f"cuFFT {t['fft']:.3f} ms, bound {t['bound']:.3f} ms "
+                f"({t['bound_by']}), dense DFT at the f32 peak "
+                f"{t['dense']:.3f} ms")
+            del x, xp
+            torch.cuda.empty_cache()
+    return errs, times
+
+
+def phase_call(dev, M, T, analysis_block=None, label="kernel ear",
+               sigma=1e-3):
+    """Phase 11: tests/test_system_loop.py's whole call at full width.
+    The station's FOCC rides slot 1 of a transmitter carrying FOCC on
+    every slot but 3, 4 and 5, its VoiceFvcSlot slot 4 (AMPS channel
+    355); the mobile's ear analyzes the whole band each superframe and
+    only its two demod rows cross to the host; its RECC bursts are
+    synthesized into a 1024-channel reverse band (slot 3, σ ``sigma``
+    noise) and pushed into the streaming receiver.  Every entry point
+    runs on its default device.  Returns (mob.log, decoded FOCC frames
+    and FVC words per superframe, kernel launches, per-superframe times).
+    """
+    from amps_tpu_torch.control.station import BaseStation
+    from amps_tpu_torch.dsp import channelizer as chz
+    from amps_tpu_torch.dsp.fm import fm_modulate_symbols, quadrature_demod
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import rx_front as R
+    from amps_tpu_torch.kernels import synth as S
+    from amps_tpu_torch.ms import SimMobile, decode_focc_stream
+    from amps_tpu_torch.ms import decode_fvc_words
+    from amps_tpu_torch.parallel import pipeline as pl
+    from amps_tpu_torch.runtime.sources import VoiceFvcSlot
+    from amps_tpu_torch.runtime.streamer import (MultichannelReceiver,
+                                                 MultichannelTransmitter)
+    focc_slot, fvc_slot, rev_slot = 1, 4, 3
+    prod = pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank",
+                               io_bf16=True, corr_bf16=True,
+                               transform_bf16=True)
+    sps, P = prod.chan_sps, M // 2
+    station = BaseStation(sps=sps)
+    tx = MultichannelTransmitter(
+        prod, control_channels=[c for c in range(M) if c not in (3, 4, 5)])
+    station.focc = tx.focc[focc_slot]
+    slot, slot_ms = VoiceFvcSlot(station), []
+
+    def voice_fvc(n):        # the slot, its time recorded
+        t0 = time.perf_counter()
+        out = slot(n)
+        slot_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tx.set_channel_source(fvc_slot, voice_fvc)
+    rx = MultichannelReceiver(
+        prod, threshold=0.5, min_rssi=0.05,
+        on_burst=lambda r: station.handle_burst(r.words, r.word_ok,
+                                                r.bad_symbols))
+    mob = SimMobile("5551234567", sps=sps)
+    ear = {"s": chz.analyzer_init(prod.chz_spec)}
+    assert tx.device.type == rx.device.type == slot.device.type == \
+        ear["s"].history.device.type == dev.type
+    noise = torch.Generator(dev).manual_seed(553)
+    heard, times = [], []
+
+    def clock(f):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = f()
+        sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def listen(blk):
+        Y, ear["s"] = chz.analyze(blk, prod.chz_spec, ear["s"],
+                                  block=analysis_block)
+        demod, _ = quadrature_demod(Y[[focc_slot, fvc_slot]])
+        return demod.cpu().numpy()
+
+    def forward():
+        blk, t_tx = clock(tx.next_block)
+        rows, t_ear = clock(lambda: listen(blk))
+        assert rows.shape == (2, blk.shape[0] // P) and np.isfinite(
+            rows).all()
+        mob.hear_focc(rows[0], sps=sps)
+        mob.hear_fvc(rows[1], sps=sps)
+        frames = decode_focc_stream(rows[0], sps)
+        heard.append(([(f.word_a.tolist(), f.word_b.tolist(), bool(f.ok_a),
+                        bool(f.ok_b), bool(f.busy)) for f in frames],
+                      [w.tolist() for w in decode_fvc_words(rows[1], sps)]))
+        times.append({"next_block": t_tx, "slot": slot_ms[-1],
+                      "ear": t_ear})
+
+    def reverse():
+        t_push = 0.0
+        while mob.outbox:
+            _, syms = mob.outbox.pop(0)
+            bb, _ = fm_modulate_symbols(
+                torch.as_tensor(syms.astype(np.int8), device=dev),
+                prod.fm_sensitivity)
+            Y = torch.zeros((bb.shape[0] + 4000, M, 2), device=dev)
+            Y[2000: 2000 + bb.shape[0], rev_slot] = bb
+            x, _ = chz.synthesize(Y, prod.chz_spec,
+                                  chz.synthesizer_init(prod.chz_spec))
+            x = x + sigma * torch.randn(x.shape, device=dev, generator=noise)
+            _, t = clock(lambda: rx.push(x[: (x.shape[0] // P) * P]))
+            t_push += t
+        times[-1]["push"] = t_push
+
+    sv = station.supervisors
+    KA.LAUNCHES = R.LAUNCHES = S.LAUNCHES = 0
+    station.handle_command("page 5551234567")
+    forward()
+    assert "paged" in mob.log, mob.log
+    reverse()
+    assert sv[355].state == "alerting"
+    forward()
+    assert mob.voice_chan == 355 and mob.state == "ringing", mob.log
+    station.push_supervision(355, *mob.supervision_frames(30))
+    assert sv[355].state == "alerting"
+    mob.answer()
+    station.push_supervision(355, *mob.supervision_frames(30))
+    assert sv[355].state == "conversation"
+    assert (station.fvc_mute, station.audio_mute) == (True, False)
+    station.handle_command("handoff 355 356")
+    forward()
+    assert mob.voice_chan == 356, mob.log
+    station.push_supervision(356, *mob.supervision_frames(50))
+    assert sv[356].state == "conversation"
+    mob.hang_up()
+    station.push_supervision(356, *mob.supervision_frames(200))
+    sync(dev)
+    launches = {"analysis": KA.LAUNCHES, "rx_front": R.LAUNCHES,
+                "synth": S.LAUNCHES}
+    assert 356 not in sv
+    assert [e for e in station.events if e.kind == "release"]
+    assert mob.log == CALL_LOG, mob.log
+    for i, t in enumerate(times):
+        log(f"  {label}, superframe {i}: tx.next_block {t['next_block']:.3f} "
+            f"ms (of it the voice/FVC slot {t['slot']:.3f} ms), "
+            f"ear (analyze + 2 demod rows to host) {t['ear']:.3f} ms"
+            + (f", rx.push {t['push']:.3f} ms" if "push" in t else ""))
+    log(f"  {label}: mob.log {mob.log}; launches {launches}; FOCC frames "
+        f"decoded per superframe {[len(h[0]) for h in heard]}, FVC words "
+        f"{[len(h[1]) for h in heard]}")
+    return mob.log, heard, launches, times
 
 
 def main() -> int:
@@ -644,6 +896,16 @@ def main() -> int:
         for k, ms in fe.items():
             log(f"  stages 1-3 M={Mk}, {k}: {ms:.3f} ms, "
                 f"{n / ms / 1e3:.1f} Msamples/s")
+        # reads the block and its tables; writes the bf16 phases and the
+        # 384-hop power partials
+        nsym = (Nhk - sps + 1) // sps
+        fe["bound"], fe["bound_by"], fe["dense"] = bound(
+            Mk, T, Nhk, nbytes(xe, *K._tables(Mk, T, dev))
+            + Mk * sps * nsym * 2 + Mk * -(-Nhk // K.TILE_HOPS) * 4)
+        fe["fft"] = fft_ms(Mk, Nhk, dev)
+        log(f"  stages 1-3 M={Mk}: bound {fe['bound']:.3f} ms "
+            f"({fe['bound_by']}), dense DFT at the f32 peak "
+            f"{fe['dense']:.3f} ms, cuFFT of the plane {fe['fft']:.3f} ms")
 
     # -- phases 5-9: the streaming duplex ----------------------------------
     synth_err = phase_synth(dev, (1024, 256), T)
@@ -654,34 +916,44 @@ def main() -> int:
     assert rx_launches == pushes + 1
     times = phase_times(dev, M, T, card)
 
-    print(json.dumps({"kernels": [{
-        "name": "rx_phases",
-        "route": "cuda",
-        "source": "amps_tpu_torch/csrc/rx_phases.cu",
-        "replaces": "amps_tpu/pallas/rx_phases_kernel.py:223",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms[1024]["kernel"],
-        "plain_ms": kernel_ms[1024]["plain"],
-    }, {
-        "name": "rx_front",
-        "route": "cuda",
-        "source": "amps_tpu_torch/csrc/rx_front.cu",
-        "replaces": "amps_tpu/pallas/rx_front_kernel.py:184",
-        "launches": rx_launches,
-        "max_abs_err": front_err[1024],
-        "ms": times["rx_front"]["kernel"],
-        "plain_ms": times["rx_front"]["plain"],
-    }, {
-        "name": "synth",
-        "route": "cuda",
-        "source": "amps_tpu_torch/csrc/synth.cu",
-        "replaces": "amps_tpu/pallas/synthesizer_kernel.py:128",
-        "launches": tx_launches,
-        "max_abs_err": synth_err[1024],
-        "ms": times["synth"]["kernel"],
-        "plain_ms": times["synth"]["plain"],
-    }]}), flush=True)
+    # -- phases 10-11: the mobile's ear and the whole call -----------------
+    from amps_tpu_torch.kernels import analysis as KA
+    ana_err, ana_times = phase_analysis(dev, T, card)
+    log(f"phase 11: the whole call over channelized RF, M={M}, production "
+        f"spec, FOCC on every slot but 3-5, the mobile on reverse slot 3")
+    log_k, heard_k, call_launches, _ = phase_call(dev, M, T)
+    assert call_launches["analysis"] >= 3 and call_launches["synth"] >= 3 \
+        and call_launches["rx_front"] >= 1, call_launches
+    log_p, heard_p, plain_launches, _ = phase_call(
+        dev, M, T, analysis_block=KA.analyze_reference, label="plain ear")
+    assert plain_launches["analysis"] == 0
+    assert log_p == log_k and heard_p == heard_k
+    assert all(len(f) >= 17 for f, _ in heard_k) and heard_k[1][1], \
+        [(len(f), len(w)) for f, w in heard_k]
+    log(f"  the kernel ear and the plain ear give the identical mob.log, "
+        f"decoded FOCC frames and FVC words; analysis kernel launches "
+        f"{call_launches['analysis']} on the call")
+
+    def entry(name, replaces, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"amps_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["kernel"],
+                "plain_ms": t["plain"], "bound_ms": t["bound"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "fft_ms": t["fft"], "dense_dft_ms": t["dense"]}
+
+    print(json.dumps({"kernels": [
+        entry("analysis", "amps_tpu/pallas/channelizer_kernel.py:151",
+              call_launches["analysis"], max(ana_err.values()),
+              ana_times[M, 50004]),
+        entry("rx_phases", "amps_tpu/pallas/rx_phases_kernel.py:223",
+              launches, max_err, kernel_ms[1024]),
+        entry("rx_front", "amps_tpu/pallas/rx_front_kernel.py:184",
+              rx_launches, front_err[1024], times["rx_front"]),
+        entry("synth", "amps_tpu/pallas/synthesizer_kernel.py:128",
+              tx_launches, synth_err[1024], times["synth"]),
+    ]}), flush=True)
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

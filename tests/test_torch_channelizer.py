@@ -35,14 +35,16 @@ def test_analyze_matches_jax(M, Nh, planar_in):
                            planar_in)
     tspec = tchz.ChannelizerSpec(M, T)
     got, st = tchz.analyze(torch.as_tensor(x), tspec,
-                           tchz.analyzer_init(tspec, planar_in=planar_in),
+                           tchz.analyzer_init(tspec, planar_in=planar_in,
+                                              device="cpu"),
                            planar=True, planar_in=planar_in)
     assert got.shape == want.shape == (2, M, Nh)
     assert np.abs(got.numpy() - want).max() < ATOL
     assert st.hop_idx == Nh
     # channel-major interleaved output is the same planes
     got_i, _ = tchz.analyze(torch.as_tensor(x), tspec,
-                            tchz.analyzer_init(tspec, planar_in=planar_in),
+                            tchz.analyzer_init(tspec, planar_in=planar_in,
+                                              device="cpu"),
                             planar=False, planar_in=planar_in)
     assert torch.equal(got_i, torch.stack([got[0], got[1]], dim=-1))
 
@@ -64,7 +66,8 @@ def test_analyze_continues_jax_state(planar_in):
                           planar_in)
     want, _ = _jax_analyze(x2, jspec, st1, planar_in)
     state = convert.analyzer_state_from_numpy(np.asarray(st1.history),
-                                              st1.hop_idx)
+                                              st1.hop_idx,
+                                              device="cpu")
     assert state.hop_idx % 2 == 1
     got, st2 = tchz.analyze(torch.as_tensor(x2), tchz.ChannelizerSpec(M, T),
                             state, planar=True, planar_in=planar_in)
@@ -75,7 +78,7 @@ def test_analyze_continues_jax_state(planar_in):
 def test_analyze_rejects_other_folds():
     spec = tchz.ChannelizerSpec(16, 4)
     with pytest.raises(NotImplementedError):
-        tchz.analyze(torch.zeros(64, 2), spec, tchz.analyzer_init(spec),
+        tchz.analyze(torch.zeros(64, 2), spec, tchz.analyzer_init(spec, device="cpu"),
                      fold="conv")
 
 
@@ -88,7 +91,7 @@ def test_synthesize_matches_jax(M, split):
     jspec = jchz.ChannelizerSpec(M, T)
     tspec = tchz.ChannelizerSpec(M, T)
     jst = jchz.synthesizer_init(jspec)
-    tst = tchz.synthesizer_init(tspec)
+    tst = tchz.synthesizer_init(tspec, device="cpu")
     for Y in (Y1, Y2):     # the second block carries state at odd parity
         want, jst = jchz.synthesize(jnp.asarray(Y), jspec, jst, split=split)
         got, tst = tchz.synthesize(torch.as_tensor(Y), tspec, tst,

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the receive block, the streaming receiver and the transmitter on the
-card against the same on the CPU.  Every test here needs a CUDA device
+the receive block, the streaming receiver, the transmitter and the
+analysis of ``dsp.channelizer.analyze`` on the card against the same on
+the CPU.  Every test here needs a CUDA device
 and skips without one.
 
 This file imports neither ``jax`` nor ``amps_tpu``, so it runs on a
@@ -17,7 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from amps_tpu_torch.eval.traffic import BurstEvent, synthesize_reverse_band
+from amps_tpu_torch.dsp import channelizer as chz
+from amps_tpu_torch.eval.traffic import (BurstEvent, synthesize_reverse_band,
+                                         unit_channel_band)
+from amps_tpu_torch.kernels import analysis as KA
 from amps_tpu_torch.kernels import rx_front as K2
 from amps_tpu_torch.kernels import rx_phases as K
 from amps_tpu_torch.kernels import synth as K4
@@ -87,7 +91,8 @@ def test_rx_block_on_card_matches_cpu(cuda_device):
     rng = np.random.default_rng(64)
     events = [BurstEvent(c, h, rng.integers(0, 2, (3, 36)).astype(np.uint8))
               for c, h in ((0, 300), (M - 1, 900), (M // 2 + 1, 1500))]
-    x = synthesize_reverse_band(events, spec, total_hops, noise_sigma=0.001)
+    x = synthesize_reverse_band(events, spec, total_hops, noise_sigma=0.001,
+                                device="cpu")
     want = pl.rx_multichannel_block(x, spec, max_bursts=2)
     before = K.LAUNCHES
     got = pl.rx_multichannel_block(x.to(cuda_device), spec, max_bursts=2)
@@ -147,6 +152,70 @@ def test_rx_front_kernel_chained_calls_equal_one(cuda_device):
     assert torch.equal(torch.cat([da, db], 1), d)
     assert torch.equal(torch.cat([pa, pb], 1), pw)
     assert torch.equal(lb, last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Nh,parity,planar_in,planar", [
+    (1024, 2000, 0, False, False),
+    (1024, 1001, 1, True, True),
+    (256, 8192, 1, False, True),
+    (256, 129, 0, True, False),      # one hop past a whole tile of 128
+])
+def test_analysis_kernel_matches_plain_version_on_card(cuda_device, M, Nh,
+                                                       parity, planar_in,
+                                                       planar):
+    """K1 against its plain version on unit-amplitude channels, atol
+    2e-4 (f32 summation orders of the M-point transform)."""
+    T = 8
+    x = unit_channel_band(M, T, Nh, M + Nh, cuda_device)
+    if planar_in:
+        x = x.t().contiguous()
+    before = KA.LAUNCHES
+    y = KA.analyze_block(x, M, T, parity, planar, planar_in)
+    torch.cuda.synchronize()
+    assert KA.LAUNCHES == before + 1
+    ry = KA.analyze_reference(x, M, T, parity, planar, planar_in)
+    assert y.shape == ry.shape == ((2, M, Nh) if planar else (M, Nh, 2))
+    assert (y - ry).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_analyze_on_card_runs_kernel_and_chains(cuda_device):
+    """dsp.channelizer.analyze on a CUDA state launches K1 on every call,
+    and two chained calls (odd hop count: the parity flips) equal one
+    call bit for bit."""
+    M, T = 256, 8
+    spec = chz.ChannelizerSpec(M, T)
+    x = unit_channel_band(M, T, 3001, 9, cuda_device)[M * T - M // 2:]
+    n1 = 1001 * M // 2
+    before = KA.LAUNCHES
+    y, st = chz.analyze(x, spec, chz.analyzer_init(spec))
+    ya, sa = chz.analyze(x[:n1], spec, chz.analyzer_init(spec))
+    yb, sb = chz.analyze(x[n1:], spec, sa)
+    torch.cuda.synchronize()
+    assert KA.LAUNCHES == before + 3
+    assert torch.equal(torch.cat([ya, yb], 1), y)
+    assert sb.hop_idx == st.hop_idx == 3001
+    assert torch.equal(sb.history, st.history)
+
+
+@pytest.mark.cuda
+def test_analysis_kernel_rejects_what_it_cannot_run(cuda_device):
+    M, T, Nh = 64, 8, 16
+    n = (Nh + 2 * T - 1) * M // 2
+    x = torch.zeros(n * 2 + 1, device=cuda_device)[1:].view(n, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        KA.analyze_block(x, M, T)
+    with pytest.raises(ValueError, match="device"):
+        KA.analyze_block(torch.zeros((n, 2), device="meta"), M, T)
+    with pytest.raises(ValueError):            # M not a multiple of 64
+        KA.analyze_block(torch.zeros(((Nh + 15) * 48, 2), device=cuda_device),
+                         96, T)
+    with pytest.raises(ValueError):            # not one (n, 2) block
+        KA.analyze_block(torch.zeros((2, n, 2), device=cuda_device), M, T)
+    with pytest.raises(ValueError):
+        KA.analyze_block(torch.zeros((n, 2), device=cuda_device).double(),
+                         M, T)
 
 
 @pytest.mark.cuda
@@ -229,31 +298,87 @@ def test_streaming_receiver_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_receiver_without_device_runs_kernel_on_card(cuda_device):
-    """A receiver built without a device and handed blocks on the card
-    places itself there and launches the rx_front kernel on every push;
-    a receiver on the CPU refuses such a block."""
+    """A receiver built without a device lives on the current CUDA
+    device: host blocks (numpy) are copied there and every push launches
+    the rx_front kernel; a receiver on the CPU refuses a block on the
+    card."""
     M = 64
     spec, events, x = _duplex_band(M, 20000)
+    assert x.device == cuda_device            # the traffic is made there too
     n = 4095 * M // 2 + 5
-    blocks = [x[i: i + n].to(cuda_device) for i in range(0, x.shape[0], n)]
+    blocks = [x[i: i + n].cpu().numpy() for i in range(0, x.shape[0], n)]
     rx = MultichannelReceiver(spec, threshold=0.5)
+    assert rx.device == cuda_device and rx._carry.device == cuda_device
     before = K2.LAUNCHES
     reps = []
     for b in blocks:
         reps += rx.push(b)
     reps += rx.flush(pad_tail=True)
     assert K2.LAUNCHES - before == len(blocks) + 1     # + the pad block
-    assert rx.device == cuda_device and rx._carry.device == cuda_device
     assert sorted(r.channel for r in reps) == sorted(e.channel for e in events)
     with pytest.raises(ValueError):
-        MultichannelReceiver(spec, device="cpu").push(blocks[0])
+        MultichannelReceiver(spec, device="cpu").push(x[:n])
+
+
+@pytest.mark.cuda
+def test_transmitter_without_device_runs_kernel_on_card(cuda_device):
+    spec = pl.MultichannelSpec(num_channels=64, taps_per_phase=8)
+    tx = MultichannelTransmitter(spec, control_channels=[0, 5, 63])
+    assert tx.device == cuda_device
+    before = K4.LAUNCHES
+    x = tx.next_block()
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == before + 1 and x.device == cuda_device
+
+
+@pytest.mark.cuda
+def test_voice_slot_runs_on_card(cuda_device, monkeypatch):
+    """A VoiceFvcSlot built without a device modulates on the card: the
+    resampler, the SAT tone, the FM modulator and the FVC burst modulator
+    all get CUDA tensors, and the blocks equal a CPU slot's within 2e-3
+    (f32 cumsums in other orders)."""
+    from amps_tpu_torch.control.station import BaseStation
+    from amps_tpu_torch.runtime import sources
+    from amps_tpu_torch.tx import voice
+    seen = []
+
+    def spy(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(x, *a, **k):
+            seen.append((name, torch.as_tensor(x).device.type))
+            return fn(x, *a, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    spy(voice, "polyphase_interpolate")
+    spy(voice, "fm_modulate")
+    spy(sources, "fm_modulate_symbols")
+    sts = [BaseStation(sps=3) for _ in range(2)]
+    card = sources.VoiceFvcSlot(sts[0])
+    host = sources.VoiceFvcSlot(sts[1], device="cpu")
+    assert card.device == cuda_device
+    for step in (9000, "fvc alert", "fvc on", 12001, "fvc off", 9000):
+        if isinstance(step, str):
+            for st in sts:
+                st.handle_command(step)
+            continue
+        n = len(seen)
+        got = card(step)
+        assert {d for _, d in seen[n:]} == {"cuda"}, seen[n:]
+        want = host(step)
+        assert isinstance(got, np.ndarray) and got.shape == (step, 2)
+        assert np.abs(got - want).max() < 2e-3
+    assert {name for name, _ in seen} == {"polyphase_interpolate",
+                                          "fm_modulate",
+                                          "fm_modulate_symbols"}
 
 
 @pytest.mark.cuda
 def test_resilient_receiver_recovers_on_card(cuda_device, monkeypatch):
-    """ResilientReceiver over a factory that names no device: the blocks
-    on the card run the kernel, and after an injected push failure the
-    replay places the fresh receiver on the card again."""
+    """ResilientReceiver over a factory that names no device: its
+    receivers live on the card, the blocks there run the kernel, and
+    after an injected push failure the ring's host copies are replayed
+    onto the card."""
     from amps_tpu_torch.runtime.resilient import ResilientReceiver
     M = 64
     spec, events, x = _duplex_band(M, 20000)

@@ -58,7 +58,8 @@ def test_traffic_matches_jax(M):
     tev = [ttraffic.BurstEvent(e.channel, e.start_hop, np.stack(e.words()))
            for e in events]
     got = ttraffic.synthesize_reverse_band(tev, TSpec(num_channels=M),
-                                           TOTAL_HOPS, noise_sigma=0.001)
+                                           TOTAL_HOPS, noise_sigma=0.001,
+                                           device="cpu")
     assert got.shape == x.shape
     assert np.abs(got.numpy() - x).max() < 1e-5
 

@@ -64,15 +64,15 @@ def _run(rx, blocks, pad_tail=True):
 
 def test_receiver_checkpoint_resume(tmp_path):
     blocks, events = _stream()
-    full = _run(TRx(TSPEC, threshold=0.5), blocks)
+    full = _run(TRx(TSPEC, device="cpu", threshold=0.5), blocks)
     assert len(full) == len(events)
-    a = TRx(TSPEC, threshold=0.5)
+    a = TRx(TSPEC, device="cpu", threshold=0.5)
     got = []
     for b in blocks[:3]:
         got += a.push(b)
     path = str(tmp_path / "rx.npz")
     tstate.save_receiver(path, a)
-    b_ = TRx(TSPEC, threshold=0.5)
+    b_ = TRx(TSPEC, device="cpu", threshold=0.5)
     tstate.load_receiver(path, b_)
     got += _run(b_, blocks[3:])
     assert _keys(got) == _keys(full)
@@ -80,7 +80,7 @@ def test_receiver_checkpoint_resume(tmp_path):
 
 def test_snapshot_refuses_inflight_blocks():
     blocks, _ = _stream()
-    rx = TRx(TSPEC, threshold=0.5, pipeline_depth=2)
+    rx = TRx(TSPEC, device="cpu", threshold=0.5, pipeline_depth=2)
     rx.push(blocks[0])
     with pytest.raises(ValueError, match="in-flight"):
         tstate.snapshot_receiver(rx)
@@ -94,15 +94,15 @@ def _page_words():
 
 
 def test_transmitter_checkpoint_resume(tmp_path):
-    tx_full = TTx(TSPEC, control_channels=[1, 6])
-    tx_a = TTx(TSPEC, control_channels=[1, 6])
+    tx_full = TTx(TSPEC, device="cpu", control_channels=[1, 6])
+    tx_a = TTx(TSPEC, device="cpu", control_channels=[1, 6])
     for tx in (tx_full, tx_a):
         tx.next_block()
         tx.focc[1].push_words(STREAM_BOTH, _page_words(), repeats=3)
         tx.focc[6].mark_busy(2)
     path = str(tmp_path / "tx.npz")
     tstate.save_transmitter(path, tx_a)
-    tx_b = TTx(TSPEC, control_channels=[1, 6])
+    tx_b = TTx(TSPEC, device="cpu", control_channels=[1, 6])
     tstate.load_transmitter(path, tx_b)
     assert tx_b.focc[1].queue_depth() == 2
     for _ in range(2):
@@ -117,7 +117,7 @@ def test_transmitter_state_from_jax(tmp_path):
     jtx.focc[3].push_words(STREAM_BOTH, _page_words(), repeats=2)
     path = str(tmp_path / "jtx.npz")
     jstate.save_transmitter(path, jtx)
-    ttx = TTx(TSPEC, control_channels=[0, 3])
+    ttx = TTx(TSPEC, device="cpu", control_channels=[0, 3])
     with np.load(path) as z:
         convert.transmitter_state_from_jax(z, ttx)
     assert ttx._state.hop_idx == jtx._state.hop_idx
@@ -137,7 +137,7 @@ def test_receiver_state_from_jax():
     for b in blocks[:2]:                 # block 1 ends inside two bursts
         got += jrx.push(b)
     snap = jstate.snapshot_receiver(jrx)
-    trx = TRx(TSPEC, threshold=0.5)
+    trx = TRx(TSPEC, device="cpu", threshold=0.5)
     convert.receiver_state_from_jax(snap, trx)
     got += _run(trx, blocks[2:])
     assert _keys(got) == _keys(want)
@@ -163,9 +163,9 @@ def _flaky(fail_at, fails):
 
 def test_resilient_receiver_recovers_from_push_failure():
     blocks, events = _stream()
-    want = _run(TRx(TSPEC, threshold=0.5), blocks)
+    want = _run(TRx(TSPEC, device="cpu", threshold=0.5), blocks)
     seen = []
-    res = ResilientReceiver(lambda: TRx(TSPEC, threshold=0.5),
+    res = ResilientReceiver(lambda: TRx(TSPEC, device="cpu", threshold=0.5),
                             checkpoint_blocks=2, on_burst=seen.append)
     restore = _flaky(fail_at=4, fails=2)
     try:
@@ -182,11 +182,12 @@ def test_resilient_receiver_recovers_from_push_failure():
 
 def test_resilient_receiver_replays_tensor_blocks():
     """Tensor blocks go to the receiver as they are; after a failure the
-    ring's host copies are replayed on the blocks' device, and the report
-    list is that of an uninterrupted run."""
+    ring's host copies are replayed into the fresh receiver, which copies
+    them to its own device, and the report list is that of an
+    uninterrupted run."""
     blocks, events = _stream()
-    want = _run(TRx(TSPEC, threshold=0.5), blocks)
-    res = ResilientReceiver(lambda: TRx(TSPEC, threshold=0.5),
+    want = _run(TRx(TSPEC, device="cpu", threshold=0.5), blocks)
+    res = ResilientReceiver(lambda: TRx(TSPEC, device="cpu", threshold=0.5),
                             checkpoint_blocks=4)
     restore = _flaky(fail_at=3, fails=1)
     try:
@@ -202,7 +203,7 @@ def test_resilient_receiver_replays_tensor_blocks():
 
 def test_resilient_final_failure_leaves_ring_clean():
     blocks, _ = _stream()
-    res = ResilientReceiver(lambda: TRx(TSPEC, threshold=0.5),
+    res = ResilientReceiver(lambda: TRx(TSPEC, device="cpu", threshold=0.5),
                             max_retries=1)
     restore = _flaky(fail_at=1, fails=5)
     try:
@@ -215,9 +216,9 @@ def test_resilient_final_failure_leaves_ring_clean():
 
 def test_resilient_rejects_misconfigured_factory():
     with pytest.raises(ValueError):
-        ResilientReceiver(lambda: TRx(TSPEC, pipeline_depth=2))
+        ResilientReceiver(lambda: TRx(TSPEC, device="cpu", pipeline_depth=2))
     with pytest.raises(ValueError):
-        ResilientReceiver(lambda: TRx(TSPEC, on_burst=print))
+        ResilientReceiver(lambda: TRx(TSPEC, device="cpu", on_burst=print))
 
 
 def test_flush_pads_when_stream_ends_on_checkpoint_boundary():
@@ -229,7 +230,7 @@ def test_flush_pads_when_stream_ends_on_checkpoint_boundary():
     blocks, events = _stream()
     jr = jres.ResilientReceiver(lambda: JRx(JSPEC, threshold=0.5),
                                 checkpoint_blocks=3)
-    tr = ResilientReceiver(lambda: TRx(TSPEC, threshold=0.5),
+    tr = ResilientReceiver(lambda: TRx(TSPEC, device="cpu", threshold=0.5),
                            checkpoint_blocks=3)
     want, got = [], []
     for b in blocks:
@@ -253,12 +254,12 @@ def test_snapshot_keeps_sub_hop_residue():
     blocks, events = _stream()
     x = np.concatenate(blocks)
     ragged = [x[i: i + BLOCK + 3] for i in range(0, len(x), BLOCK + 3)]
-    want = _run(TRx(TSPEC, threshold=0.5), ragged)
+    want = _run(TRx(TSPEC, device="cpu", threshold=0.5), ragged)
     jr = jres.ResilientReceiver(lambda: JRx(JSPEC, threshold=0.5),
                                 checkpoint_blocks=1)
     with pytest.raises(ValueError, match="residue"):
         jr.push(ragged[0])
-    tr = ResilientReceiver(lambda: TRx(TSPEC, threshold=0.5),
+    tr = ResilientReceiver(lambda: TRx(TSPEC, device="cpu", threshold=0.5),
                            checkpoint_blocks=1)
     got = []
     for b in ragged:
@@ -268,7 +269,7 @@ def test_snapshot_keeps_sub_hop_residue():
     got += tr.flush()
     assert _keys(got) == _keys(want) and len(got) == len(events)
     # a receiver restored from the last snapshot holds the same residue
-    rx = TRx(TSPEC, threshold=0.5)
+    rx = TRx(TSPEC, device="cpu", threshold=0.5)
     tstate.restore_receiver(tr._snap, rx)
     assert (rx._residue is None) == (tr.rx._residue is None)
     if rx._residue is not None:

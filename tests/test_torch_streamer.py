@@ -96,7 +96,7 @@ def test_receiver_matches_jax(depth):
     blocks = _pushes(x)
     assert any(len(b) % (M // 2) for b in blocks)
     want = _run(JRx(jspec, threshold=0.5, pipeline_depth=depth), blocks)
-    got = _run(TRx(tspec, threshold=0.5, pipeline_depth=depth),
+    got = _run(TRx(tspec, device="cpu", threshold=0.5, pipeline_depth=depth),
                [torch.as_tensor(b) for b in blocks])
     _assert_same_reports(got, want)
     assert sorted(r.channel for r in got) == sorted(e.channel for e in events)
@@ -111,7 +111,7 @@ def test_last_burst_needs_pad_tail():
     x, events = _stream()
     _, tspec = _specs()
     blocks = _pushes(x)
-    got = _run(TRx(tspec, threshold=0.5), blocks, pad_tail=False)
+    got = _run(TRx(tspec, device="cpu", threshold=0.5), blocks, pad_tail=False)
     assert events[-1].channel not in [r.channel for r in got]
     assert len(got) == len(events) - 1
 
@@ -121,7 +121,7 @@ def test_receiver_bf16_spec_decodes_same_words():
     jspec, tspec = _specs(bf16=True)
     blocks = _pushes(x)
     want = _run(JRx(jspec, threshold=0.5), blocks)
-    got = _run(TRx(tspec, threshold=0.5), blocks)
+    got = _run(TRx(tspec, device="cpu", threshold=0.5), blocks)
     assert [(r.channel, r.words.tolist(), r.word_ok.tolist()) for r in got] \
         == [(r.channel, r.words.tolist(), r.word_ok.tolist()) for r in want]
     assert len(got) == len(events)
@@ -138,7 +138,7 @@ def test_demod_tap_matches_jax(tmp_path):
     blocks = _pushes(x)[:3]
     pj, pt = str(tmp_path / "j.f32"), str(tmp_path / "t.f32")
     rj = JRx(jspec, threshold=0.5, tap_demod_path=pj)
-    rt = TRx(tspec, threshold=0.5, tap_demod_path=pt)
+    rt = TRx(tspec, device="cpu", threshold=0.5, tap_demod_path=pt)
     _run(rj, blocks, pad_tail=False)
     _run(rt, blocks, pad_tail=False)
     rj.close()
@@ -179,7 +179,7 @@ def _reverse_band(bursts, total_hops, m=8):
 
 def _both(m, **kw):
     jspec, tspec = _specs(m=m)
-    return JRx(jspec, **kw), TRx(tspec, **kw)
+    return JRx(jspec, **kw), TRx(tspec, device="cpu", **kw)
 
 
 def test_overflow_path_is_lossless():
@@ -269,23 +269,34 @@ def test_word_a_gate_drops_undecodable_splatter():
 def test_on_burst_and_reports_attribute():
     x, events = _stream()
     seen = []
-    rx = TRx(_specs()[1], threshold=0.5, on_burst=seen.append)
+    rx = TRx(_specs()[1], threshold=0.5, device="cpu", on_burst=seen.append)
     reps = _run(rx, _pushes(x))
     assert seen == reps == rx.reports and len(reps) == len(events)
 
 
-@pytest.mark.parametrize("device", ["cpu", None])
-def test_receiver_refuses_block_on_another_device(device):
-    """A receiver on the CPU, built so or placed there by its first block
-    (an array), never takes a block lying on another device: work handed
-    over on a device is not moved off it."""
+@pytest.mark.parametrize("host", ["numpy", "tensor"])
+def test_receiver_refuses_block_on_another_device(host):
+    """A receiver on the CPU copies host data (a numpy array or a CPU
+    tensor) to its device and never takes a block lying on another
+    device: work handed over on a device is not moved off it."""
     x, _ = _stream()
-    rx = TRx(_specs()[1], threshold=0.5, device=device)
+    rx = TRx(_specs()[1], threshold=0.5, device="cpu")
     n = BLOCK_HOPS * M // 2
-    rx.push(x[:n])
+    rx.push(x[:n] if host == "numpy" else torch.as_tensor(x[:n]))
     assert rx.device == torch.device("cpu")
+    assert rx._carry.device == torch.device("cpu")
     with pytest.raises(ValueError, match="receiver on cpu"):
         rx.push(torch.zeros((n, 2), device="meta"))
+
+
+def test_entry_points_without_cuda_raise(monkeypatch):
+    """Without CUDA, a transmitter or receiver built without a device
+    raises: the entry points run on the card unless the CPU is named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        S.MultichannelTransmitter(_specs()[1])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TRx(_specs()[1])
 
 
 def test_front_end_argument_runs_every_push():
@@ -301,9 +312,9 @@ def test_front_end_argument_runs_every_push():
         calls.append(args[0].shape[0])
         return analyze_demod_reference(*args)
 
-    got = _run(TRx(_specs()[1], threshold=0.5, front_end=front_end), blocks)
+    got = _run(TRx(_specs()[1], threshold=0.5, device="cpu", front_end=front_end), blocks)
     assert len(calls) == len(blocks) + 1
-    want = _run(TRx(_specs()[1], threshold=0.5), blocks)
+    want = _run(TRx(_specs()[1], threshold=0.5, device="cpu"), blocks)
     assert [_key(r) for r in got] == [_key(r) for r in want]
     assert len(got) == len(events)
 

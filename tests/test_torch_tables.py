@@ -18,6 +18,7 @@ from amps_tpu.rx import decoder as jdec
 from amps_tpu_torch.codec import bch as tbch
 from amps_tpu_torch.codec import bits as tbits
 from amps_tpu_torch.dsp import channelizer as tchz
+from amps_tpu_torch.dsp import polyphase as tpoly
 from amps_tpu_torch.dsp import windows as twin
 from amps_tpu_torch.kernels import rx_phases as tk
 from amps_tpu_torch.rx import correlator as tcor
@@ -37,7 +38,7 @@ def test_prototype_taps_and_dft_mats(M, T):
     assert np.array_equal(tchz.prototype_taps(M, T), jchz.prototype_taps(M, T))
     for a, b in zip(tchz._dft_mats(M), jchz._dft_mats(M)):
         assert np.array_equal(a, b)
-    for a, b in zip(tchz._dft_mats_folded(M), jchz._dft_mats_folded(M)):
+    for a, b in zip(tpoly._dft_mats_folded(M), jchz._dft_mats_folded(M)):
         assert np.array_equal(a, b)
     assert tchz.default_split(M) == jchz.default_split(M)
 

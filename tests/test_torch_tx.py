@@ -210,7 +210,7 @@ def test_transmitter_two_blocks_match_jax():
     jspec, tspec = _specs()
     w1, w2 = _page_words()
     ctrl = [0, 2, 9, 15]
-    txs = (JTx(jspec, control_channels=ctrl), TTx(tspec, control_channels=ctrl))
+    txs = (JTx(jspec, control_channels=ctrl), TTx(tspec, control_channels=ctrl, device="cpu"))
     for tx in txs:
         tx.set_channel_source(5, _Tone())
         tx.focc[2].push_words(jfocc.STREAM_BOTH, [w1, w2], repeats=2)
@@ -226,4 +226,4 @@ def test_transmitter_two_blocks_match_jax():
 
 def test_transmitter_without_control_channels_raises():
     with pytest.raises(ValueError):
-        TTx(_specs()[1], control_channels=[]).next_block()
+        TTx(_specs()[1], control_channels=[], device="cpu").next_block()
