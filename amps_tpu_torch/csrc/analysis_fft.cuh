@@ -1,0 +1,335 @@
+// The all-channel FFT analysis tile of one thread block, shared by the
+// analysis kernel (analysis.cu) and the streaming receive front end
+// (rx_front.cu).
+//
+// Math.  The bank fold with the permutation-absorbed matrices and the
+// derotation e^{+j2πk/M} collapse to a forward DFT of the folded hop
+// window: for channel k and hop n,
+//   f_n[m] = sum_t coef[t, m] x[nP + tM + m]              (m < M, P = M/2)
+//   y_k[n] = (-1)^{k(n+parity)} sum_m f_n[m] e^{-j2π km/M}
+// so y is the forward M-point FFT of the folded window, then the hop sign.
+//
+// A block owns all M channels of H consecutive analysis hops a0 ..
+// a0+H-1 (M a power of two, 64 .. 2048; H even, set by the kernel):
+//   * fold: a thread folds one m for the H/2 hops of one parity, whose
+//     windows share H/2 + T - 1 input rows (hop a tap t reads row
+//     a + 2t, +1 for m >= P), loaded all at once straight from device
+//     memory into registers; consecutive threads take consecutive m, so a
+//     warp reads 256 contiguous bytes of a row.  The taps add in order
+//     t = 0, 1, ... (fmaf from 0) for every hop.  Rows outside the input
+//     load as zero; hops outside [0, Nh) are computed like any other and
+//     never stored.
+//   * transform: the block's (H x M) plane sits in shared memory, each
+//     hop's row padded by one float2 every 32 against bank conflicts.  An
+//     f32 Stockham autosort FFT runs in place on it: passes of radix 16
+//     (then one of 2, 4 or 8) over Ns = 1, 16, 256, ...; butterfly j of a
+//     hop reads R values at stride M/R, multiplies value r by the twiddle
+//     W_M^{(j mod Ns) r M/(Ns R)}, runs its R-point DFT in registers
+//     (radix 16 as 4 x 4) and writes them at (j/Ns)·Ns·R + j mod Ns +
+//     r·Ns.  A thread holds 16 complex values of a batch of whole hops
+//     between the batch's read and its write, with a barrier between, so
+//     no pass needs a second buffer.  Channel k ends at row position k:
+//     natural order, no index map.  The twiddles come from a table
+//     (fft_twiddle_offset) that the wrapper builds in float64 and casts
+//     to f32, laid out so that consecutive butterflies read consecutive
+//     entries; the butterflies' own constants W_16^1..3 head it.
+//   * every hop runs the same instruction sequence wherever it sits in
+//     the run: multiplies are __fmul_rn or explicit fmaf, adds __fadd_rn,
+//     so nvcc contracts nothing differently from hop to hop and chained
+//     calls equal one call bit for bit.
+// The caller's epilogue reads y(l, k, n) -- tile hop l, channel k, with
+// the hop sign of stream hop n -- from the plane, which doubles as the
+// store stage.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kFftThreads = 256;
+constexpr int kFftMaxT = 16;     // taps per phase held in registers
+constexpr int kFftValues = 16;   // complex values a thread holds in a pass
+
+// analysis hops a block of the analysis kernel computes at width M: ~100
+// KB of plane at M=1024, so two blocks share an SM
+__host__ __device__ constexpr int fft_tile_hops(int M) {
+  return M <= 512 ? 16 : (M == 1024 ? 12 : 4);
+}
+__host__ __device__ constexpr int fft_log2(int M) {
+  return M <= 1 ? 0 : 1 + fft_log2(M / 2);
+}
+// radix 16 while four bits remain, then one pass of 2, 4 or 8
+__host__ __device__ constexpr int fft_passes(int M) {
+  return (fft_log2(M) + 3) / 4;
+}
+__host__ __device__ constexpr int fft_radix(int M, int p) {
+  return p < fft_log2(M) / 4 ? 16 : 1 << (fft_log2(M) % 4);
+}
+// Ns of pass p: the product of the radices before it
+__host__ __device__ constexpr int fft_ns(int M, int p) {
+  return p == 0 ? 1 : fft_ns(M, p - 1) * fft_radix(M, p - 1);
+}
+// The twiddle table: W_16^1, W_16^2, W_16^3 (the radix-8 and radix-16
+// butterflies' constants), then for each pass p > 0 the (R-1) x Ns block
+// tw[off_p + (r-1)·Ns + jm] = W_M^{jm·r·M/(Ns·R)}, so that consecutive
+// butterflies read consecutive entries.
+__host__ __device__ constexpr int fft_twiddle_offset(int M, int p) {
+  return p <= 1 ? 3
+                : fft_twiddle_offset(M, p - 1) +
+                      (fft_radix(M, p - 1) - 1) * fft_ns(M, p - 1);
+}
+__host__ __device__ constexpr int fft_twiddle_size(int M) {
+  return fft_twiddle_offset(M, fft_passes(M));
+}
+// the radices in pass order, two decimal digits each (1024 -> 161604)
+__host__ __device__ constexpr int fft_radix_code(int M) {
+  int code = 0;
+  for (int p = 0; p < fft_passes(M); ++p) code = 100 * code + fft_radix(M, p);
+  return code;
+}
+
+// Calls f(std::integral_constant<int, M>) for the widths the tile takes;
+// returns -1 for any other M.
+template <class F>
+int with_width(int M, F f) {
+  switch (M) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    case 512: return f(std::integral_constant<int, 512>{});
+    case 1024: return f(std::integral_constant<int, 1024>{});
+    case 2048: return f(std::integral_constant<int, 2048>{});
+    default: return -1;
+  }
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(fmaf(a.x, w.x, -__fmul_rn(a.y, w.y)),
+                     fmaf(a.x, w.y, __fmul_rn(a.y, w.x)));
+}
+__device__ __forceinline__ float2 mul_mi(float2 a) {   // -i·a
+  return make_float2(a.y, -a.x);
+}
+
+// In-register forward R-point DFT, natural order in and out.
+__device__ __forceinline__ void dft4(float2& v0, float2& v1, float2& v2,
+                                     float2& v3) {
+  const float2 a = cadd(v0, v2), b = csub(v0, v2);
+  const float2 c = cadd(v1, v3), d = mul_mi(csub(v1, v3));
+  v0 = cadd(a, c);
+  v1 = cadd(b, d);
+  v2 = csub(a, c);
+  v3 = csub(b, d);
+}
+// c = {W_16^1, W_16^2, W_16^3}, read from the twiddle table
+template <int R>
+__device__ __forceinline__ void dft(float2 (&v)[R], const float2 (&c)[3]) {
+  if constexpr (R == 2) {
+    const float2 a = v[0];
+    v[0] = cadd(a, v[1]);
+    v[1] = csub(a, v[1]);
+  } else if constexpr (R == 4) {
+    dft4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (R == 16) {
+    // 4 x 4: DFTs over n2 of v[n1 + 4 n2], the twiddle W_16^{n1 k2}, DFTs
+    // over n1; V[k2 + 4 k1]
+    float2 x[4][4];
+#pragma unroll
+    for (int n1 = 0; n1 < 4; ++n1) {
+      x[n1][0] = v[n1];
+      x[n1][1] = v[n1 + 4];
+      x[n1][2] = v[n1 + 8];
+      x[n1][3] = v[n1 + 12];
+      dft4(x[n1][0], x[n1][1], x[n1][2], x[n1][3]);
+    }
+    const float2 w6 = mul_mi(c[1]);          // W_16^6 = -i W_16^2
+    x[1][1] = cmul(x[1][1], c[0]);
+    x[1][2] = cmul(x[1][2], c[1]);
+    x[1][3] = cmul(x[1][3], c[2]);
+    x[2][1] = cmul(x[2][1], c[1]);
+    x[2][2] = mul_mi(x[2][2]);
+    x[2][3] = cmul(x[2][3], w6);
+    x[3][1] = cmul(x[3][1], c[2]);
+    x[3][2] = cmul(x[3][2], w6);
+    const float2 t = cmul(x[3][3], c[0]);   // W_16^9 = -W_16^1
+    x[3][3] = make_float2(-t.x, -t.y);
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) {
+      dft4(x[0][k2], x[1][k2], x[2][k2], x[3][k2]);
+      v[k2] = x[0][k2];
+      v[k2 + 4] = x[1][k2];
+      v[k2 + 8] = x[2][k2];
+      v[k2 + 12] = x[3][k2];
+    }
+  } else {
+    static_assert(R == 8, "radix 2, 4, 8 or 16");
+    const float c8 = c[1].x;
+    float2 e[4] = {v[0], v[2], v[4], v[6]}, o[4] = {v[1], v[3], v[5], v[7]};
+    dft4(e[0], e[1], e[2], e[3]);
+    dft4(o[0], o[1], o[2], o[3]);
+    // W_8^1 = √½(1 - i), W_8^2 = -i, W_8^3 = -√½(1 + i)
+    o[1] = make_float2(__fmul_rn(c8, __fadd_rn(o[1].x, o[1].y)),
+                       __fmul_rn(c8, __fsub_rn(o[1].y, o[1].x)));
+    o[2] = mul_mi(o[2]);
+    o[3] = make_float2(__fmul_rn(c8, __fsub_rn(o[3].y, o[3].x)),
+                       -__fmul_rn(c8, __fadd_rn(o[3].x, o[3].y)));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = cadd(e[k], o[k]);
+      v[k + 4] = csub(e[k], o[k]);
+    }
+  }
+}
+
+template <int M, int H_>
+struct FftTile {
+  static constexpr int P = M / 2;
+  static constexpr int H = H_;                 // analysis hops of a block
+  static constexpr int FH = H / 2;             // hops a thread folds
+  static constexpr int HS = M + M / 32 + 1;    // hop stride of the plane
+  static constexpr int TWN = fft_twiddle_size(M);
+  static constexpr int kSmemBytes = 8 * (H * HS + TWN);
+  static_assert(H % 2 == 0 && M >= 64 && M <= 2048 && (M & (M - 1)) == 0,
+                "widths 64 .. 2048, powers of two");
+
+  float2* S;   // [H][HS] the plane
+  float2* W;   // [TWN] the twiddle table
+
+  __device__ __forceinline__ explicit FftTile(float* smem)
+      : S(reinterpret_cast<float2*>(smem)), W(S + H * HS) {}
+
+  __device__ __forceinline__ static int pad(int i) { return i + (i >> 5); }
+
+  __device__ __forceinline__ void load_twiddles(const float2* __restrict__ tw) {
+    for (int i = threadIdx.x; i < TWN; i += kFftThreads) W[i] = __ldg(tw + i);
+  }
+
+  // The folded windows of hops a0 .. a0+H-1 into the plane.  x is
+  // (n_ext, 2) interleaved or (2, n_ext) planar, n_ext a multiple of P.
+  __device__ __forceinline__ void fold(const float* __restrict__ x,
+                                       int planar, long long n_ext,
+                                       const float* __restrict__ coef, int T,
+                                       int a0) {
+    if (T <= 8) {
+      if (planar) fold_rows<true, 8>(x, n_ext, coef, T, a0);
+      else fold_rows<false, 8>(x, n_ext, coef, T, a0);
+    } else {
+      if (planar) fold_rows<true, kFftMaxT>(x, n_ext, coef, T, a0);
+      else fold_rows<false, kFftMaxT>(x, n_ext, coef, T, a0);
+    }
+  }
+
+  // fold for T <= MT: all FH + MT - 1 rows are loaded before any tap
+  // adds (a row past the taps or outside the input loads as zero, its
+  // coefficient is zero), so a thread's loads are in flight together
+  template <bool PLANAR, int MT>
+  __device__ __forceinline__ void fold_rows(const float* __restrict__ x,
+                                            long long n_ext,
+                                            const float* __restrict__ coef,
+                                            int T, int a0) {
+    const long long nrow = n_ext / P;
+#pragma unroll 1
+    for (int it = threadIdx.x; it < 2 * M; it += kFftThreads) {
+      const int g = it / M, m = it % M;     // hops g, g + 2, ... of the tile
+      const int hi = m >= P ? 1 : 0, col = m - hi * P;
+      float cf[MT];
+      float2 xv[FH + MT - 1];
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+        cf[t] = t < T ? __ldg(coef + t * M + m) : 0.f;
+#pragma unroll
+      for (int i = 0; i < FH + MT - 1; ++i) {
+        const long long row = a0 + g + 2 * i + hi;
+        const bool ok = i < FH + T - 1 && row >= 0 && row < nrow;
+        const long long s = ok ? row * P + col : 0;
+        const float2 v =
+            PLANAR ? make_float2(__ldg(x + s), __ldg(x + n_ext + s))
+                   : __ldg(reinterpret_cast<const float2*>(x) + s);
+        xv[i] = ok ? v : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < FH; ++j) {
+        float fr = 0.f, fi = 0.f;
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          fr = fmaf(cf[t], xv[j + t].x, fr);
+          fi = fmaf(cf[t], xv[j + t].y, fi);
+        }
+        S[(g + 2 * j) * HS + pad(m)] = make_float2(fr, fi);
+      }
+    }
+  }
+
+  // One Stockham pass of radix R after passes whose radices multiply to
+  // Ns, over batches of whole hops; ends with a barrier.
+  template <int R, int Ns, int OFF>
+  __device__ __forceinline__ void pass() {
+    constexpr int IH = M / R;                    // butterflies per hop
+    constexpr int IPT = kFftValues / R;          // butterflies a thread holds
+    constexpr int HB = kFftThreads * IPT / IH;   // hops per batch
+    static_assert(kFftThreads * IPT % IH == 0, "a batch holds whole hops");
+    const float2 c[3] = {W[0], W[1], W[2]};
+#pragma unroll 1
+    for (int b = 0; b < (H + HB - 1) / HB; ++b) {
+      float2 v[IPT][R];
+#pragma unroll
+      for (int q = 0; q < IPT; ++q) {
+        const int e = threadIdx.x + q * kFftThreads;
+        const int hop = b * HB + e / IH, j = e % IH;
+        if (hop < H) {
+          const float2* h = S + hop * HS;
+#pragma unroll
+          for (int r = 0; r < R; ++r) v[q][r] = h[pad(j + r * IH)];
+          if (Ns > 1) {
+            const float2* w = W + OFF + j % Ns;
+#pragma unroll
+            for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], w[(r - 1) * Ns]);
+          }
+          dft<R>(v[q], c);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < IPT; ++q) {
+        const int e = threadIdx.x + q * kFftThreads;
+        const int hop = b * HB + e / IH, j = e % IH;
+        if (hop < H) {
+          float2* h = S + hop * HS;
+          const int d = (j / Ns) * Ns * R + j % Ns;
+#pragma unroll
+          for (int r = 0; r < R; ++r) h[pad(d + r * Ns)] = v[q][r];
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  template <int p = 0, int Ns = 1>
+  __device__ __forceinline__ void fft() {
+    if constexpr (p < fft_passes(M)) {
+      constexpr int R = fft_radix(M, p);
+      pass<R, Ns, fft_twiddle_offset(M, p)>();
+      fft<p + 1, Ns * R>();
+    }
+  }
+
+  // y_k of tile hop l, with the hop sign (-1)^{k(n+parity)} of stream
+  // hop n
+  __device__ __forceinline__ float2 y(int l, int k, int n, int parity) const {
+    const float2 v = S[l * HS + pad(k)];
+    return ((k & 1) && ((n + parity) & 1)) ? make_float2(-v.x, -v.y) : v;
+  }
+};
+
+}  // namespace

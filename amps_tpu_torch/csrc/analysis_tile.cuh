@@ -1,6 +1,7 @@
-// The analysis channelizer of one thread block, shared by the receive
-// front-end kernels (rx_phases.cu: + discriminator + integrate-and-dump;
-// rx_front.cu: + discriminator + power series).
+// The dense analysis channelizer of one thread block, used by rx_phases.cu
+// alone (+ discriminator + integrate-and-dump).  analysis.cu and
+// rx_front.cu run the all-channel FFT tile, analysis_fft.cuh, instead;
+// rx_phases.cu moves onto it in a later step.
 //
 // Math.  The bank fold with the permutation-absorbed matrices and the
 // derotation e^{+j2πk/M} collapse to a forward DFT of the folded hop
@@ -28,6 +29,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -46,38 +49,6 @@ static_assert(kThreads / MK == 8 && 8 * FH == HS,
               "fold: 8 thread groups of FH same-parity hops cover the sub-tile");
 static_assert(MK * KU % kThreads == 0 && MK * HS % kThreads == 0 &&
               kMaxT * MK % kThreads == 0, "staging");
-
-// amps_tpu.dsp.fm.fast_atan2 with the same constants and the same
-// operation order; the _rn intrinsics keep nvcc from contracting the
-// polynomial into FMAs, so equal inputs give equal bits.
-__device__ __forceinline__ float fast_atan2(float y, float x) {
-  const float ax = fabsf(x), ay = fabsf(y);
-  const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
-  const float z = lo / fmaxf(hi, 1e-30f);
-  const float z2 = __fmul_rn(z, z);
-  float p = __fmul_rn(z2, -0.085133f);
-  p = __fmul_rn(z2, __fadd_rn(0.180141f, p));
-  p = __fmul_rn(z2, __fadd_rn(-0.3302995f, p));
-  float base = __fmul_rn(z, __fadd_rn(0.999866f, p));
-  base = (ay > ax) ? __fsub_rn(static_cast<float>(3.14159265358979323846 / 2), base) : base;
-  base = (x < 0.f) ? __fsub_rn(static_cast<float>(3.14159265358979323846), base) : base;
-  return (y < 0.f) ? -base : base;
-}
-
-// N = 4 or 8 bytes from global to shared memory without passing through
-// registers; with valid = false the destination is zero-filled.
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::
-               "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "n"(N), "r"(valid ? N : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Output channel of slot s of the block whose first pair index is u0:
 // slots [0, KU) hold channels u, slots [KU, KC) their partners M - u

@@ -10,11 +10,16 @@ computes the kernel's plain version, ``analyze_reference``.  There is no
 fallback from one to the other.  ``dsp.channelizer.analyze`` calls the
 wrapper.
 
-The receive kernels (``kernels.rx_phases``, ``kernels.rx_front``) run the
-same analysis tile (``csrc/analysis_tile.cuh``) under other epilogues:
-their plain versions start from ``analyze_reference``, and their
-wrappers share ``card_block`` (the checks of an input block on the
-card), ``_tables``, ``bind`` and ``launch``.
+The kernel and the streaming front end (``kernels.rx_front``) run one
+all-channel FFT tile (``csrc/analysis_fft.cuh``): a thread block folds
+each of its hops once and transforms the folded window with an f32
+Stockham FFT whose radices are ``fft_radices(M)`` and whose twiddles are
+the table of ``_tables``; M is a power of two in ``FFT_WIDTHS``.  The
+one-shot receive kernel (``kernels.rx_phases``) still runs the dense
+channel-pair tile (``csrc/analysis_tile.cuh``) on ``_pair_tables``.  All
+three plain versions start from ``analyze_reference``, and the wrappers
+share ``card_block`` (the checks of an input block on the card),
+``bind`` and ``launch``.
 """
 
 from __future__ import annotations
@@ -29,9 +34,12 @@ from amps_tpu_torch.dsp.polyphase import (_analysis_consts, _dft_mats,
                                           _hop_sign)
 from amps_tpu_torch.kernels import build
 
-CHANNEL_TILE = 64          # channels per thread block (csrc KC)
-MAX_TAPS = 16              # taps per phase the tile holds (csrc kMaxT)
-TILE_HOPS = 128            # hops per thread block (csrc kTileHops)
+MAX_TAPS = 16              # taps per phase the tiles hold (csrc kMaxT)
+FFT_WIDTHS = tuple(1 << b for b in range(6, 12))   # M the FFT tile takes
+# analysis hops a block of the FFT tile computes (csrc fft_tile_hops):
+# ~100 KB of shared plane at M = 1024, so two blocks share an SM
+FFT_TILE_HOPS = {M: 16 if M <= 512 else 12 if M == 1024 else 4
+                 for M in FFT_WIDTHS}
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -107,9 +115,58 @@ def analyze_reference(x_ext, M: int, T: int, hop0_parity: int = 0,
     return torch.stack([yr2 * sgn, yi2 * sgn], dim=-1)
 
 
+def fft_radices(M: int):
+    """The radices of the FFT tile's Stockham passes, in pass order: 16
+    while four bits of M remain, then one pass of 2, 4 or 8 (csrc
+    fft_radix)."""
+    bits = M.bit_length() - 1
+    return (16,) * (bits // 4) + ((1 << bits % 4,) if bits % 4 else ())
+
+
+def _radix_code(M: int) -> int:
+    """fft_radices(M), two decimal digits each, as the built kernel
+    reports them."""
+    return int("".join(f"{r:02d}" for r in fft_radices(M)))
+
+
+def fft_twiddle_exponents(M: int) -> np.ndarray:
+    """The exponents e of the FFT tile's twiddle table W_M^e (csrc
+    fft_twiddle_offset): M/16, M/8, 3M/16 (the butterflies' W_16^1..3),
+    then for each pass after the first, with Ns the product of the
+    earlier radices, the (R-1) x Ns block jm·r·M/(Ns·R) for r = 1 .. R-1,
+    jm < Ns."""
+    out = [M // 16, M // 8, 3 * M // 16]
+    ns = 1
+    for p, R in enumerate(fft_radices(M)):
+        if p:
+            r = np.arange(1, R)[:, None]
+            jm = np.arange(ns)[None, :]
+            out.extend((jm * r * (M // (ns * R))).ravel().tolist())
+        ns *= R
+    return np.asarray(out, dtype=np.int64)
+
+
+@functools.cache
+def _fft_twiddles(M: int) -> np.ndarray:
+    """(n, 2) float32 twiddle table W_M^e = e^{-j2πe/M} at the exponents
+    of ``fft_twiddle_exponents``: the angle in float64 from e reduced mod
+    M, cast to f32, as ``_dft_mats`` builds its tables."""
+    ang = 2.0 * np.pi * (fft_twiddle_exponents(M) % M) / M
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
 @functools.cache
 def _tables(M: int, T: int, device: torch.device):
-    """The kernels' tables on device: fold coefficients (T, M) and the
+    """The FFT tile's tables on device: fold coefficients coef[t, m]
+    (T, M) and the twiddle table of ``_fft_twiddles``."""
+    coef = _analysis_consts(M, T, device)[0]
+    return coef, torch.as_tensor(_fft_twiddles(M), device=device)
+
+
+@functools.cache
+def _pair_tables(M: int, T: int, device: torch.device):
+    """The dense channel-pair kernels' tables on device (rx_phases.cu's
+    analysis_tile.cuh and synth.cu): fold coefficients (T, M) and the
     (M, M/2) cos/sin columns of the channel pairs (u, M - u), u < M/2;
     sin column 0 (sin 0 = 0) carries channel M/2's cos column (-1)^m."""
     C, S = _dft_mats(M)
@@ -121,18 +178,25 @@ def _tables(M: int, T: int, device: torch.device):
     return (coef, *(torch.as_tensor(a, device=device) for a in (cu, su)))
 
 
+def check_fft_width(M: int) -> None:
+    """The FFT tile takes M a power of two in FFT_WIDTHS."""
+    if M not in FFT_WIDTHS:
+        raise ValueError(f"kernel needs M a power of two from "
+                         f"{FFT_WIDTHS[0]} to {FFT_WIDTHS[-1]} (M={M})")
+
+
 def card_block(x_ext: torch.Tensor, M: int, T: int):
     """The checks every front-end kernel makes of its input block on the
     card: a contiguous float32 CUDA tensor of whole hops (``block_geometry``),
-    M a multiple of CHANNEL_TILE, 1 <= T <= MAX_TAPS, and the alignment
-    of its layout (8 bytes riq, 4 planar).  Returns (planar, n_ext, Nh)."""
+    1 <= T <= MAX_TAPS, and the alignment of its layout (8 bytes riq, 4
+    planar).  Each wrapper checks M against its own tile.  Returns
+    (planar, n_ext, Nh)."""
     if x_ext.device.type != "cuda":
         raise ValueError(f"unsupported device {x_ext.device}")
     if x_ext.dtype != torch.float32 or not x_ext.is_contiguous():
         raise ValueError("x_ext must be contiguous float32")
-    if M % CHANNEL_TILE or not 1 <= T <= MAX_TAPS:
-        raise ValueError(f"kernel needs M % {CHANNEL_TILE} == 0 and "
-                         f"1 <= T <= {MAX_TAPS} (M={M}, T={T})")
+    if not 1 <= T <= MAX_TAPS:
+        raise ValueError(f"kernel needs 1 <= T <= {MAX_TAPS} (T={T})")
     planar, n_ext, Nh = block_geometry(x_ext, M, T)
     if x_ext.data_ptr() % (4 if planar else 8):
         raise ValueError("x_ext must be 8-byte aligned (interleaved) or "
@@ -143,15 +207,23 @@ def card_block(x_ext: torch.Tensor, M: int, T: int):
 def bind(symbol: str, argtypes, **tile_constants):
     """The launcher ``symbol`` of the built library with its argument
     types (it returns a cudaError_t), once the library's tile constants
-    (a C function each, named by the keyword) are the wrapper's."""
+    (a C function each, named by the keyword) are the wrapper's.  A
+    constant given as a dict {M: value} is a function of the width M."""
     lib = build.load()
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     for name, want in tile_constants.items():
-        getattr(lib, name).restype = ctypes.c_int
-        if getattr(lib, name)() != want:
-            raise RuntimeError(f"{name} of the built kernel != {want}")
+        const = getattr(lib, name)
+        const.restype = ctypes.c_int
+        if isinstance(want, dict):
+            const.argtypes = [ctypes.c_int]
+            got = {M: const(M) for M in want}
+        else:
+            got = const()
+        if got != want:
+            raise RuntimeError(f"{name} of the built kernel is {got}, the "
+                               f"wrapper's {want}")
     return fn
 
 
@@ -168,9 +240,9 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
 def _launcher():
     p, i = ctypes.c_void_p, ctypes.c_int
     return bind("analysis_launch",
-                [p, i, ctypes.c_longlong, p, p, p, p, i, i, i, i, i, p],
-                analysis_channel_tile=CHANNEL_TILE,
-                analysis_tile_hops=TILE_HOPS)
+                [p, i, ctypes.c_longlong, p, p, p, i, i, i, i, i, p],
+                analysis_tile_hops=FFT_TILE_HOPS,
+                analysis_fft_radices={M: _radix_code(M) for M in FFT_WIDTHS})
 
 
 def analyze_block(x_ext, M: int, T: int, hop0_parity: int = 0,
@@ -189,15 +261,16 @@ def analyze_block(x_ext, M: int, T: int, hop0_parity: int = 0,
     if x_ext.device.type == "cpu":
         return analyze_reference(x_ext, M, T, hop0_parity, planar, planar_in)
     is_planar, n_ext, Nh = card_block(x_ext, M, T)
+    check_fft_width(M)
     if is_planar != planar_in:
         raise ValueError(f"x_ext of shape {tuple(x_ext.shape)} with "
                          f"planar_in={planar_in}")
     dev = x_ext.device
-    coef, cu, su = _tables(M, T, dev)
+    coef, tw = _tables(M, T, dev)
     y = torch.empty((2, M, Nh) if planar else (M, Nh, 2),
                     dtype=torch.float32, device=dev)
     launch("analysis", _launcher(), dev, x_ext.data_ptr(), int(planar_in),
-           n_ext, coef.data_ptr(), cu.data_ptr(), su.data_ptr(), y.data_ptr(),
-           int(planar), M, T, Nh, int(hop0_parity) % 2)
+           n_ext, coef.data_ptr(), tw.data_ptr(), y.data_ptr(), int(planar),
+           M, T, Nh, int(hop0_parity) % 2)
     LAUNCHES += 1
     return y

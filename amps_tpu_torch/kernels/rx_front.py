@@ -9,7 +9,11 @@ to what ``amps_tpu.runtime.streamer._rx_stream_block`` computes) or
 raises; a CPU tensor computes the kernel's plain version,
 ``analyze_demod_reference`` -- the port's channelizer ->
 quadrature_demod_planar(prev, return_power="series").  There is no
-fallback from one to the other.
+fallback from one to the other.  The kernel runs the all-channel FFT
+tile of ``kernels.analysis`` (``csrc/analysis_fft.cuh``): a block
+computes twice the analysis kernel's ``FFT_TILE_HOPS[M]`` hops (its f32
+rows need twice the hops to fill a sector) and owns the demod of all but
+the first.
 """
 
 from __future__ import annotations
@@ -20,12 +24,14 @@ import functools
 import torch
 
 from amps_tpu_torch.dsp.fm import quadrature_demod_planar
-from amps_tpu_torch.kernels.analysis import (CHANNEL_TILE, _tables,
+from amps_tpu_torch.kernels.analysis import (FFT_TILE_HOPS, FFT_WIDTHS,
+                                             _radix_code, _tables,
                                              analyze_reference, bind,
                                              block_geometry, card_block,
-                                             launch)
+                                             check_fft_width, launch)
 
-TILE_HOPS = 383            # demod hops per thread block (csrc kTileHops)
+# demod hops a thread block owns, by M (csrc rx_front_hops - 1)
+TILE_HOPS = {M: 2 * h - 1 for M, h in FFT_TILE_HOPS.items()}
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -55,10 +61,10 @@ def analyze_demod_reference(x_ext, M: int, T: int, hop0_parity: int,
 def _launcher():
     p, i = ctypes.c_void_p, ctypes.c_int
     return bind("rx_front_launch",
-                [p, i, ctypes.c_longlong, p, p, p, p, p, p, p,
+                [p, i, ctypes.c_longlong, p, p, p, p, p, p,
                  i, i, i, i, p],
-                rx_front_channel_tile=CHANNEL_TILE,
-                rx_front_tile_hops=TILE_HOPS)
+                rx_front_tile_hops=TILE_HOPS,
+                rx_front_fft_radices={M: _radix_code(M) for M in FFT_WIDTHS})
 
 
 def analyze_demod(x_ext, M: int, T: int, hop0_parity: int, prev_iq):
@@ -78,19 +84,20 @@ def analyze_demod(x_ext, M: int, T: int, hop0_parity: int, prev_iq):
     if x_ext.device.type == "cpu":
         return analyze_demod_reference(x_ext, M, T, hop0_parity, prev_iq)
     planar, n_ext, Nh = card_block(x_ext, M, T)
+    check_fft_width(M)
     if prev_iq.device != x_ext.device or prev_iq.dtype != torch.float32:
         raise ValueError(f"prev_iq must be float32 on {x_ext.device}, got "
                          f"{prev_iq.dtype} on {prev_iq.device}")
     _check_prev(prev_iq, M)
     dev = x_ext.device
-    coef, cu, su = _tables(M, T, dev)
+    coef, tw = _tables(M, T, dev)
     prev = prev_iq.contiguous()
     demod = torch.empty((M, Nh), dtype=torch.float32, device=dev)
     pw = torch.empty((M, Nh), dtype=torch.float32, device=dev)
     last = torch.empty((M, 2), dtype=torch.float32, device=dev)
     launch("rx_front", _launcher(), dev, x_ext.data_ptr(), int(planar),
-           n_ext, coef.data_ptr(), cu.data_ptr(), su.data_ptr(),
-           prev.data_ptr(), demod.data_ptr(), pw.data_ptr(), last.data_ptr(),
-           M, T, Nh, int(hop0_parity) % 2)
+           n_ext, coef.data_ptr(), tw.data_ptr(), prev.data_ptr(),
+           demod.data_ptr(), pw.data_ptr(), last.data_ptr(), M, T, Nh,
+           int(hop0_parity) % 2)
     LAUNCHES += 1
     return demod, last, pw

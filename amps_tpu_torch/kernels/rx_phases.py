@@ -7,7 +7,9 @@ hand-written kernel in ``csrc/rx_phases.cu`` (the Hopper port of
 raises; a CPU tensor computes the kernel's plain version,
 ``analyze_phases_reference`` — the port's channelizer ->
 quadrature_demod_planar -> symbol_phase_streams / window_power_blocks.
-There is no fallback from one to the other.
+There is no fallback from one to the other.  The kernel runs the dense
+channel-pair tile (``csrc/analysis_tile.cuh``) on the tables of
+``_tables``: blocks of CHANNEL_TILE channels, M a multiple of it.
 """
 
 from __future__ import annotations
@@ -18,14 +20,15 @@ import functools
 import torch
 
 from amps_tpu_torch.dsp.fm import quadrature_demod_planar
-from amps_tpu_torch.kernels.analysis import (CHANNEL_TILE, _tables,
-                                             analyze_reference, bind,
+from amps_tpu_torch.kernels.analysis import _pair_tables as _tables
+from amps_tpu_torch.kernels.analysis import (analyze_reference, bind,
                                              block_geometry, card_block,
                                              launch)
 from amps_tpu_torch.rx.correlator import (RSSI_BLOCK, power_from_blocks,
                                           symbol_phase_streams,
                                           window_power_blocks)
 
+CHANNEL_TILE = 64          # channels per thread block (csrc KC)
 TILE_HOPS = RSSI_BLOCK     # hops per thread block (csrc kTileHops)
 MAX_SPS = 32               # its 128-hop demod ring holds 64 + 2 sps - 2 hops
 
@@ -87,6 +90,8 @@ def analyze_phases(x_ext, M: int, T: int, sps: int = 3,
     if TILE_HOPS % sps or sps > MAX_SPS:
         raise ValueError(f"kernel needs {TILE_HOPS} % sps == 0 and sps <= "
                          f"{MAX_SPS} (sps={sps})")
+    if M % CHANNEL_TILE:
+        raise ValueError(f"kernel needs M % {CHANNEL_TILE} == 0 (M={M})")
     planar, n_ext, Nh = card_block(x_ext, M, T)
     nsym = _nsym(Nh, sps)
     dev = x_ext.device

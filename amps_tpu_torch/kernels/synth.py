@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.dsp import channelizer as chz
-from amps_tpu_torch.kernels.analysis import _tables, bind, launch
+from amps_tpu_torch.kernels.analysis import _pair_tables, bind, launch
 
 COLUMN_TILE = 64           # output columns per transform block (csrc 2*KU)
 
@@ -86,7 +86,7 @@ def synthesize_block(Y, M: int, T: int, hop0_parity: int, carry):
     dev = Y.device
     Nh = Y.shape[0]
     P = M // 2
-    _, cu, su = _tables(M, T, dev)
+    _, cu, su = _pair_tables(M, T, dev)
     gm = _gain_taps(M, T, dev)
     u = torch.empty((2, Nh, M), dtype=torch.float32, device=dev)
     out = torch.empty((Nh * P, 2), dtype=torch.float32, device=dev)

@@ -7,7 +7,8 @@ kernel, and planted bursts streamed through MultichannelReceiver -- and
 a whole call over channelized RF: BaseStation, the transmitter, the
 mobile simulator's ear on the analysis kernel, its RECC bursts through
 the receiver; and times kernels and paths against their plain versions,
-their bounds and a cuFFT yardstick.
+their bounds and a cuFFT yardstick, with a profiler window of one
+receiver push and of one superframe of the ear.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -17,9 +18,11 @@ Every check raises on failure.  The last line of standard output is a
 JSON object naming the device; the line before it lists each kernel of
 the paths with its launches on its main path, its error against the
 plain version, both times, its bound (the least time of the function:
-an FFT-sized transform and the fold against the bytes moved), the f32
-time of the dense DFT it computes instead, and the cuFFT time of its
-transform alone.  Without a CUDA card it exits non-zero.
+an FFT-sized transform and the fold against the bytes moved), its
+transform ("fft": the analysis and rx_front kernels' all-channel FFT
+tile; "dense": the channel-pair DFT of rx_phases and synth, with the
+f32 time of that dense DFT), and the cuFFT time of its transform alone.
+Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ BRANCH_CUT_FRACTION = 1e-5  # share of noise samples allowed past PHASE_ATOL
 POWER_RTOL = 1e-4
 BF16_ATOL = 0.02           # bf16 phase output against the f32 plain version
 N_TIMED = 30
+KERNEL_REPS = 5            # back-to-back calls per timed kernel turn
 BURST_HOPS = (30 + 11 + 7 + 7 * 240) * 2 * 3   # one RECC burst at sps 3
 # wideband noise of the phase-2 band: ~37 dB per-channel SNR at M=1024,
 # so that no channel is dominated by the f32 roundoff of the bursts
@@ -136,8 +140,12 @@ def compare_front_end(K, x, M, T, sps, label, events=()):
     return burst_err
 
 
-def timed(fns, n=N_TIMED):
-    """Median ms of each callable, interleaved in turns, CUDA events."""
+def timed(fns, n=N_TIMED, reps=1):
+    """Median ms of each callable, interleaved in turns, CUDA events.  A
+    turn times ``reps`` back-to-back calls and divides by them: a kernel
+    (reps = KERNEL_REPS) is timed on a fed queue, so the wrapper's host
+    work overlaps the previous launch; a path (reps = 1) is timed call by
+    call, its host work included."""
     for f in fns.values():
         f()
     torch.cuda.synchronize()
@@ -147,10 +155,11 @@ def timed(fns, n=N_TIMED):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            f()
+            for _ in range(reps):
+                f()
             b.record()
             torch.cuda.synchronize()
-            times[k].append(a.elapsed_time(b))
+            times[k].append(a.elapsed_time(b) / reps)
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
@@ -476,13 +485,25 @@ def phase_times(dev, M, T, card, n_timed=10):
     out = {"synth": timed({
         "kernel": lambda: S.synthesize_block(Y, M, T, 0, carry),
         "plain": lambda: S.synthesize_block_reference(Y, M, T, 0, carry),
-    }, n_timed)}
+    }, n_timed, KERNEL_REPS)}
     # the synthesis reads Y and the carry and writes Nh*P samples and the
     # new carry
     sy = out["synth"]
     sy["bound"], sy["bound_by"], sy["dense"] = bound(
         M, T, Nh, 2 * nbytes(carry) + nbytes(Y) + Nh * P * 8)
     sy["fft"] = fft_ms(M, Nh, dev, inverse=True)
+    # a superframe, the shape next_block hands the kernel
+    n_sf = 18 * 463 * 2 * 3
+    Ysf = torch.randn((n_sf, M, 2), device=dev, generator=g)
+    out["synth_sf"] = timed({
+        "kernel": lambda: S.synthesize_block(Ysf, M, T, 0, carry),
+        "plain": lambda: S.synthesize_block_reference(Ysf, M, T, 0, carry),
+    }, n_timed, KERNEL_REPS)
+    ss = out["synth_sf"]
+    ss["bound"], ss["bound_by"], ss["dense"] = bound(
+        M, T, n_sf, 2 * nbytes(carry) + nbytes(Ysf) + n_sf * P * 8)
+    ss["fft"] = fft_ms(M, n_sf, dev, inverse=True)
+    del Ysf
     prod = pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank",
                                io_bf16=True, corr_bf16=True,
                                transform_bf16=True)
@@ -494,7 +515,7 @@ def phase_times(dev, M, T, card, n_timed=10):
     out["rx_front"] = timed({
         "kernel": lambda: R.analyze_demod(x_ext, M, T, 0, prev),
         "plain": lambda: R.analyze_demod_reference(x_ext, M, T, 0, prev),
-    }, n_timed)
+    }, n_timed, KERNEL_REPS)
     # reads the block, its tables and prev; writes demod and power planes
     # and `last`; the discriminator's few operations a sample are left out
     fe = out["rx_front"]
@@ -507,19 +528,22 @@ def phase_times(dev, M, T, card, n_timed=10):
                prod, device=dev, front_end=R.analyze_demod_reference)}
     out["push"] = timed({k: (lambda r=r: r.push(xb)) for k, r in rxs.items()},
                         n_timed)
+    profile_window(f"MultichannelReceiver.push of {n} samples, kernel "
+                   f"front end", lambda: rxs["kernel"].push(xb), dev)
     txs = {"kernel": MultichannelTransmitter(prod, device=dev),
            "plain": MultichannelTransmitter(
                prod, device=dev, synthesize=S.synthesize_block_reference)}
     out["next_block"] = timed({k: t.next_block for k, t in txs.items()},
                               max(3, n_timed // 3))
-    n_sf = 18 * 463 * 2 * 3 * P
     for name, label, samples in (
             ("synth", f"synth kernel, Nh={Nh}", Nh * P),
+            ("synth_sf", f"synth kernel, a superframe (Nh={n_sf})",
+             n_sf * P),
             ("rx_front", f"rx_front kernel, Nh={Nh}", n),
             ("push", f"MultichannelReceiver.push of {n} samples, depth 1",
              n),
             ("next_block", "MultichannelTransmitter.next_block, one "
-             "superframe, all channels", n_sf)):
+             "superframe, all channels", n_sf * P)):
         for k in ("kernel", "plain"):
             ms = out[name][k]
             log(f"  {label}, {k}: {ms:.3f} ms, "
@@ -530,6 +554,46 @@ def phase_times(dev, M, T, card, n_timed=10):
                 f"{out[name]['dense']:.3f} ms, cuFFT of the plane "
                 f"{out[name]['fft']:.3f} ms")
     return out
+
+
+def profile_window(label, fn, dev, top=6):
+    """One call of ``fn`` under torch.profiler after a warm-up: device
+    busy time (the union of the card's kernel and copy spans), the host
+    wall time of the same call without the profiler (median of 3; the
+    profiler's own host cost would inflate it), the idle share between
+    them, and the top device ops by total time.  Returns (busy ms, wall
+    ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    walls = []
+    for _ in range(4):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(walls[1:]))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_prof = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert ev, f"{label}: the profiler saw no device activity"
+    busy, end, by_name = 0.0, -math.inf, {}
+    for a, b, name in sorted((e.time_range.start, e.time_range.end, e.name)
+                             for e in ev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    busy /= 1e3
+    log(f"  profile, {label}: device busy {busy:.3f} ms in {len(ev)} device "
+        f"ops, host wall {wall:.3f} ms ({wall_prof:.3f} under the "
+        f"profiler), idle share {1 - busy / wall:.1%}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"    {us / 1e3:8.3f} ms {us / 1e3 / busy:6.1%}  {name[:90]}")
+    return busy, wall
 
 
 def bound(M, T, Nh, nbytes):
@@ -558,7 +622,7 @@ def fft_ms(M, Nh, dev, inverse=False):
     g = torch.Generator(dev).manual_seed(Nh)
     z = torch.randn((Nh, M), dtype=torch.complex64, device=dev, generator=g)
     f = torch.fft.ifft if inverse else torch.fft.fft
-    return timed({"fft": lambda: f(z, dim=-1)}, 10)["fft"]
+    return timed({"fft": lambda: f(z, dim=-1)}, 10, KERNEL_REPS)["fft"]
 
 
 def phase_analysis(dev, T, card, n_timed=10):
@@ -601,7 +665,7 @@ def phase_analysis(dev, T, card, n_timed=10):
             errs[M, Nh] = err
             t = timed({"kernel": lambda: KA.analyze_block(x, M, T, 0),
                        "plain": lambda: KA.analyze_reference(x, M, T, 0)},
-                      n_timed)
+                      n_timed, KERNEL_REPS)
             t["fft"] = fft_ms(M, Nh, dev)
             tables = KA._tables(M, T, dev)
             t["bound"], t["bound_by"], t["dense"] = bound(
@@ -619,7 +683,7 @@ def phase_analysis(dev, T, card, n_timed=10):
 
 
 def phase_call(dev, M, T, analysis_block=None, label="kernel ear",
-               sigma=1e-3):
+               sigma=1e-3, profile=False):
     """Phase 11: tests/test_system_loop.py's whole call at full width.
     The station's FOCC rides slot 1 of a transmitter carrying FOCC on
     every slot but 3, 4 and 5, its VoiceFvcSlot slot 4 (AMPS channel
@@ -679,6 +743,7 @@ def phase_call(dev, M, T, analysis_block=None, label="kernel ear",
         return out, (time.perf_counter() - t0) * 1e3
 
     def listen(blk):
+        ear["blk"] = blk
         Y, ear["s"] = chz.analyze(blk, prod.chz_spec, ear["s"],
                                   block=analysis_block)
         demod, _ = quadrature_demod(Y[[focc_slot, fvc_slot]])
@@ -750,6 +815,9 @@ def phase_call(dev, M, T, analysis_block=None, label="kernel ear",
     log(f"  {label}: mob.log {mob.log}; launches {launches}; FOCC frames "
         f"decoded per superframe {[len(h[0]) for h in heard]}, FVC words "
         f"{[len(h[1]) for h in heard]}")
+    if profile:     # after the call: the ear hears its last block again
+        profile_window(f"one superframe of the {label} (analyze + 2 demod "
+                       f"rows to host)", lambda: listen(ear["blk"]), dev)
     return mob.log, heard, launches, times
 
 
@@ -891,7 +959,7 @@ def main() -> int:
                                                out_dtype=torch.bfloat16),
             "plain": lambda: K.analyze_phases_reference(
                 xe, Mk, T, sps, out_dtype=torch.bfloat16),
-        })
+        }, reps=KERNEL_REPS)
         kernel_ms[Mk] = fe
         for k, ms in fe.items():
             log(f"  stages 1-3 M={Mk}, {k}: {ms:.3f} ms, "
@@ -921,7 +989,7 @@ def main() -> int:
     ana_err, ana_times = phase_analysis(dev, T, card)
     log(f"phase 11: the whole call over channelized RF, M={M}, production "
         f"spec, FOCC on every slot but 3-5, the mobile on reverse slot 3")
-    log_k, heard_k, call_launches, _ = phase_call(dev, M, T)
+    log_k, heard_k, call_launches, _ = phase_call(dev, M, T, profile=True)
     assert call_launches["analysis"] >= 3 and call_launches["synth"] >= 3 \
         and call_launches["rx_front"] >= 1, call_launches
     log_p, heard_p, plain_launches, _ = phase_call(
@@ -934,25 +1002,29 @@ def main() -> int:
         f"decoded FOCC frames and FVC words; analysis kernel launches "
         f"{call_launches['analysis']} on the call")
 
-    def entry(name, replaces, launches, err, t):
+    def entry(name, replaces, launches, err, t, transform):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["kernel"],
                 "plain_ms": t["plain"], "bound_ms": t["bound"],
                 "bound_by": t["bound_by"], "library_ms": None,
-                "fft_ms": t["fft"], "dense_dft_ms": t["dense"]}
+                "transform": transform, "fft_ms": t["fft"],
+                "dense_dft_ms": t["dense"] if transform == "dense" else None}
 
+    # each at the shape its main path hands it: a superframe for the
+    # analysis (the ear) and synth (next_block) kernels, a 1<<22-sample
+    # block for rx_phases and rx_front
     print(json.dumps({"kernels": [
         entry("analysis", "amps_tpu/pallas/channelizer_kernel.py:151",
               call_launches["analysis"], max(ana_err.values()),
-              ana_times[M, 50004]),
+              ana_times[M, 50004], "fft"),
         entry("rx_phases", "amps_tpu/pallas/rx_phases_kernel.py:223",
-              launches, max_err, kernel_ms[1024]),
+              launches, max_err, kernel_ms[1024], "dense"),
         entry("rx_front", "amps_tpu/pallas/rx_front_kernel.py:184",
-              rx_launches, front_err[1024], times["rx_front"]),
+              rx_launches, front_err[1024], times["rx_front"], "fft"),
         entry("synth", "amps_tpu/pallas/synthesizer_kernel.py:128",
-              tx_launches, synth_err[1024], times["synth"]),
+              tx_launches, synth_err[1024], times["synth_sf"], "dense"),
     ]}), flush=True)
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """K1, the analysis channelizer: the port's plain version against the
 JAX package's Pallas kernel (interpret mode) and against its analysis
-(``fold="bank"``), and ``dsp.channelizer.analyze`` over streamed blocks.
+(``fold="bank"``), ``dsp.channelizer.analyze`` over streamed blocks, and
+a torch model of what the CUDA kernels' FFT tile (``csrc/analysis_fft.cuh``)
+computes, on the tables the wrapper hands it.
 
 Tolerance: atol 2e-4 on inputs of unit variance per component, the
 tolerance of ``tests/test_pallas.py`` (f32 transforms that sum in other
@@ -132,3 +134,67 @@ def test_analyzer_init_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tchz.synthesizer_init(spec)
     assert tchz.analyzer_init(spec, device="cpu").history.device.type == "cpu"
+
+
+def _w16_powers(c):
+    """W_16^e, e < 16, from the table's head c = (W_16^1, W_16^2, W_16^3):
+    the quarter turns are exact (-i, -1, i)."""
+    base = torch.cat([torch.ones(1, dtype=c.dtype), c])        # e = 0 .. 3
+    quarter = torch.tensor([1, -1j, -1, 1j], dtype=c.dtype)
+    return (quarter[:, None] * base[None, :]).reshape(16)
+
+
+def _fft_tile_model(x_ext, M, T, parity):
+    """The FFT tile's decomposition in torch: the fold of every hop, the
+    Stockham passes of ``KA.fft_radices(M)`` on the twiddle table of
+    ``KA._tables`` (butterfly j of a pass reads R values at stride M/R,
+    multiplies value r by the table's block entry (r-1)·Ns + j mod Ns,
+    runs its R-point DFT and writes at (j/Ns)·Ns·R + j mod Ns + r·Ns),
+    natural-order output, then the hop sign.  Returns (M, Nh, 2)."""
+    P = M // 2
+    Nh = x_ext.shape[0] // P - (2 * T - 1)
+    coef, tw = KA._tables(M, T, torch.device("cpu"))
+    idx = (torch.arange(Nh)[:, None, None] * P
+           + torch.arange(T)[None, :, None] * M
+           + torch.arange(M)[None, None, :])
+    f = (coef[None, :, :, None] * x_ext[idx]).sum(1)            # (Nh, M, 2)
+    z = torch.complex(f[..., 0], f[..., 1])
+    w = torch.complex(tw[:, 0], tw[:, 1])
+    w16 = _w16_powers(w[:3])
+    ns, off = 1, 3
+    for p, R in enumerate(KA.fft_radices(M)):
+        j = torch.arange(M // R)[:, None]
+        r = torch.arange(R)[None, :]
+        v = z[:, j + r * (M // R)]                              # (Nh, M/R, R)
+        if p:
+            v[..., 1:] = v[..., 1:] * w[off + (r[:, 1:] - 1) * ns + j % ns]
+            off += (R - 1) * ns
+        dft = w16[(r.T * r) % R * (16 // R)]                    # W_R^{rk}
+        out = torch.empty_like(z)
+        out[:, (j // ns) * ns * R + j % ns + r * ns] = v @ dft
+        z, ns = out, ns * R
+    assert off == tw.shape[0]
+    odd = ((torch.arange(M)[:, None] % 2)
+           * ((torch.arange(Nh)[None, :] + parity) % 2)).bool()
+    y = torch.where(odd, -z.T, z.T)
+    return torch.stack([y.real, y.imag], dim=-1)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("M", [64, 256, 1024])
+def test_fft_tile_model_matches_plain_version_and_jax(M, parity):
+    """The decomposition the CUDA kernels are handed (fold, the FFT on
+    the wrapper's twiddle table and radices, natural order, hop sign)
+    against the plain K1 and the JAX bank analysis, on unit-amplitude
+    channels: a table, index or sign fault shows up here, before the
+    card.  atol 2e-4 (f32 transforms that sum in other orders)."""
+    T, Nh = 8, 300
+    x = unit_channel_band(M, T, Nh, M + parity, device="cpu")
+    got = _fft_tile_model(x, M, T, parity)
+    want = KA.analyze_reference(x, M, T, parity)
+    assert got.shape == want.shape == (M, Nh, 2)
+    assert (got - want).abs().max().item() < ATOL
+    jax_y = np.asarray(jchz._analyze_block_chmajor(
+        jnp.asarray(x.numpy()), jnp.asarray(jchz.prototype_taps(M, T)), M, T,
+        jnp.int32(parity), fold="bank"))
+    assert np.abs(got.numpy() - jax_y).max() < ATOL

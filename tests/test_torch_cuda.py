@@ -113,7 +113,7 @@ def test_rx_block_on_card_matches_cpu(cuda_device):
 @pytest.mark.parametrize("M,Nh,parity,planar", [
     (256, 1000, 0, False),
     (1024, 800, 1, True),
-    (64, 384, 1, False),       # one hop past a whole tile of 383
+    (64, 373, 1, False),       # one hop past 12 whole tiles of 31
 ])
 def test_rx_front_kernel_matches_plain_version_on_card(cuda_device, M, Nh,
                                                        parity, planar):
@@ -159,7 +159,8 @@ def test_rx_front_kernel_chained_calls_equal_one(cuda_device):
     (1024, 2000, 0, False, False),
     (1024, 1001, 1, True, True),
     (256, 8192, 1, False, True),
-    (256, 129, 0, True, False),      # one hop past a whole tile of 128
+    (256, 129, 0, True, False),      # one hop past 8 whole tiles of 16
+    (64, 1001, 1, False, True),
 ])
 def test_analysis_kernel_matches_plain_version_on_card(cuda_device, M, Nh,
                                                        parity, planar_in,
@@ -208,7 +209,7 @@ def test_analysis_kernel_rejects_what_it_cannot_run(cuda_device):
         KA.analyze_block(x, M, T)
     with pytest.raises(ValueError, match="device"):
         KA.analyze_block(torch.zeros((n, 2), device="meta"), M, T)
-    with pytest.raises(ValueError):            # M not a multiple of 64
+    with pytest.raises(ValueError):            # M not a power of two
         KA.analyze_block(torch.zeros(((Nh + 15) * 48, 2), device=cuda_device),
                          96, T)
     with pytest.raises(ValueError):            # not one (n, 2) block
