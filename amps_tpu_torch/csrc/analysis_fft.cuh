@@ -1,6 +1,7 @@
-// The all-channel FFT analysis tile of one thread block, shared by the
-// analysis kernel (analysis.cu) and the streaming receive front end
-// (rx_front.cu).
+// The all-channel FFT tile of one thread block, shared by the four
+// kernels: the analysis kernel (analysis.cu), the streaming and the
+// one-shot receive front ends (rx_front.cu, rx_phases.cu) and the
+// synthesis kernel (synth.cu).
 //
 // Math.  The bank fold with the permutation-absorbed matrices and the
 // derotation e^{+j2πk/M} collapse to a forward DFT of the folded hop
@@ -8,9 +9,12 @@
 //   f_n[m] = sum_t coef[t, m] x[nP + tM + m]              (m < M, P = M/2)
 //   y_k[n] = (-1)^{k(n+parity)} sum_m f_n[m] e^{-j2π km/M}
 // so y is the forward M-point FFT of the folded window, then the hop sign.
+// The synthesis runs the same forward FFT on hop-major rows of channel
+// basebands (load_rows) and reads its inverse transform off it by index
+// (synth.cu).
 //
-// A block owns all M channels of H consecutive analysis hops a0 ..
-// a0+H-1 (M a power of two, 64 .. 2048; H even, set by the kernel):
+// A block owns all M channels of H consecutive hops a0 .. a0+H-1 (M a
+// power of two, 64 .. 2048; H even, set by the kernel):
 //   * fold: a thread folds one m for the H/2 hops of one parity, whose
 //     windows share H/2 + T - 1 input rows (hop a tap t reads row
 //     a + 2t, +1 for m >= P), loaded all at once straight from device
@@ -19,6 +23,9 @@
 //     t = 0, 1, ... (fmaf from 0) for every hop.  Rows outside the input
 //     load as zero; hops outside [0, Nh) are computed like any other and
 //     never stored.
+//   * load_rows (instead of the fold): H hop-major rows of M complex
+//     values copied straight into the plane by cp.async, consecutive
+//     threads on consecutive values; rows outside [0, Nh) load as zero.
 //   * transform: the block's (H x M) plane sits in shared memory, each
 //     hop's row padded by one float2 every 32 against bank conflicts.  An
 //     f32 Stockham autosort FFT runs in place on it: passes of radix 16
@@ -59,6 +66,12 @@ constexpr int kFftValues = 16;   // complex values a thread holds in a pass
 // KB of plane at M=1024, so two blocks share an SM
 __host__ __device__ constexpr int fft_tile_hops(int M) {
   return M <= 512 ? 16 : (M == 1024 ? 12 : 4);
+}
+// hops a block of the kernels with a heavier epilogue computes (rx_front,
+// rx_phases, synth): twice the analysis kernel's, since their 4-byte rows
+// need twice the hops to fill the same sectors; one block an SM at M=1024
+__host__ __device__ constexpr int fft_wide_hops(int M) {
+  return 2 * fft_tile_hops(M);
 }
 __host__ __device__ constexpr int fft_log2(int M) {
   return M <= 1 ? 0 : 1 + fft_log2(M / 2);
@@ -228,6 +241,25 @@ struct FftTile {
       if (planar) fold_rows<true, kFftMaxT>(x, n_ext, coef, T, a0);
       else fold_rows<false, kFftMaxT>(x, n_ext, coef, T, a0);
     }
+  }
+
+  // Hop-major rows n0 .. n0+H-1 of Y ((Nh, M) complex) into the plane,
+  // by cp.async (consecutive threads on consecutive k, all copies in
+  // flight together); rows outside [0, Nh) load as zero.  Ends with the
+  // copies landed and a barrier.
+  __device__ __forceinline__ void load_rows(const float2* __restrict__ Y,
+                                            int n0, int Nh) {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < H * M; e += kFftThreads) {
+      const int l = e / M, k = e % M;
+      const int n = n0 + l;
+      const bool ok = n >= 0 && n < Nh;
+      cp_async<8>(S + l * HS + pad(k),
+                  Y + (ok ? static_cast<size_t>(n) * M + k : 0), ok);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
   }
 
   // fold for T <= MT: all FH + MT - 1 rows are loaded before any tap

@@ -1,6 +1,6 @@
-// Device helpers shared by the analysis tiles (analysis_tile.cuh for
-// rx_phases.cu, analysis_fft.cuh for analysis.cu and rx_front.cu): the
-// discriminator's arctangent and the cp.async copies.
+// Device helpers of the FFT tile (analysis_fft.cuh) and its kernels: the
+// discriminator's arctangent (rx_front.cu, rx_phases.cu) and the
+// cp.async copies of the tile's row loader (synth.cu).
 
 #pragma once
 

@@ -39,12 +39,6 @@
 
 namespace {
 
-// analysis hops a block computes: twice the analysis kernel's, since the
-// f32 demod and power rows need twice the hops to fill the same sectors
-__host__ __device__ constexpr int rx_front_hops(int M) {
-  return 2 * fft_tile_hops(M);
-}
-
 template <int M>
 __global__ void __launch_bounds__(kFftThreads, 2)
 rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
@@ -56,7 +50,7 @@ rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
                 float2* __restrict__ last,        // (M,) y_k[Nh-1]
                 int T, int Nh, int hop0_parity) {
   extern __shared__ __align__(16) float smem[];
-  using Tile = FftTile<M, rx_front_hops(M)>;
+  using Tile = FftTile<M, fft_wide_hops(M)>;
   constexpr int HO = Tile::H - 1;         // demod hops a block owns
   Tile tile(smem);
   const int h0 = blockIdx.x * HO;         // tile hop l is stream hop h0-1+l
@@ -88,7 +82,7 @@ rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
 
 // demod hops a thread block owns at width M (-1: M not taken)
 extern "C" int rx_front_tile_hops(int M) {
-  return with_width(M, [](auto w) { return rx_front_hops(decltype(w)::value) - 1; });
+  return with_width(M, [](auto w) { return fft_wide_hops(decltype(w)::value) - 1; });
 }
 // the FFT's radices in pass order, two decimal digits each
 extern "C" int rx_front_fft_radices(int M) {
@@ -106,7 +100,7 @@ extern "C" int rx_front_launch(const void* x, int planar, long long n_ext,
     return static_cast<int>(cudaErrorInvalidValue);
   const int rc = with_width(M, [&](auto w) {
     constexpr int Mw = decltype(w)::value;
-    using Tile = FftTile<Mw, rx_front_hops(Mw)>;
+    using Tile = FftTile<Mw, fft_wide_hops(Mw)>;
     cudaError_t err = cudaFuncSetAttribute(
         rx_front_kernel<Mw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         Tile::kSmemBytes);

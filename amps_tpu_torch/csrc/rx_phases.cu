@@ -1,6 +1,6 @@
 // Fused receive front end for Hopper: polyphase analysis channelizer +
 // FM quadrature discriminator + integrate-and-dump phase streams, with
-// the 384-hop band-power partials.
+// the 384-hop band-power block means.
 //
 // Replaces the TPU kernel amps_tpu/pallas/rx_phases_kernel.py
 // (analyze_phases_pallas, body _make_kernel).  It computes what the JAX
@@ -9,192 +9,222 @@
 // window_power_blocks); its plain PyTorch version is
 // amps_tpu_torch/kernels/rx_phases.py::analyze_phases_reference.
 //
-// Math.  The bank fold with the permutation-absorbed matrices and the
-// derotation e^{+j2πk/M} collapse to a forward DFT of the folded hop
-// window: for channel k and hop n,
-//   f_n[m]  = sum_t coef[t, m] x[nP + tM + m]             (m < M, P = M/2)
-//   y_k[n]  = (-1)^{k(n+parity)} sum_m f_n[m] e^{-j2π km/M}
-//   d_k[n]  = fast_atan2(Im, Re) of y_k[n] conj(y_k[n-1]),  y_k[-1] = 0
+//   y_k[n]  = analysis (analysis_fft.cuh),  y_k[-1] = 0
+//   d_k[n]  = fast_atan2(Im, Re) of y_k[n] conj(y_k[n-1])
 //   pw_k[n] = Re^2 + Im^2 of the same product
 //   phases[k, p, j] = mean(d_k[p + sps*j .. p + sps*j + sps-1])
 //   pw_blk[k, b]    = sum of pw_k over hops [384b, 384b+384) ∩ [0, Nh), / 384
 //
-// What bounds it on an H100.  At M = 1024 the dense transform is 4·M²
-// real MACs per hop — about 34 G MAC (69 GFLOP) for a 1<<22-sample block,
-// half that with the channel-pair symmetry used below — against 32 MB of
-// input and ~12 MB of output, so the kernel is bound by arithmetic: the
-// f32 FMA pipe, the shared-memory reads that feed it, and the latency at
-// the block's barriers.  The function itself needs only an FFT-sized
-// transform (5·M·log2 M flops a hop), which leaves the bytes as its
-// bound.  It computes the transform in f32 FMA for every
-// spec (transform_bf16 is accepted by the caller and not used); the later
-// step is bf16 wgmma and/or the two-stage Cooley-Tukey split
-// (dsp/channelizer.py _dft_split_mats, ~7.5x fewer MACs at M = 1024).
+// What bounds it on an H100: the bytes.  A 1<<22-sample block at M =
+// 1024 (Nh = 8192) reads 33.6 MB of f32 riq input and writes 16.8 MB of
+// bf16 phases and a few KB of power means, 0.015 ms at 3.35 TB/s; its FFT
+// and fold, ~0.69 GFLOP, take 0.010 ms at the f32 peak (PERF.md §6).
 //
-// Design.  Grid = (hop tiles of 384 hops) x (channel tiles of 64).  384
-// is RSSI_BLOCK and a multiple of sps, so a block owns whole symbols and
-// whole rssi blocks: no atomics, a fixed summation order.  A block
-// recomputes one hop behind its tile (the discriminator's y[n-1]) and
-// sps-1 hops ahead (the last symbol's window) instead of carrying state
-// between blocks.
-//   * The fold and the channel-pair transform of each 64-hop sub-tile are
-//     analysis_tile.cuh's, shared with rx_front.cu.
-//   * The hop sign, discriminator and power run on the micro-tile in
-//     registers (the previous hop comes from the neighbouring lane by a
-//     warp shuffle); the demod goes to a 128-hop ring per channel that is
-//     dumped into symbols as they complete.  A block needs ~103 KB of
-//     shared memory at T = 8 and 127 registers a thread, so two share an SM.
-// Only the phases and the power partials reach device memory — the
-// (2, M, Nh) analysis planes and the (M, Nh) demod plane never do.  The
-// ragged last tile is masked (hops >= Nh fold to zero and add no power),
-// so the stream is never padded.
+// Design.  One block per run of R demod hops h0 .. h0+R-1 over all M
+// channels (analysis_fft.cuh), R a multiple of sps, so the block owns
+// the whole symbols j with sps·j in its run.  It folds and transforms
+// analysis hops h0-1 .. h0+R+sps-2: one hop behind for the
+// discriminator and sps-1 ahead for its last symbol's windows,
+// recomputed instead of carried (K2's rule, rx_front.cu).  The stream's
+// hop -1 is zero, chosen as data; hops >= Nh fold from zero rows and
+// reach no output.
+//   * Discriminator in place: a thread owns M/256 channels and walks
+//     their hops downwards as independent chains, so the demod of hop l
+//     overwrites y(l) once y(l+1) has used it; the products and
+//     fast_atan2 are K2's, bit for bit.
+//   * Dump: symbol j of phase p averages the plane's demod hops in order
+//     (the plain version's weights and order); consecutive threads take
+//     consecutive symbols of one (k, p) row, rounded to bf16 or kept f32
+//     only at the store.
+//   * Power: a block sums the power of its owned hops < Nh per channel,
+//     split at the 384-hop boundary its run may cross, into a (M, runs,
+//     2) scratch; a second small kernel adds each rssi block's partials
+//     in run order and divides by 384.  No atomics.
+// Only the phases and the power means reach device memory -- the
+// (2, M, Nh) analysis planes and the (M, Nh) demod plane never do.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
-#include "analysis_tile.cuh"
+#include "analysis_fft.cuh"
 
 namespace {
 
-constexpr int kTileHops = 384;   // hops owned by a block (RSSI_BLOCK)
-constexpr int kRing = 128;       // demod ring per channel (>= HS + 2 sps - 2)
+constexpr int kRssiBlock = 384;
 
-__global__ void __launch_bounds__(kThreads, 2)
+// demod hops a block owns: the most whole symbols whose look-ahead fits
+// in the tile's hops (0 if sps is too large for the tile)
+__host__ __device__ constexpr int run_hops(int M, int sps) {
+  return sps < 1 ? 0 : (fft_wide_hops(M) - sps) / sps * sps;
+}
+
+template <int M>
+__global__ void __launch_bounds__(kFftThreads, 2)
 rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
                  const float* __restrict__ coef,   // (T, M) fold coefficients
-                 const float* __restrict__ cu,     // (M, M/2) cos(2π(mu mod M)/M)
-                 const float* __restrict__ su,     // (M, M/2) sin, column 0 = (-1)^m
+                 const float2* __restrict__ tw,    // twiddle table (analysis_fft.cuh)
                  float* __restrict__ ph_f32,       // (M, sps, nsym), or null
                  __nv_bfloat16* __restrict__ ph_bf16,
-                 float* __restrict__ pw_blk,       // (M, ntile)
-                 int M, int T, int sps, int Nh, int nsym, int hop0_parity,
-                 int ntile) {
+                 float2* __restrict__ pw_part,     // (M, nrun) partial pairs
+                 int T, int sps, int Nh, int nsym, int hop0_parity, int nrun) {
   extern __shared__ __align__(16) float smem[];
-  const int HY = kTileHops + sps;       // analysis hops: h0-1 .. h0+384+sps-2
-  const int tile = blockIdx.x;
-  const int h0 = tile * kTileHops;
-  AnalysisTile at(smem, x, planar, n_ext, coef, cu, su, M, T, Nh, h0,
-                  blockIdx.y * KU);
-  float* yc_r = smem + transform_smem_floats(T);  // [2][KC] last y of a sub-tile
-  float* yc_i = yc_r + 2 * KC;
-  float* pwp = yc_i + 2 * KC;           // [KC][16] power partials
-  float* ring = pwp + 16 * KC;          // [KC][kRing] demod, by hop mod kRing
+  using Tile = FftTile<M, fft_wide_hops(M)>;
+  constexpr int HS = Tile::HS;
+  Tile tile(smem);
+  const int R = run_hops(M, sps);
+  const int run = blockIdx.x;
+  const int h0 = run * R;                 // tile hop l is stream hop h0-1+l
+  tile.load_twiddles(tw);
+  tile.fold(x, planar, n_ext, coef, T, h0 - 1);
+  __syncthreads();
+  tile.fft();
 
-  const int tid = at.tid, tx = at.tx, u0 = at.u0;
-  const int S = kTileHops / sps;           // symbols a block owns
-  const int j0 = h0 / sps;
-  const float w = 1.0f / static_cast<float>(sps);
-  float pw_acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int jd = 0;                              // symbols dumped so far
-
-  at.start();
-  for (int i0 = 0; i0 < HY; i0 += HS) {
-    float A[2][4], B[2][4], C[2][4], D[2][4];
-    at.transform(i0, HY, A, B, C, D);
-    const int sub = i0 / HS;
-    float yr[4][4], yi[4][4];
-    at.channels(i0, hop0_parity, A, B, C, D, yr, yi);
-    // discriminator and band power.  The hop before 4tx is the last hop of
-    // the lane to the left (same ty), or for tx = 0 the previous
-    // sub-tile's last hop, kept in a double-buffered carry.
+  // discriminator and power, tile hops L-1 down to 1; a thread's CPT
+  // channels run as independent chains
+  constexpr int CPT = M >= kFftThreads ? M / kFftThreads : 1;
+  const int L = R + sps;
+  const int b0 = h0 / kRssiBlock;
+  if (CPT > 1 || threadIdx.x < M) {
+    float2 c[CPT];
+    float pw0[CPT], pw1[CPT];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int slot = at.slot(c);
-      const float lr = __shfl_up_sync(0xffffffffu, yr[c][3], 1);
-      const float li = __shfl_up_sync(0xffffffffu, yi[c][3], 1);
-      float qr = tx ? lr : yc_r[((sub + 1) & 1) * KC + slot];
-      float qi = tx ? li : yc_i[((sub + 1) & 1) * KC + slot];
+    for (int i = 0; i < CPT; ++i) {
+      c[i] = tile.y(L - 1, threadIdx.x + i * kFftThreads, h0 + L - 2,
+                    hop0_parity);
+      pw0[i] = pw1[i] = 0.f;
+    }
+    for (int l = L - 1; l >= 1; --l) {
+      const int n = h0 - 1 + l;
+      const bool own = l <= R && n < Nh;
+      const bool first = n / kRssiBlock == b0;
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int i = i0 + tx * 4 + b;
-        if (i >= 1 && i < HY) {
-          const float re = __fadd_rn(__fmul_rn(yr[c][b], qr), __fmul_rn(yi[c][b], qi));
-          const float im = __fsub_rn(__fmul_rn(yi[c][b], qr), __fmul_rn(yr[c][b], qi));
-          const int e = i - 1;                     // demod hop h0 + e
-          ring[slot * kRing + (e & (kRing - 1))] = fast_atan2(im, re);
-          if (e < kTileHops && h0 + e < Nh)
-            pw_acc[c] += __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
-        }
-        qr = yr[c][b];
-        qi = yi[c][b];
-      }
-      if (tx == 15) {
-        yc_r[(sub & 1) * KC + slot] = yr[c][3];
-        yc_i[(sub & 1) * KC + slot] = yi[c][3];
+      for (int i = 0; i < CPT; ++i) {
+        const int k = threadIdx.x + i * kFftThreads;
+        const float2 b = tile.y(l - 1, k, n - 1, hop0_parity);
+        const float2 q = n ? b : make_float2(0.f, 0.f);
+        const float re =
+            __fadd_rn(__fmul_rn(c[i].x, q.x), __fmul_rn(c[i].y, q.y));
+        const float im =
+            __fsub_rn(__fmul_rn(c[i].y, q.x), __fmul_rn(c[i].x, q.y));
+        tile.S[l * HS + Tile::pad(k)].x = fast_atan2(im, re);
+        const float pw = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+        if (own && first) pw0[i] = __fadd_rn(pw0[i], pw);
+        if (own && !first) pw1[i] = __fadd_rn(pw1[i], pw);
+        c[i] = b;
       }
     }
-    __syncthreads();
-    // integrate-and-dump the symbols whose demod hops are now complete:
-    // symbol j of phase p averages demod hops p + sps*j .. p + sps*j + sps-1
-    const int e_hi = min(i0 + HS, HY) - 2;
-    const int jn = e_hi >= 2 * sps - 2 ? min(S, (e_hi - 2 * sps + 2) / sps + 1) : 0;
-    const int nj = jn - jd;
-    for (int e = tid; e < KC * sps * nj; e += kThreads) {
-      const int jl = jd + e % nj, rest = e / nj;
-      const int p = rest % sps, slot = rest / sps;
-      const int j = j0 + jl;
-      if (j >= nsym) continue;
-      const float* d = ring + slot * kRing;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int k = threadIdx.x + i * kFftThreads;
+      pw_part[static_cast<size_t>(k) * nrun + run] = make_float2(pw0[i], pw1[i]);
+    }
+  }
+  __syncthreads();
+
+  // integrate-and-dump: symbol j0 + jl of phase p averages demod hops
+  // h0 + p + sps*jl .. + sps-1, tile hops 1 + p + sps*jl ..  Element e =
+  // (k sps + p) S + jl; a thread steps e by kFftThreads, its (k, p, jl)
+  // by carries instead of divisions.
+  const int S = R / sps, j0 = h0 / sps;
+  const float w = 1.0f / static_cast<float>(sps);
+  const int row0 = threadIdx.x / S, drow = kFftThreads / S;
+  const int dj = kFftThreads % S, dp = drow % sps, dk = drow / sps;
+  int jl = threadIdx.x % S, p = row0 % sps, k = row0 / sps;
+  while (k < M) {
+    const int j = j0 + jl;
+    if (j < nsym) {
+      const float2* d = tile.S + (1 + p + sps * jl) * HS + Tile::pad(k);
       float acc = 0.f;
       for (int v = 0; v < sps; ++v)
-        acc = __fadd_rn(acc, __fmul_rn(d[(p + sps * jl + v) & (kRing - 1)], w));
-      const size_t o = (static_cast<size_t>(slot_channel(slot, u0, M)) * sps + p) * nsym + j;
+        acc = __fadd_rn(acc, __fmul_rn(d[v * HS].x, w));
+      const size_t o = (static_cast<size_t>(k) * sps + p) * nsym + j;
       if (ph_bf16)
         ph_bf16[o] = __float2bfloat16_rn(acc);
       else
         ph_f32[o] = acc;
     }
-    jd = jn;
-  }
-
-  // band power: each thread's partial sums per channel, added over tx in order
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    pwp[at.slot(c) * 16 + tx] = pw_acc[c];
-  __syncthreads();
-  if (tid < KC) {
-    float s = 0.f;
-    for (int t = 0; t < 16; ++t) s = __fadd_rn(s, pwp[tid * 16 + t]);
-    pw_blk[static_cast<size_t>(slot_channel(tid, u0, M)) * ntile + tile] =
-        s / static_cast<float>(kTileHops);
+    jl += dj;
+    p += dp;
+    k += dk;
+    if (jl >= S) {
+      jl -= S;
+      ++p;
+    }
+    if (p >= sps) {
+      p -= sps;
+      ++k;
+    }
   }
 }
 
-size_t smem_bytes(int T) {
-  return sizeof(float) * (transform_smem_floats(T) + 4 * KC + 16 * KC +
-                          KC * kRing);
+// pw_blk[k, b] = the partials of the runs that meet rssi block b, in run
+// order, / 384: a run that starts in b gives its first partial, the one
+// that crosses into b from b-1 its second
+__global__ void __launch_bounds__(kFftThreads)
+rx_phases_power_kernel(const float2* __restrict__ pw_part,
+                       float* __restrict__ pw_blk, int M, int R, int nrun,
+                       int nblk) {
+  const int i = blockIdx.x * kFftThreads + threadIdx.x;
+  if (i >= M * nblk) return;
+  const int k = i / nblk, b = i % nblk;
+  const int r0 = b * kRssiBlock / R;
+  const int r1 = min((b * kRssiBlock + kRssiBlock - 1) / R, nrun - 1);
+  const float2* part = pw_part + static_cast<size_t>(k) * nrun;
+  float s = 0.f;
+  for (int r = r0; r <= r1; ++r)
+    s = __fadd_rn(s, r * R / kRssiBlock == b ? part[r].x : part[r].y);
+  pw_blk[i] = s / static_cast<float>(kRssiBlock);
 }
 
 }  // namespace
 
 // ---- host launcher (plain C interface, loaded with ctypes) ----
 
-extern "C" int rx_phases_channel_tile() { return KC; }
-extern "C" int rx_phases_tile_hops() { return kTileHops; }
+// analysis hops a thread block computes at width M (-1: M not taken)
+extern "C" int rx_phases_tile_hops(int M) {
+  return with_width(M, [](auto w) { return fft_wide_hops(decltype(w)::value); });
+}
+// the FFT's radices in pass order, two decimal digits each
+extern "C" int rx_phases_fft_radices(int M) {
+  return with_width(M, [](auto w) { return fft_radix_code(decltype(w)::value); });
+}
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches both kernels on `stream`; returns cudaGetLastError() (0 =
+// launched).  pw_part is a (M, nrun, 2) float scratch, nrun = the runs of
+// run_hops(M, sps) demod hops that cover Nh.
 extern "C" int rx_phases_launch(const void* x, int planar, long long n_ext,
-                                const void* coef, const void* cu,
-                                const void* su, void* phases, int out_bf16,
+                                const void* coef, const void* tw,
+                                void* phases, int out_bf16, void* pw_part,
                                 void* pw_blk, int M, int T, int sps, int Nh,
-                                int nsym, int hop0_parity, void* stream) {
-  if (M % KC || T < 1 || T > kMaxT || sps < 1 || kTileHops % sps ||
-      HS + 2 * sps - 2 > kRing || Nh < sps ||
+                                int nsym, int hop0_parity, int nrun,
+                                void* stream) {
+  if (T < 1 || T > kFftMaxT || Nh < sps || nsym < 0 ||
       n_ext != static_cast<long long>(Nh + 2 * T - 1) * (M / 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      rx_phases_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ntile = (Nh + kTileHops - 1) / kTileHops;
-  const dim3 grid(ntile, M / KC);
-  rx_phases_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), planar, n_ext,
-      static_cast<const float*>(coef), static_cast<const float*>(cu),
-      static_cast<const float*>(su),
-      out_bf16 ? nullptr : static_cast<float*>(phases),
-      out_bf16 ? static_cast<__nv_bfloat16*>(phases) : nullptr,
-      static_cast<float*>(pw_blk), M, T, sps, Nh, nsym, hop0_parity, ntile);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc = with_width(M, [&](auto w) {
+    constexpr int Mw = decltype(w)::value;
+    using Tile = FftTile<Mw, fft_wide_hops(Mw)>;
+    const int R = run_hops(Mw, sps);
+    if (R < sps || nrun != (Nh + R - 1) / R)
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(
+        rx_phases_kernel<Mw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Tile::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rx_phases_kernel<Mw><<<nrun, kFftThreads, Tile::kSmemBytes, st>>>(
+        static_cast<const float*>(x), planar, n_ext,
+        static_cast<const float*>(coef), static_cast<const float2*>(tw),
+        out_bf16 ? nullptr : static_cast<float*>(phases),
+        out_bf16 ? static_cast<__nv_bfloat16*>(phases) : nullptr,
+        static_cast<float2*>(pw_part), T, sps, Nh, nsym, hop0_parity, nrun);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    const int nblk = (Nh + kRssiBlock - 1) / kRssiBlock;
+    rx_phases_power_kernel<<<(Mw * nblk + kFftThreads - 1) / kFftThreads,
+                             kFftThreads, 0, st>>>(
+        static_cast<const float2*>(pw_part), static_cast<float*>(pw_blk), Mw,
+        R, nrun, nblk);
+    return static_cast<int>(cudaGetLastError());
+  });
+  return rc < 0 ? static_cast<int>(cudaErrorInvalidValue) : rc;
 }

@@ -10,16 +10,17 @@ computes the kernel's plain version, ``analyze_reference``.  There is no
 fallback from one to the other.  ``dsp.channelizer.analyze`` calls the
 wrapper.
 
-The kernel and the streaming front end (``kernels.rx_front``) run one
-all-channel FFT tile (``csrc/analysis_fft.cuh``): a thread block folds
-each of its hops once and transforms the folded window with an f32
-Stockham FFT whose radices are ``fft_radices(M)`` and whose twiddles are
-the table of ``_tables``; M is a power of two in ``FFT_WIDTHS``.  The
-one-shot receive kernel (``kernels.rx_phases``) still runs the dense
-channel-pair tile (``csrc/analysis_tile.cuh``) on ``_pair_tables``.  All
-three plain versions start from ``analyze_reference``, and the wrappers
-share ``card_block`` (the checks of an input block on the card),
-``bind`` and ``launch``.
+All four kernels run one all-channel FFT tile (``csrc/analysis_fft.cuh``):
+a thread block folds each of its hops once (or, for the synthesis in
+``kernels.synth``, loads hop-major rows of channel basebands) and
+transforms them with an f32 Stockham FFT whose radices are
+``fft_radices(M)`` and whose twiddles are the table of ``_tables``; M is
+a power of two in ``FFT_WIDTHS``.  The analysis kernel takes
+``FFT_TILE_HOPS[M]`` hops a block, the receive front ends
+(``kernels.rx_front``, ``kernels.rx_phases``) and the synthesis
+``FFT_WIDE_HOPS[M]``.  The front ends' plain versions start from
+``analyze_reference``, and the wrappers share ``card_block`` (the checks
+of an input block on the card), ``bind`` and ``launch``.
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from amps_tpu_torch.dsp.polyphase import (_analysis_consts, _dft_mats,
-                                          _hop_sign)
+from amps_tpu_torch.dsp.polyphase import _analysis_consts, _hop_sign
 from amps_tpu_torch.kernels import build
 
 MAX_TAPS = 16              # taps per phase the tiles hold (csrc kMaxT)
@@ -40,6 +40,9 @@ FFT_WIDTHS = tuple(1 << b for b in range(6, 12))   # M the FFT tile takes
 # ~100 KB of shared plane at M = 1024, so two blocks share an SM
 FFT_TILE_HOPS = {M: 16 if M <= 512 else 12 if M == 1024 else 4
                  for M in FFT_WIDTHS}
+# hops a block of the kernels with a heavier epilogue computes (csrc
+# fft_wide_hops): twice as many, to fill the sectors of 4-byte rows
+FFT_WIDE_HOPS = {M: 2 * h for M, h in FFT_TILE_HOPS.items()}
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -161,21 +164,6 @@ def _tables(M: int, T: int, device: torch.device):
     (T, M) and the twiddle table of ``_fft_twiddles``."""
     coef = _analysis_consts(M, T, device)[0]
     return coef, torch.as_tensor(_fft_twiddles(M), device=device)
-
-
-@functools.cache
-def _pair_tables(M: int, T: int, device: torch.device):
-    """The dense channel-pair kernels' tables on device (rx_phases.cu's
-    analysis_tile.cuh and synth.cu): fold coefficients (T, M) and the
-    (M, M/2) cos/sin columns of the channel pairs (u, M - u), u < M/2;
-    sin column 0 (sin 0 = 0) carries channel M/2's cos column (-1)^m."""
-    C, S = _dft_mats(M)
-    P = M // 2
-    cu = np.ascontiguousarray(C[:, :P])
-    su = np.ascontiguousarray(S[:, :P])
-    su[:, 0] = C[:, P]
-    coef = _analysis_consts(M, T, device)[0]
-    return (coef, *(torch.as_tensor(a, device=device) for a in (cu, su)))
 
 
 def check_fft_width(M: int) -> None:

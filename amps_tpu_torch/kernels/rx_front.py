@@ -11,9 +11,9 @@ raises; a CPU tensor computes the kernel's plain version,
 quadrature_demod_planar(prev, return_power="series").  There is no
 fallback from one to the other.  The kernel runs the all-channel FFT
 tile of ``kernels.analysis`` (``csrc/analysis_fft.cuh``): a block
-computes twice the analysis kernel's ``FFT_TILE_HOPS[M]`` hops (its f32
-rows need twice the hops to fill a sector) and owns the demod of all but
-the first.
+computes ``FFT_WIDE_HOPS[M]`` hops (its f32 rows need twice the analysis
+kernel's hops to fill a sector) and owns the demod of all but the
+first.
 """
 
 from __future__ import annotations
@@ -24,14 +24,14 @@ import functools
 import torch
 
 from amps_tpu_torch.dsp.fm import quadrature_demod_planar
-from amps_tpu_torch.kernels.analysis import (FFT_TILE_HOPS, FFT_WIDTHS,
+from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, FFT_WIDTHS,
                                              _radix_code, _tables,
                                              analyze_reference, bind,
                                              block_geometry, card_block,
                                              check_fft_width, launch)
 
-# demod hops a thread block owns, by M (csrc rx_front_hops - 1)
-TILE_HOPS = {M: 2 * h - 1 for M, h in FFT_TILE_HOPS.items()}
+# demod hops a thread block owns, by M (csrc fft_wide_hops - 1)
+TILE_HOPS = {M: h - 1 for M, h in FFT_WIDE_HOPS.items()}
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched

@@ -7,9 +7,13 @@ hand-written kernel in ``csrc/rx_phases.cu`` (the Hopper port of
 raises; a CPU tensor computes the kernel's plain version,
 ``analyze_phases_reference`` — the port's channelizer ->
 quadrature_demod_planar -> symbol_phase_streams / window_power_blocks.
-There is no fallback from one to the other.  The kernel runs the dense
-channel-pair tile (``csrc/analysis_tile.cuh``) on the tables of
-``_tables``: blocks of CHANNEL_TILE channels, M a multiple of it.
+There is no fallback from one to the other.  The kernel runs the
+all-channel FFT tile of ``kernels.analysis`` (``csrc/analysis_fft.cuh``,
+M a power of two in ``FFT_WIDTHS``): a block computes
+``FFT_WIDE_HOPS[M]`` analysis hops and owns the ``run_hops(M, sps)``
+demod hops after the first, whole symbols whose look-ahead fits in the
+tile; the 384-hop power partials of the runs go through a scratch that a
+second small kernel adds up.
 """
 
 from __future__ import annotations
@@ -20,17 +24,14 @@ import functools
 import torch
 
 from amps_tpu_torch.dsp.fm import quadrature_demod_planar
-from amps_tpu_torch.kernels.analysis import _pair_tables as _tables
-from amps_tpu_torch.kernels.analysis import (analyze_reference, bind,
+from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, FFT_WIDTHS,
+                                             _radix_code, _tables,
+                                             analyze_reference, bind,
                                              block_geometry, card_block,
-                                             launch)
+                                             check_fft_width, launch)
 from amps_tpu_torch.rx.correlator import (RSSI_BLOCK, power_from_blocks,
                                           symbol_phase_streams,
                                           window_power_blocks)
-
-CHANNEL_TILE = 64          # channels per thread block (csrc KC)
-TILE_HOPS = RSSI_BLOCK     # hops per thread block (csrc kTileHops)
-MAX_SPS = 32               # its 128-hop demod ring holds 64 + 2 sps - 2 hops
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -42,6 +43,13 @@ def _nsym(Nh: int, sps: int) -> int:
     if Nh < sps:
         raise ValueError(f"block of {Nh} hops is shorter than sps={sps}")
     return (Nh - sps + 1) // sps
+
+
+def run_hops(M: int, sps: int) -> int:
+    """Demod hops a thread block owns (csrc run_hops): the most whole
+    symbols of sps hops whose sps-1 hops of look-ahead and one hop behind
+    fit in the block's FFT_WIDE_HOPS[M] analysis hops."""
+    return max(0, (FFT_WIDE_HOPS[M] - sps) // sps * sps)
 
 
 def analyze_phases_reference(x_ext, M: int, T: int, sps: int = 3,
@@ -63,10 +71,11 @@ def analyze_phases_reference(x_ext, M: int, T: int, sps: int = 3,
 def _launcher():
     p, i = ctypes.c_void_p, ctypes.c_int
     return bind("rx_phases_launch",
-                [p, i, ctypes.c_longlong, p, p, p, p, i, p,
-                 i, i, i, i, i, i, p],
-                rx_phases_channel_tile=CHANNEL_TILE,
-                rx_phases_tile_hops=TILE_HOPS)
+                [p, i, ctypes.c_longlong, p, p, p, i, p, p,
+                 i, i, i, i, i, i, i, p],
+                rx_phases_tile_hops=FFT_WIDE_HOPS,
+                rx_phases_fft_radices={M: _radix_code(M)
+                                       for M in FFT_WIDTHS})
 
 
 def analyze_phases(x_ext, M: int, T: int, sps: int = 3,
@@ -87,21 +96,23 @@ def analyze_phases(x_ext, M: int, T: int, sps: int = 3,
                                         out_dtype)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype} not float32/bfloat16")
-    if TILE_HOPS % sps or sps > MAX_SPS:
-        raise ValueError(f"kernel needs {TILE_HOPS} % sps == 0 and sps <= "
-                         f"{MAX_SPS} (sps={sps})")
-    if M % CHANNEL_TILE:
-        raise ValueError(f"kernel needs M % {CHANNEL_TILE} == 0 (M={M})")
+    check_fft_width(M)
+    if sps < 1 or run_hops(M, sps) < sps:
+        raise ValueError(f"kernel needs 1 <= sps <= "
+                         f"{FFT_WIDE_HOPS[M] // 2} at M={M} (sps={sps})")
     planar, n_ext, Nh = card_block(x_ext, M, T)
     nsym = _nsym(Nh, sps)
     dev = x_ext.device
-    coef, cu, su = _tables(M, T, dev)
-    ntile = -(-Nh // TILE_HOPS)
+    coef, tw = _tables(M, T, dev)
+    nrun = -(-Nh // run_hops(M, sps))
     phases = torch.empty((M, sps, nsym), dtype=out_dtype, device=dev)
-    pw_blk = torch.empty((M, ntile), dtype=torch.float32, device=dev)
+    pw_part = torch.empty((M, nrun, 2), dtype=torch.float32, device=dev)
+    pw_blk = torch.empty((M, -(-Nh // RSSI_BLOCK)), dtype=torch.float32,
+                         device=dev)
     launch("rx_phases", _launcher(), dev, x_ext.data_ptr(), int(planar),
-           n_ext, coef.data_ptr(), cu.data_ptr(), su.data_ptr(),
-           phases.data_ptr(), int(out_dtype == torch.bfloat16),
-           pw_blk.data_ptr(), M, T, sps, Nh, nsym, int(hop0_parity) % 2)
+           n_ext, coef.data_ptr(), tw.data_ptr(), phases.data_ptr(),
+           int(out_dtype == torch.bfloat16), pw_part.data_ptr(),
+           pw_blk.data_ptr(), M, T, sps, Nh, nsym, int(hop0_parity) % 2,
+           nrun)
     LAUNCHES += 1
     return phases, power_from_blocks(pw_blk, Nh), pw_blk

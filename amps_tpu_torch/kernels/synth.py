@@ -1,12 +1,16 @@
 """Synthesis channelizer: M channel basebands -> one wideband stream.
 
 ``synthesize_block`` is the wrapper: a CUDA tensor launches the
-hand-written kernels in ``csrc/synth.cu`` (the Hopper port of
+hand-written kernel in ``csrc/synth.cu`` (the Hopper port of
 ``amps_tpu/pallas/synthesizer_kernel.py::synthesize_pallas``) or raises;
 a CPU tensor computes the kernel's plain version,
 ``synthesize_block_reference`` -- the port's
 ``dsp.channelizer._synthesize_block``.  There is no fallback from one to
-the other.
+the other.  The kernel runs the all-channel FFT tile of
+``kernels.analysis`` on hop-major rows of Y (``FFT_WIDE_HOPS[M]`` a pass,
+M a power of two in ``FFT_WIDTHS``), reads the inverse transform off the
+forward FFT by index and overlap-adds in registers: its tables are the
+tile's twiddles and ``_gain_taps``.
 """
 
 from __future__ import annotations
@@ -18,9 +22,9 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.dsp import channelizer as chz
-from amps_tpu_torch.kernels.analysis import _pair_tables, bind, launch
-
-COLUMN_TILE = 64           # output columns per transform block (csrc 2*KU)
+from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, FFT_WIDTHS,
+                                             MAX_TAPS, _radix_code, _tables,
+                                             bind, check_fft_width, launch)
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -50,8 +54,9 @@ def synthesize_block_reference(Y, M: int, T: int, hop0_parity: int, carry,
 @functools.cache
 def _launcher():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return bind("synth_launch", [p, p, p, p, p, p, p, p, i, i, i, i, p],
-                synth_column_tile=COLUMN_TILE)
+    return bind("synth_launch", [p, p, p, p, p, p, i, i, i, i, p],
+                synth_tile_hops=FFT_WIDE_HOPS,
+                synth_fft_radices={M: _radix_code(M) for M in FFT_WIDTHS})
 
 
 @functools.cache
@@ -76,24 +81,22 @@ def synthesize_block(Y, M: int, T: int, hop0_parity: int, carry):
     _check(Y, M, T, carry)
     if Y.dtype != torch.float32 or carry.dtype != torch.float32:
         raise ValueError("Y and carry must be float32")
-    if M % COLUMN_TILE:
-        raise ValueError(f"kernel needs M % {COLUMN_TILE} == 0 (M={M})")
+    check_fft_width(M)
+    if T > MAX_TAPS:
+        raise ValueError(f"kernel needs T <= {MAX_TAPS} (T={T})")
     Y = Y.contiguous()
     carry = carry.contiguous()
     if Y.data_ptr() % 8 or carry.data_ptr() % 8:
-        # the kernels read both as float2
+        # the kernel reads both as float2
         raise ValueError("Y and carry must be 8-byte aligned")
     dev = Y.device
     Nh = Y.shape[0]
-    P = M // 2
-    _, cu, su = _pair_tables(M, T, dev)
+    _, tw = _tables(M, T, dev)
     gm = _gain_taps(M, T, dev)
-    u = torch.empty((2, Nh, M), dtype=torch.float32, device=dev)
-    out = torch.empty((Nh * P, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((Nh * (M // 2), 2), dtype=torch.float32, device=dev)
     new_carry = torch.empty_like(carry)
-    launch("synth", _launcher(), dev, Y.data_ptr(), cu.data_ptr(),
-           su.data_ptr(), gm.data_ptr(), carry.data_ptr(), u.data_ptr(),
-           out.data_ptr(), new_carry.data_ptr(), M, T, Nh,
-           int(hop0_parity) % 2)
+    launch("synth", _launcher(), dev, Y.data_ptr(), tw.data_ptr(),
+           gm.data_ptr(), carry.data_ptr(), out.data_ptr(),
+           new_carry.data_ptr(), M, T, Nh, int(hop0_parity) % 2)
     LAUNCHES += 1
     return out, new_carry

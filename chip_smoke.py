@@ -7,8 +7,9 @@ kernel, and planted bursts streamed through MultichannelReceiver -- and
 a whole call over channelized RF: BaseStation, the transmitter, the
 mobile simulator's ear on the analysis kernel, its RECC bursts through
 the receiver; and times kernels and paths against their plain versions,
-their bounds and a cuFFT yardstick, with a profiler window of one
-receiver push and of one superframe of the ear.
+their bounds and a cuFFT yardstick, with profiler windows of one
+one-shot block, one receiver push, one transmitter superframe and one
+superframe of the ear.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -18,17 +19,17 @@ Every check raises on failure.  The last line of standard output is a
 JSON object naming the device; the line before it lists each kernel of
 the paths with its launches on its main path, its error against the
 plain version, both times, its bound (the least time of the function:
-an FFT-sized transform and the fold against the bytes moved), its
-transform ("fft": the analysis and rx_front kernels' all-channel FFT
-tile; "dense": the channel-pair DFT of rx_phases and synth, with the
-f32 time of that dense DFT), and the cuFFT time of its transform alone.
-Without a CUDA card it exits non-zero.
+an FFT-sized transform and the fold or overlap-add against the bytes
+moved), its transform ("fft": all four run the all-channel FFT tile),
+and the cuFFT time of its transform alone.  Without a CUDA card it exits
+non-zero.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +83,27 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_usage(nvcc_log: str):
+    """(kernel<template args>, "registers; spills") of each function in
+    nvcc's -Xptxas -v output."""
+    out, name, spill = [], "?", ""
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.search(r"\d([a-z_]+_kernel)((?:ILi\d+E(?:Li\d+E)*)?)",
+                          m.group(1))
+            args = re.findall(r"Li(\d+)E", k.group(2)) if k else []
+            name = (k.group(1) if k else m.group(1)[:40]) + \
+                (f"<{', '.join(args)}>" if args else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used \d+ registers", line)
+            out.append((name, f"{regs.group(0) if regs else line.strip()}; "
+                              f"{spill}"))
+    return out
 
 
 def plant_events(M: int, seed: int):
@@ -489,7 +511,7 @@ def phase_times(dev, M, T, card, n_timed=10):
     # the synthesis reads Y and the carry and writes Nh*P samples and the
     # new carry
     sy = out["synth"]
-    sy["bound"], sy["bound_by"], sy["dense"] = bound(
+    sy["bound"], sy["bound_by"] = bound(
         M, T, Nh, 2 * nbytes(carry) + nbytes(Y) + Nh * P * 8)
     sy["fft"] = fft_ms(M, Nh, dev, inverse=True)
     # a superframe, the shape next_block hands the kernel
@@ -500,7 +522,7 @@ def phase_times(dev, M, T, card, n_timed=10):
         "plain": lambda: S.synthesize_block_reference(Ysf, M, T, 0, carry),
     }, n_timed, KERNEL_REPS)
     ss = out["synth_sf"]
-    ss["bound"], ss["bound_by"], ss["dense"] = bound(
+    ss["bound"], ss["bound_by"] = bound(
         M, T, n_sf, 2 * nbytes(carry) + nbytes(Ysf) + n_sf * P * 8)
     ss["fft"] = fft_ms(M, n_sf, dev, inverse=True)
     del Ysf
@@ -519,7 +541,7 @@ def phase_times(dev, M, T, card, n_timed=10):
     # reads the block, its tables and prev; writes demod and power planes
     # and `last`; the discriminator's few operations a sample are left out
     fe = out["rx_front"]
-    fe["bound"], fe["bound_by"], fe["dense"] = bound(
+    fe["bound"], fe["bound_by"] = bound(
         M, T, Nh, nbytes(x_ext, prev, *R._tables(M, T, dev))
         + 2 * M * Nh * 4 + nbytes(prev))
     fe["fft"] = fft_ms(M, Nh, dev)
@@ -535,6 +557,8 @@ def phase_times(dev, M, T, card, n_timed=10):
                prod, device=dev, synthesize=S.synthesize_block_reference)}
     out["next_block"] = timed({k: t.next_block for k, t in txs.items()},
                               max(3, n_timed // 3))
+    profile_window("MultichannelTransmitter.next_block, one superframe, "
+                   "synth kernel", txs["kernel"].next_block, dev)
     for name, label, samples in (
             ("synth", f"synth kernel, Nh={Nh}", Nh * P),
             ("synth_sf", f"synth kernel, a superframe (Nh={n_sf})",
@@ -550,8 +574,7 @@ def phase_times(dev, M, T, card, n_timed=10):
                 f"{samples / ms / 1e3:.1f} Msamples/s")
         if "bound" in out[name]:
             log(f"  {label}: bound {out[name]['bound']:.3f} ms "
-                f"({out[name]['bound_by']}), dense DFT at the f32 peak "
-                f"{out[name]['dense']:.3f} ms, cuFFT of the plane "
+                f"({out[name]['bound_by']}), cuFFT of the plane "
                 f"{out[name]['fft']:.3f} ms")
     return out
 
@@ -597,19 +620,15 @@ def profile_window(label, fn, dev, top=6):
 
 
 def bound(M, T, Nh, nbytes):
-    """(least ms, what sets it, dense ms) of one bank pass over Nh hops
-    that moves ``nbytes``, at the published H100 SXM peaks.  The least
-    work of the function is an FFT-sized transform, 5·M·log2(M) flops a
-    hop (the radix-2 count of an M-point complex FFT), plus the polyphase
-    fold or overlap-add, 2·T·M FMAs a hop.  The third number is the f32
-    time of the dense channel-pair DFT the kernels compute instead,
-    2·M² FMAs a hop: the floor of their own algorithm, not of the
-    function."""
+    """(least ms, what sets it) of one bank pass over Nh hops that moves
+    ``nbytes``, at the published H100 SXM peaks.  The least work of the
+    function is an FFT-sized transform, 5·M·log2(M) flops a hop (the
+    radix-2 count of an M-point complex FFT), plus the polyphase fold or
+    overlap-add, 2·T·M FMAs a hop."""
     flops = Nh * (5 * M * math.log2(M) + 4 * T * M)
     t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_S
-    dense = 2 * Nh * (2 * M * M + 2 * T * M) / F32_FLOPS
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", dense * 1e3)
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def nbytes(*ts):
@@ -668,15 +687,14 @@ def phase_analysis(dev, T, card, n_timed=10):
                       n_timed, KERNEL_REPS)
             t["fft"] = fft_ms(M, Nh, dev)
             tables = KA._tables(M, T, dev)
-            t["bound"], t["bound_by"], t["dense"] = bound(
+            t["bound"], t["bound_by"] = bound(
                 M, T, Nh, nbytes(x, *tables) + M * Nh * 8)
             times[M, Nh] = t
             log(f"  M={M} Nh={Nh}: max|err| {err:.3e} over both parities, "
                 f"riq/planar; two chained calls equal one bit for bit; "
                 f"kernel {t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, "
                 f"cuFFT {t['fft']:.3f} ms, bound {t['bound']:.3f} ms "
-                f"({t['bound_by']}), dense DFT at the f32 peak "
-                f"{t['dense']:.3f} ms")
+                f"({t['bound_by']})")
             del x, xp
             torch.cuda.empty_cache()
     return errs, times
@@ -830,6 +848,7 @@ def main() -> int:
     from amps_tpu_torch.kernels import build
     from amps_tpu_torch.kernels import rx_phases as K
     from amps_tpu_torch.parallel import pipeline as pl
+    from amps_tpu_torch.rx.correlator import RSSI_BLOCK
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -842,9 +861,8 @@ def main() -> int:
     path, nvcc_log = build.build(("-Xptxas", "-v"))
     log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s "
         f"(set-up)")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  nvcc: {line.strip()}")
+    for name, usage in ptxas_usage(nvcc_log):
+        log(f"  nvcc: {name}: {usage}")
 
     # -- phase 2: kernel against its plain version ------------------------
     T, sps = 8, 3
@@ -870,15 +888,19 @@ def main() -> int:
         if M == 1024:
             max_err = err
         planar = x_ext.t().contiguous()
-        pph, _, _ = K.analyze_phases(planar, M, T, sps, hop0_parity=1)
-        rph, _, _ = K.analyze_phases_reference(planar, M, T, sps,
-                                               hop0_parity=1)
+        pph, pcp, ppw = K.analyze_phases(planar, M, T, sps, hop0_parity=1)
+        rph, rcp, rpw = K.analyze_phases_reference(planar, M, T, sps,
+                                                   hop0_parity=1)
         torch.cuda.synchronize()
         perr = (pph - rph).abs()
+        prel = max(((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+                   for a, b in ((ppw, rpw), (pcp, rcp)))
         log(f"  M={M} planar input, odd parity: max|err| "
-            f"{perr.max().item():.3e}")
+            f"{perr.max().item():.3e}; pw_blk, chan_power max rel "
+            f"{prel:.3e}")
         assert (perr > PHASE_ATOL).double().mean().item() <= \
             BRANCH_CUT_FRACTION
+        assert prel <= POWER_RTOL
 
     # -- phase 3: the slice at full width ----------------------------------
     M, Nh = 1024, 12288
@@ -946,6 +968,9 @@ def main() -> int:
     for k, ms in blk.items():
         log(f"  whole block M={M} production spec, {k} path: {ms:.3f} ms, "
             f"{n / ms / 1e3:.1f} Msamples/s")
+    profile_window(f"rx_multichannel_block of {n} samples, rx_phases kernel",
+                   lambda: pl.rx_multichannel_block(xb, prod, max_bursts=2),
+                   dev)
     kernel_ms = {}
     for Mk in (1024, 256):
         P = Mk // 2
@@ -965,15 +990,14 @@ def main() -> int:
             log(f"  stages 1-3 M={Mk}, {k}: {ms:.3f} ms, "
                 f"{n / ms / 1e3:.1f} Msamples/s")
         # reads the block and its tables; writes the bf16 phases and the
-        # 384-hop power partials
+        # 384-hop power means
         nsym = (Nhk - sps + 1) // sps
-        fe["bound"], fe["bound_by"], fe["dense"] = bound(
+        fe["bound"], fe["bound_by"] = bound(
             Mk, T, Nhk, nbytes(xe, *K._tables(Mk, T, dev))
-            + Mk * sps * nsym * 2 + Mk * -(-Nhk // K.TILE_HOPS) * 4)
+            + Mk * sps * nsym * 2 + Mk * -(-Nhk // RSSI_BLOCK) * 4)
         fe["fft"] = fft_ms(Mk, Nhk, dev)
         log(f"  stages 1-3 M={Mk}: bound {fe['bound']:.3f} ms "
-            f"({fe['bound_by']}), dense DFT at the f32 peak "
-            f"{fe['dense']:.3f} ms, cuFFT of the plane {fe['fft']:.3f} ms")
+            f"({fe['bound_by']}), cuFFT of the plane {fe['fft']:.3f} ms")
 
     # -- phases 5-9: the streaming duplex ----------------------------------
     synth_err = phase_synth(dev, (1024, 256), T)
@@ -1002,15 +1026,14 @@ def main() -> int:
         f"decoded FOCC frames and FVC words; analysis kernel launches "
         f"{call_launches['analysis']} on the call")
 
-    def entry(name, replaces, launches, err, t, transform):
+    def entry(name, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["kernel"],
                 "plain_ms": t["plain"], "bound_ms": t["bound"],
                 "bound_by": t["bound_by"], "library_ms": None,
-                "transform": transform, "fft_ms": t["fft"],
-                "dense_dft_ms": t["dense"] if transform == "dense" else None}
+                "transform": "fft", "fft_ms": t["fft"]}
 
     # each at the shape its main path hands it: a superframe for the
     # analysis (the ear) and synth (next_block) kernels, a 1<<22-sample
@@ -1018,13 +1041,13 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("analysis", "amps_tpu/pallas/channelizer_kernel.py:151",
               call_launches["analysis"], max(ana_err.values()),
-              ana_times[M, 50004], "fft"),
+              ana_times[M, 50004]),
         entry("rx_phases", "amps_tpu/pallas/rx_phases_kernel.py:223",
-              launches, max_err, kernel_ms[1024], "dense"),
+              launches, max_err, kernel_ms[1024]),
         entry("rx_front", "amps_tpu/pallas/rx_front_kernel.py:184",
-              rx_launches, front_err[1024], times["rx_front"], "fft"),
+              rx_launches, front_err[1024], times["rx_front"]),
         entry("synth", "amps_tpu/pallas/synthesizer_kernel.py:128",
-              tx_launches, synth_err[1024], times["synth_sf"], "dense"),
+              tx_launches, synth_err[1024], times["synth_sf"]),
     ]}), flush=True)
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

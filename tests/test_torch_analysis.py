@@ -1,12 +1,13 @@
 """K1, the analysis channelizer: the port's plain version against the
 JAX package's Pallas kernel (interpret mode) and against its analysis
 (``fold="bank"``), ``dsp.channelizer.analyze`` over streamed blocks, and
-a torch model of what the CUDA kernels' FFT tile (``csrc/analysis_fft.cuh``)
-computes, on the tables the wrapper hands it.
+torch models of what the CUDA kernels' FFT tile (``csrc/analysis_fft.cuh``)
+computes, on the tables the wrappers hand it: K1's analysis and K4's
+synthesis (``csrc/synth.cu``).
 
 Tolerance: atol 2e-4 on inputs of unit variance per component, the
 tolerance of ``tests/test_pallas.py`` (f32 transforms that sum in other
-orders)."""
+orders); the synthesis 1e-4 of its output RMS, the card's tolerance."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from amps_tpu_torch import convert
 from amps_tpu_torch.dsp import channelizer as tchz
 from amps_tpu_torch.eval.traffic import unit_channel_band
 from amps_tpu_torch.kernels import analysis as KA
+from amps_tpu_torch.kernels import synth as K4
 
 torch.set_num_threads(1)
 
@@ -144,28 +146,21 @@ def _w16_powers(c):
     return (quarter[:, None] * base[None, :]).reshape(16)
 
 
-def _fft_tile_model(x_ext, M, T, parity):
-    """The FFT tile's decomposition in torch: the fold of every hop, the
-    Stockham passes of ``KA.fft_radices(M)`` on the twiddle table of
-    ``KA._tables`` (butterfly j of a pass reads R values at stride M/R,
-    multiplies value r by the table's block entry (r-1)·Ns + j mod Ns,
-    runs its R-point DFT and writes at (j/Ns)·Ns·R + j mod Ns + r·Ns),
-    natural-order output, then the hop sign.  Returns (M, Nh, 2)."""
-    P = M // 2
-    Nh = x_ext.shape[0] // P - (2 * T - 1)
-    coef, tw = KA._tables(M, T, torch.device("cpu"))
-    idx = (torch.arange(Nh)[:, None, None] * P
-           + torch.arange(T)[None, :, None] * M
-           + torch.arange(M)[None, None, :])
-    f = (coef[None, :, :, None] * x_ext[idx]).sum(1)            # (Nh, M, 2)
-    z = torch.complex(f[..., 0], f[..., 1])
+def _fft_passes(z, M):
+    """The tile's Stockham passes on rows z (n, M) complex: the radices of
+    ``KA.fft_radices(M)`` on the twiddle table of ``KA._tables``
+    (butterfly j of a pass reads R values at stride M/R, multiplies value
+    r by the table's block entry (r-1)·Ns + j mod Ns, runs its R-point
+    DFT and writes at (j/Ns)·Ns·R + j mod Ns + r·Ns); natural order out:
+    the forward DFT of each row."""
+    tw = KA._tables(M, 1, torch.device("cpu"))[1]
     w = torch.complex(tw[:, 0], tw[:, 1])
     w16 = _w16_powers(w[:3])
     ns, off = 1, 3
     for p, R in enumerate(KA.fft_radices(M)):
         j = torch.arange(M // R)[:, None]
         r = torch.arange(R)[None, :]
-        v = z[:, j + r * (M // R)]                              # (Nh, M/R, R)
+        v = z[:, j + r * (M // R)]                              # (n, M/R, R)
         if p:
             v[..., 1:] = v[..., 1:] * w[off + (r[:, 1:] - 1) * ns + j % ns]
             off += (R - 1) * ns
@@ -174,6 +169,21 @@ def _fft_tile_model(x_ext, M, T, parity):
         out[:, (j // ns) * ns * R + j % ns + r * ns] = v @ dft
         z, ns = out, ns * R
     assert off == tw.shape[0]
+    return z
+
+
+def _fft_tile_model(x_ext, M, T, parity):
+    """The FFT tile's decomposition in torch: the fold of every hop, the
+    passes of ``_fft_passes``, natural-order output, then the hop sign.
+    Returns (M, Nh, 2)."""
+    P = M // 2
+    Nh = x_ext.shape[0] // P - (2 * T - 1)
+    coef = KA._tables(M, T, torch.device("cpu"))[0]
+    idx = (torch.arange(Nh)[:, None, None] * P
+           + torch.arange(T)[None, :, None] * M
+           + torch.arange(M)[None, None, :])
+    f = (coef[None, :, :, None] * x_ext[idx]).sum(1)            # (Nh, M, 2)
+    z = _fft_passes(torch.complex(f[..., 0], f[..., 1]), M)
     odd = ((torch.arange(M)[:, None] % 2)
            * ((torch.arange(Nh)[None, :] + parity) % 2)).bool()
     y = torch.where(odd, -z.T, z.T)
@@ -198,3 +208,68 @@ def test_fft_tile_model_matches_plain_version_and_jax(M, parity):
         jnp.asarray(x.numpy()), jnp.asarray(jchz.prototype_taps(M, T)), M, T,
         jnp.int32(parity), fold="bank"))
     assert np.abs(got.numpy() - jax_y).max() < ATOL
+
+
+def _synth_model(Y, M, T, parity, carry, blocks):
+    """K4's decomposition in torch (csrc/synth.cu): the tile's forward FFT
+    of each raw hop row F_h, read as u_h[m] = F_h[(-m - P·odd_h) mod M];
+    the output hops [0, Nh + 2T - 1) split into ranges of R (for a grid
+    of ``blocks``, at least a pass of FFT_WIDE_HOPS[M]), each walked from
+    2T-1 hops before it (the halo, zero rows outside [0, Nh)) with a ring
+    of 2·MT running sums per column: hop h adds gP[jP + p]·u_h[(j&1)P + p]
+    into the sum of hop h + j, then hop h leaves (+ the carry-in below
+    2T-1) and the ring shifts.  Returns (x (Nh·P, 2), carry)."""
+    P, Nh, keep = M // 2, Y.shape[0], 2 * T - 1
+    ring = 16 if T <= 8 else 32
+    F = _fft_passes(torch.complex(Y[..., 0], Y[..., 1]), M)
+    m = torch.arange(M)
+    g = torch.zeros((ring, P))
+    g[:2 * T] = K4._gain_taps(M, T, torch.device("cpu")).reshape(2 * T, P)
+    cin = torch.complex(carry[:, 0], carry[:, 1]).reshape(keep, P)
+    NO = Nh + keep
+    R = max(-(-NO // blocks), KA.FFT_WIDE_HOPS[M])
+    out = torch.full((NO, P), complex("nan"), dtype=torch.complex64)
+    for o0 in range(0, NO, R):
+        o1 = min(o0 + R, NO)
+        acc = torch.zeros((ring, P), dtype=torch.complex64)
+        for h in range(o0 - keep, o1):
+            if 0 <= h < Nh:
+                odd = (h + parity) % 2
+                u = F[h][(-m - P * odd) % M]
+                acc = acc + g * torch.where(
+                    (torch.arange(ring) % 2 == 1)[:, None], u[P:], u[:P])
+            if h >= o0:
+                out[h] = acc[0] + (cin[h] if h < keep else 0)
+            acc = torch.cat([acc[1:], torch.zeros((1, P), dtype=acc.dtype)])
+    x = torch.stack([out.real, out.imag], dim=-1).reshape(NO * P, 2)
+    return x[: Nh * P], x[Nh * P:]
+
+
+@pytest.mark.parametrize("M,parity,Nh,blocks", [
+    (64, 0, 300, 7), (64, 1, 3, 132), (256, 1, 161, 4), (256, 0, 3, 1),
+    (1024, 0, 97, 3), (1024, 1, 50, 132)])
+def test_synth_model_matches_plain_version_and_jax(M, parity, Nh, blocks):
+    """The decomposition K4 is handed (the forward FFT read by index, the
+    register-ring overlap-add in the kernel's order, block ranges with
+    their halo, carry in and out) against the plain K4 and JAX's
+    ``_synthesize_block``, at 1e-4 of the output RMS.  Nh = 3 is fewer
+    hops than the carry holds; the ranges are ragged."""
+    T = 8
+    rng = np.random.default_rng(M + Nh)
+    Y = rng.normal(0, 1, (Nh, M, 2)).astype(np.float32)
+    carry = rng.normal(0, 1, (M * T - M // 2, 2)).astype(np.float32)
+    x, c = _synth_model(torch.as_tensor(Y), M, T, parity,
+                        torch.as_tensor(carry), blocks)
+    rx, rc = K4.synthesize_block_reference(torch.as_tensor(Y), M, T, parity,
+                                           torch.as_tensor(carry))
+    jx, jc = jchz._synthesize_block(
+        jnp.asarray(Y), jnp.asarray(jchz.prototype_taps(M, T)), M, T,
+        jnp.int32(parity), jnp.asarray(carry), False, 0)
+    rms = rx.pow(2).mean().sqrt().item()
+    assert x.shape == rx.shape and c.shape == rc.shape
+    for got in (x, c):
+        assert torch.isfinite(got).all()
+    assert (x - rx).abs().max().item() <= 1e-4 * rms
+    assert (c - rc).abs().max().item() <= 1e-4 * rms
+    assert np.abs(x.numpy() - np.asarray(jx)).max() <= 1e-4 * rms
+    assert np.abs(c.numpy() - np.asarray(jc)).max() <= 1e-4 * rms

@@ -48,14 +48,16 @@ def _x_ext(M, T, Nh, seed, sigma=0.5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,Nh,parity,planar,bf16", [
-    (256, 1000, 0, False, False),
-    (1024, 800, 1, True, True),
-    (64, 385, 1, False, False),      # ragged: one hop in the last tile
+@pytest.mark.parametrize("M,Nh,parity,planar,bf16,sps", [
+    (256, 1000, 0, False, False, 3),
+    (1024, 800, 1, True, True, 3),
+    (64, 27 * 14 + 1, 1, False, False, 3),   # one hop past 14 runs of 27
+    (1024, 1000, 0, False, False, 1),
+    (2048, 200, 1, False, True, 3),
 ])
 def test_kernel_matches_plain_version_on_card(cuda_device, M, Nh, parity,
-                                              planar, bf16):
-    T, sps = 8, 3
+                                              planar, bf16, sps):
+    T = 8
     x = torch.as_tensor(_x_ext(M, T, Nh, seed=M), device=cuda_device)
     if planar:
         x = x.t().contiguous()
@@ -77,9 +79,12 @@ def test_kernel_matches_plain_version_on_card(cuda_device, M, Nh, parity,
 def test_kernel_rejects_what_it_cannot_run(cuda_device):
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):
-        K.analyze_phases(x, 96, 8)          # M not a multiple of 64
+        K.analyze_phases(x, 96, 8)          # M not a power of two
     with pytest.raises(ValueError):
         K.analyze_phases(x.double(), 96, 8)
+    with pytest.raises(ValueError):         # sps past the tile's hops
+        K.analyze_phases(torch.zeros(((100 + 15) * 512, 2),
+                                     device=cuda_device), 1024, 8, sps=13)
 
 
 @pytest.mark.cuda
@@ -221,7 +226,8 @@ def test_analysis_kernel_rejects_what_it_cannot_run(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,Nh,parity", [
-    (64, 300, 0), (256, 1000, 1), (1024, 257, 1), (128, 3, 0)])
+    (64, 300, 0), (256, 1000, 1), (1024, 257, 1), (128, 3, 0),
+    (2048, 100, 1)])
 def test_synth_kernel_matches_plain_version_on_card(cuda_device, M, Nh,
                                                     parity):
     T = 8
@@ -239,9 +245,26 @@ def test_synth_kernel_matches_plain_version_on_card(cuda_device, M, Nh,
 
 
 @pytest.mark.cuda
+def test_synth_kernel_chained_calls_equal_one(cuda_device):
+    """Two chained calls (the first's carry into the second, the parity
+    flipped by an odd first block) equal one call within 1e-4 of the
+    output RMS (the ring adds an output hop's terms in other groupings)."""
+    M, T, N1, N2 = 1024, 8, 1001, 700
+    g = torch.Generator(cuda_device).manual_seed(7)
+    Y = torch.randn((N1 + N2, M, 2), device=cuda_device, generator=g)
+    carry = torch.randn((M * T - M // 2, 2), device=cuda_device, generator=g)
+    x, c = K4.synthesize_block(Y, M, T, 0, carry)
+    xa, ca = K4.synthesize_block(Y[:N1].contiguous(), M, T, 0, carry)
+    xb, cb = K4.synthesize_block(Y[N1:].contiguous(), M, T, N1 % 2, ca)
+    rms = x.pow(2).mean().sqrt()
+    assert ((torch.cat([xa, xb]) - x).abs().max() / rms).item() <= 1e-4
+    assert ((cb - c).abs().max() / rms).item() <= 1e-4
+
+
+@pytest.mark.cuda
 def test_kernels_reject_what_they_cannot_run(cuda_device):
     Y = torch.zeros((10, 96, 2), device=cuda_device)
-    with pytest.raises(ValueError):            # M not a multiple of 64
+    with pytest.raises(ValueError):            # M not a power of two
         K4.synthesize_block(Y, 96, 8, 0,
                             torch.zeros((96 * 8 - 48, 2), device=cuda_device))
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)

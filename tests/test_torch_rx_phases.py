@@ -1,6 +1,7 @@
 """The fused front end's plain version (the path a CPU tensor takes)
 against the JAX XLA chain and against the JAX Pallas kernel K3 in
-interpret mode; the wrapper's device rules.  The CUDA kernel is held to
+interpret mode; a torch model of the CUDA kernel's runs (csrc/rx_phases.cu)
+against both; the wrapper's device rules.  The CUDA kernel is held to
 its plain version on the card in test_torch_cuda.py.
 
 Branch-cut rule: two correct f32 computations that sum in different
@@ -16,8 +17,11 @@ import torch
 from amps_tpu.dsp import channelizer as jchz
 from amps_tpu.dsp.fm import quadrature_demod_planar as jdemod
 from amps_tpu.rx import correlator as jcor
+from amps_tpu_torch.dsp.fm import fast_atan2
+from amps_tpu_torch.kernels import analysis as KA
 from amps_tpu_torch.kernels import build
 from amps_tpu_torch.kernels import rx_phases as K
+from amps_tpu_torch.rx.correlator import RSSI_BLOCK
 
 torch.set_num_threads(1)
 
@@ -64,6 +68,77 @@ def test_plain_version_matches_jax_xla_chain(M, Nh, parity, planar):
     assert _beyond(ph.numpy(), ph_w, 1e-4) <= allowed
     np.testing.assert_allclose(pw.numpy(), pw_w, rtol=1e-4)
     np.testing.assert_allclose(cp.numpy(), cp_w, rtol=1e-4)
+
+
+def _runs_model(x_ext, M, T, sps, parity, planar):
+    """K3's decomposition: runs of R = run_hops(M, sps) demod hops, each
+    from its own analysis hops h0-1 .. h0+R+sps-2 (hop -1 zero; hops past
+    Nh NaN, so a use of one shows), the discriminator products, the
+    dump of the run's whole symbols j < nsym in hop order, and the power
+    of its owned hops < Nh split at the 384-hop boundary it crosses; a
+    second pass adds each rssi block's partials in run order / 384."""
+    y = KA.analyze_reference(x_ext, M, T, parity, planar=True,
+                             planar_in=planar)
+    Nh = y.shape[-1]
+    R = K.run_hops(M, sps)
+    nrun, nsym, nblk = -(-Nh // R), (Nh - sps + 1) // sps, -(-Nh // 384)
+    yp = torch.cat([torch.zeros((2, M, 1)), y,
+                    torch.full((2, M, R + sps), float("nan"))], dim=-1)
+    ph = torch.full((M, sps, nsym), float("nan"))
+    part = torch.zeros((M, nrun, 2))
+    w = np.float32(1.0 / sps)
+    for run in range(nrun):
+        h0 = run * R
+        c = yp[:, :, h0 + 1: h0 + R + sps]           # hops h0 .. h0+R+sps-2
+        b = yp[:, :, h0: h0 + R + sps - 1]           # one hop behind
+        re = c[0] * b[0] + c[1] * b[1]
+        im = c[1] * b[0] - c[0] * b[1]
+        d = fast_atan2(im, re)
+        pw = (re * re + im * im)[:, :R]
+        n = h0 + torch.arange(R)
+        first = (n // RSSI_BLOCK == h0 // RSSI_BLOCK) & (n < Nh)
+        part[:, run, 0] = torch.where(first, pw, 0).sum(-1)
+        part[:, run, 1] = torch.where(~first & (n < Nh), pw, 0).sum(-1)
+        for jl in range(R // sps):
+            j = h0 // sps + jl
+            if j < nsym:
+                acc = torch.zeros((M, sps))
+                for v in range(sps):
+                    acc = acc + d[:, sps * jl + v: sps * jl + v + sps] * w
+                ph[:, :, j] = acc
+    pw_blk = torch.zeros((M, nblk))
+    for b in range(nblk):
+        for run in range(b * 384 // R, min((b * 384 + 383) // R, nrun - 1)
+                         + 1):
+            pw_blk[:, b] += part[:, run, 0 if run * R // 384 == b else 1]
+    return ph, pw_blk / 384
+
+
+@pytest.mark.parametrize("M,sps,Nh,parity,planar", [
+    (64, 3, 27 * 14 + 1, 1, False),   # one hop past 14 whole runs of 27
+    (64, 1, 1000, 0, True),
+    (256, 3, 800, 0, False),
+    (1024, 3, 300, 1, False),
+])
+def test_runs_model_matches_plain_version_and_jax(M, sps, Nh, parity,
+                                                  planar):
+    """The decomposition the CUDA kernel runs (symbol ownership by run,
+    the look-ahead of sps-1 hops, the power partials split at 384 and
+    summed in a second pass) against the plain version and the JAX XLA
+    chain, at the tolerances of test_plain_version_matches_jax_xla_chain."""
+    T = 8
+    x_ext = _x_ext(M, T, Nh, seed=M + Nh)
+    xt = torch.as_tensor(np.ascontiguousarray(x_ext.T) if planar else x_ext)
+    ph, pw = _runs_model(xt, M, T, sps, parity, planar)
+    rph, _, rpw = K.analyze_phases_reference(xt, M, T, sps, parity)
+    ph_w, _, pw_w = _jax_chain(x_ext, M, T, sps, parity)
+    assert ph.shape == rph.shape and pw.shape == rpw.shape
+    assert torch.isfinite(ph).all() and torch.isfinite(pw).all()
+    allowed = int(BRANCH_CUT_FRACTION * ph.numel())
+    assert _beyond(ph.numpy(), rph.numpy(), 1e-4) <= allowed
+    assert _beyond(ph.numpy(), ph_w, 1e-4) <= allowed
+    np.testing.assert_allclose(pw.numpy(), rpw.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(pw.numpy(), pw_w, rtol=1e-4)
 
 
 def test_plain_version_bf16_output():

@@ -12,7 +12,8 @@ from amps_tpu.codec import bch as jbch
 from amps_tpu.codec import bits as jbits
 from amps_tpu.dsp import channelizer as jchz
 from amps_tpu.dsp import windows as jwin
-from amps_tpu.pallas import channelizer_kernel as jck
+from amps_tpu.pallas import rx_phases_kernel as jk3
+from amps_tpu.pallas import synthesizer_kernel as jk4
 from amps_tpu.rx import correlator as jcor
 from amps_tpu.rx import decoder as jdec
 from amps_tpu_torch.codec import bch as tbch
@@ -20,7 +21,8 @@ from amps_tpu_torch.codec import bits as tbits
 from amps_tpu_torch.dsp import channelizer as tchz
 from amps_tpu_torch.dsp import polyphase as tpoly
 from amps_tpu_torch.dsp import windows as twin
-from amps_tpu_torch.kernels import rx_phases as tk
+from amps_tpu_torch.kernels import analysis as tka
+from amps_tpu_torch.kernels import synth as tk4
 from amps_tpu_torch.rx import correlator as tcor
 from amps_tpu_torch.rx import decoder as tdec
 
@@ -51,18 +53,21 @@ def test_dft_split_mats(M, M2):
 
 @pytest.mark.parametrize("M,T", [(64, 8), (256, 8), (1024, 8)])
 def test_kernel_tables_match_pallas_k3(M, T):
-    """The CUDA kernel's fold coefficients are K3's ``_fold_coef``; its
-    cos/sin columns are K3's flipped, derotated ``_matrices`` in closed
-    form, C2f[q, k] = cos(2πkq/M) and S2f[q, k] = -sin(2πkq/M), for the
-    pair channels u < M/2, with channel M/2's column in sin column 0."""
-    P = M // 2
-    coef, cu, su = tk._tables(M, T, torch.device("cpu"))
-    assert np.array_equal(coef.numpy(), jck._fold_coef(M, T))
-    C2f, S2f = jck._matrices(M, False)
-    assert cu.shape == su.shape == (M, P)
-    assert np.abs(cu.numpy() - C2f[:, :P]).max() < 2e-6
-    assert np.abs(-su.numpy()[:, 1:] - S2f[:, 1:P]).max() < 2e-6
-    assert np.abs(su.numpy()[:, 0] - C2f[:, P]).max() < 2e-6
+    """The FFT tile's tables that the K3 and K4 kernels are handed: the
+    fold coefficients are K3's ``_fold_coef`` bit for bit; K4's gain taps
+    are its ``_ola_coef`` ((T, M), taps × P); the twiddles are W_M^e =
+    e^{-j2πe/M} of ``fft_twiddle_exponents`` from float64, to f32
+    rounding."""
+    coef, tw = tka._tables(M, T, torch.device("cpu"))
+    assert np.array_equal(coef.numpy(), jk3._fold_coef(M, T))
+    gm = tk4._gain_taps(M, T, torch.device("cpu"))
+    assert gm.shape == (T, M)
+    assert np.array_equal(gm.numpy(), jk4._ola_coef(M, T))
+    e = tka.fft_twiddle_exponents(M)
+    want = np.exp(-2j * np.pi * e.astype(np.float64) / M)
+    assert tw.shape == (len(e), 2)
+    assert np.abs(tw[:, 0].numpy() - want.real).max() < 1e-7
+    assert np.abs(tw[:, 1].numpy() - want.imag).max() < 1e-7
 
 
 @pytest.mark.parametrize("sps", [1, 3])
