@@ -31,11 +31,13 @@ def analyzer_state_from_numpy(history, hop_idx: int,
 def receiver_state_from_jax(snapshot, rx) -> None:
     """Restore the numpy dict of ``amps_tpu.runtime.state.
     snapshot_receiver`` (hist, parity, carry, prev, pw_carry, abs_base,
-    last_seen; the JAX package snapshots no sub-hop residue) into the
-    port's MultichannelReceiver ``rx`` of the same spec."""
+    last_seen, sup_carry; the JAX package snapshots no sub-hop residue)
+    into the port's MultichannelReceiver ``rx`` of the same spec."""
     snap = {k: snapshot[k] for k in ("kind", "hist", "parity", "carry",
                                      "prev", "pw_carry", "abs_base",
                                      "last_seen")}
+    if "sup_carry" in snapshot:
+        snap["sup_carry"] = snapshot["sup_carry"]
     snap["residue"] = np.zeros((0, 2), np.float32)
     snap["last_block_len"] = np.int64(0)
     restore_receiver(snap, rx)
@@ -47,3 +49,17 @@ def transmitter_state_from_jax(arrays, tx) -> None:
     ``np.load(path)``) into the port's MultichannelTransmitter ``tx``
     with the same control channels."""
     restore_transmitter(arrays, tx)
+
+
+def closed_loop_state_from_numpy(syn_carry, hist, carry, prev,
+                                 device=None) -> dict:
+    """The carried state of the JAX closed loop's scan (synthesis carry
+    and analyzer history (L-P, 2), demod overlap (M, carry_hops),
+    previous channel sample (M, 2), as numpy) as the state dict of the
+    port's ``runtime.streamer.closed_loop_block``, so the port's block
+    k+1 continues a JAX block k; on ``device`` (default the current CUDA
+    device, the CPU when named)."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32), device=dev)
+            for k, v in (("syn_carry", syn_carry), ("hist", hist),
+                         ("carry", carry), ("prev", prev))}

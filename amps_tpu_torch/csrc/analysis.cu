@@ -6,7 +6,7 @@
 // (analyze_chmajor_pallas, body _make_kernel) and computes what the
 // port's plain analysis, kernels/analysis.py::analyze_reference,
 // computes: riq or planar input with the history prepended, any hop
-// parity, any number of hops, M a power of two from 64 to 2048.  None of
+// parity, any number of hops, M a power of two from 8 to 2048.  None of
 // the TPU kernel's limits or workarounds is carried over: no even-parity
 // assert, no Nh % tile_h == 0, no odd bank pre-shifted by P samples, no
 // 128-lane M, no stack-and-transpose to planes.

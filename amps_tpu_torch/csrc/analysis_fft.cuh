@@ -14,7 +14,9 @@
 // (synth.cu).
 //
 // A block owns all M channels of H consecutive hops a0 .. a0+H-1 (M a
-// power of two, 64 .. 2048; H even, set by the kernel):
+// power of two, 8 .. 2048; H even, set by the kernel).  The small banks
+// (M = 8, 16, 32: one pass of radix 8 or 16, or 16 then 2) run the same
+// code with most of a block's threads idle in the fold and the passes:
 //   * fold: a thread folds one m for the H/2 hops of one parity, whose
 //     windows share H/2 + T - 1 input rows (hop a tap t reads row
 //     a + 2t, +1 for m >= P), loaded all at once straight from device
@@ -39,7 +41,8 @@
 //     natural order, no index map.  The twiddles come from a table
 //     (fft_twiddle_offset) that the wrapper builds in float64 and casts
 //     to f32, laid out so that consecutive butterflies read consecutive
-//     entries; the butterflies' own constants W_16^1..3 head it.
+//     entries; the butterflies' own constants W_16^1..3 head it (at M = 8
+//     only W_16^2 = W_8^1 is a power of W_M, and the only one read).
 //   * every hop runs the same instruction sequence wherever it sits in
 //     the run: multiplies are __fmul_rn or explicit fmaf, adds __fadd_rn,
 //     so nvcc contracts nothing differently from hop to hop and chained
@@ -111,6 +114,9 @@ __host__ __device__ constexpr int fft_radix_code(int M) {
 template <class F>
 int with_width(int M, F f) {
   switch (M) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 128: return f(std::integral_constant<int, 128>{});
     case 256: return f(std::integral_constant<int, 256>{});
@@ -213,8 +219,8 @@ struct FftTile {
   static constexpr int HS = M + M / 32 + 1;    // hop stride of the plane
   static constexpr int TWN = fft_twiddle_size(M);
   static constexpr int kSmemBytes = 8 * (H * HS + TWN);
-  static_assert(H % 2 == 0 && M >= 64 && M <= 2048 && (M & (M - 1)) == 0,
-                "widths 64 .. 2048, powers of two");
+  static_assert(H % 2 == 0 && M >= 8 && M <= 2048 && (M & (M - 1)) == 0,
+                "widths 8 .. 2048, powers of two");
 
   float2* S;   // [H][HS] the plane
   float2* W;   // [TWN] the twiddle table

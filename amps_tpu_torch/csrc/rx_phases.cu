@@ -42,6 +42,8 @@
 //     in run order and divides by 384.  No atomics.
 // Only the phases and the power means reach device memory -- the
 // (2, M, Nh) analysis planes and the (M, Nh) demod plane never do.
+// G independent bands of the same geometry run as one launch: blockIdx.y
+// is the band, whose input and outputs lie G-major one after another.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -73,6 +75,10 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
   Tile tile(smem);
   const int R = run_hops(M, sps);
   const int run = blockIdx.x;
+  const size_t band = blockIdx.y;         // one of G independent bands
+  x += band * 2 * static_cast<size_t>(n_ext);
+  pw_part += band * M * nrun;
+  const size_t ph0 = band * M * sps * static_cast<size_t>(nsym);
   const int h0 = run * R;                 // tile hop l is stream hop h0-1+l
   tile.load_twiddles(tw);
   tile.fold(x, planar, n_ext, coef, T, h0 - 1);
@@ -137,7 +143,7 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
       float acc = 0.f;
       for (int v = 0; v < sps; ++v)
         acc = __fadd_rn(acc, __fmul_rn(d[v * HS].x, w));
-      const size_t o = (static_cast<size_t>(k) * sps + p) * nsym + j;
+      const size_t o = ph0 + (static_cast<size_t>(k) * sps + p) * nsym + j;
       if (ph_bf16)
         ph_bf16[o] = __float2bfloat16_rn(acc);
       else
@@ -190,15 +196,16 @@ extern "C" int rx_phases_fft_radices(int M) {
 }
 
 // Launches both kernels on `stream`; returns cudaGetLastError() (0 =
-// launched).  pw_part is a (M, nrun, 2) float scratch, nrun = the runs of
+// launched).  x, phases, pw_part and pw_blk hold G bands one after another;
+// pw_part is a (G, M, nrun, 2) float scratch, nrun = the runs of
 // run_hops(M, sps) demod hops that cover Nh.
 extern "C" int rx_phases_launch(const void* x, int planar, long long n_ext,
                                 const void* coef, const void* tw,
                                 void* phases, int out_bf16, void* pw_part,
                                 void* pw_blk, int M, int T, int sps, int Nh,
-                                int nsym, int hop0_parity, int nrun,
+                                int nsym, int hop0_parity, int nrun, int G,
                                 void* stream) {
-  if (T < 1 || T > kFftMaxT || Nh < sps || nsym < 0 ||
+  if (T < 1 || T > kFftMaxT || Nh < sps || nsym < 0 || G < 1 || G > 65535 ||
       n_ext != static_cast<long long>(Nh + 2 * T - 1) * (M / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -212,7 +219,7 @@ extern "C" int rx_phases_launch(const void* x, int planar, long long n_ext,
         rx_phases_kernel<Mw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         Tile::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    rx_phases_kernel<Mw><<<nrun, kFftThreads, Tile::kSmemBytes, st>>>(
+    rx_phases_kernel<Mw><<<dim3(nrun, G), kFftThreads, Tile::kSmemBytes, st>>>(
         static_cast<const float*>(x), planar, n_ext,
         static_cast<const float*>(coef), static_cast<const float2*>(tw),
         out_bf16 ? nullptr : static_cast<float*>(phases),
@@ -220,10 +227,11 @@ extern "C" int rx_phases_launch(const void* x, int planar, long long n_ext,
         static_cast<float2*>(pw_part), T, sps, Nh, nsym, hop0_parity, nrun);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const int nblk = (Nh + kRssiBlock - 1) / kRssiBlock;
-    rx_phases_power_kernel<<<(Mw * nblk + kFftThreads - 1) / kFftThreads,
+    // the bands' channels are G·M rows of both power arrays
+    rx_phases_power_kernel<<<(G * Mw * nblk + kFftThreads - 1) / kFftThreads,
                              kFftThreads, 0, st>>>(
-        static_cast<const float2*>(pw_part), static_cast<float*>(pw_blk), Mw,
-        R, nrun, nblk);
+        static_cast<const float2*>(pw_part), static_cast<float*>(pw_blk),
+        G * Mw, R, nrun, nblk);
     return static_cast<int>(cudaGetLastError());
   });
   return rc < 0 ? static_cast<int>(cudaErrorInvalidValue) : rc;

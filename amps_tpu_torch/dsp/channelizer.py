@@ -8,11 +8,12 @@ Math (weighted overlap-add form; h = prototype lowpass, L = M*T taps):
              u_n[m] = sum_k (-1)^{k n} Y_k[n] E+[k,m]
 Channel k sits at center frequency +k*Δf (k mod M; k>M/2 => negative).
 
-Only the production analysis fold, ``fold="bank"`` (the two parity
-banks fed straight into permutation-absorbed transform matrices), is
-ported; the JAX package's other folds match it up to f32 summation
-order and raise ``NotImplementedError`` here.  The constant tables live
-in ``dsp.polyphase``.
+One analysis fold is computed, the production ``fold="bank"`` (the two
+parity banks fed straight into permutation-absorbed transform matrices).
+The JAX package's other fold names (``FOLDS``) are accepted and give the
+same bank fold: they are the same sum in another f32 order.  An unknown
+name raises ``ValueError``.  The constant tables live in
+``dsp.polyphase``.
 
 ``analyze`` runs the block analysis of ``kernels.analysis`` (the kernel
 on a CUDA device, its plain version ``analyze_reference`` on the CPU);
@@ -50,6 +51,16 @@ class ChannelizerSpec:
     @property
     def ntaps(self) -> int:
         return self.num_channels * self.taps_per_phase
+
+
+# the analysis fold names of the JAX package; all compute the bank fold
+FOLDS = ("conv", "shift", "bank", "bank2", "bankp")
+
+
+def check_fold(fold: str) -> None:
+    """Raise ValueError unless ``fold`` is one of ``FOLDS``."""
+    if fold not in FOLDS:
+        raise ValueError(f"unknown fold {fold!r}: one of {FOLDS}")
 
 
 def default_split(M: int) -> int:
@@ -164,7 +175,8 @@ def analyze(x, spec: ChannelizerSpec, state: AnalyzerState,
             planar_in: bool = False, block=None):
     """Streaming channel-major analysis: x (N, 2), N a multiple of
     spec.hop — or planar planes (2, N) when ``planar_in`` (state from
-    analyzer_init(..., planar_in=True)).  Returns (Y, new state); Y is
+    analyzer_init(..., planar_in=True)); ``fold`` any name of ``FOLDS``
+    (one fold is computed for all).  Returns (Y, new state); Y is
     (M, N/P, 2), or (2, M, N/P) when ``planar``.  A block with an odd hop
     count flips the parity of the next one.  Runs on the state's device.
 
@@ -173,9 +185,7 @@ def analyze(x, spec: ChannelizerSpec, state: AnalyzerState,
     plain version on the CPU, which also takes leading batch
     dimensions); ``kernels.analysis.analyze_reference`` runs the plain
     version on any device (to compare the two)."""
-    if fold != "bank":
-        raise NotImplementedError(
-            f"fold={fold!r}: only the production fold 'bank' is ported")
+    check_fold(fold)
     P = spec.hop
     x = as_tensor(x, device=state.history.device)
     n = x.shape[-1] if planar_in else x.shape[-2]

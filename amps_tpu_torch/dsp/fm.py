@@ -52,10 +52,14 @@ def expj(phase):
 def fm_modulate_symbols(symbols, sensitivity: float, phase_accum0=0):
     """FSK-modulate an integer ±1 symbol stream (..., n):
     phase[n] = sens * cumsum(symbols), accumulated in int32 so long
-    streams do not drift.  Returns (iq riq (..., n, 2), accum_end (...,))."""
+    streams do not drift; ``phase_accum0`` an int, (...,) ints (an earlier
+    call's accum_end) or a tensor that broadcasts against (..., n).
+    Returns (iq riq (..., n, 2), accum_end (...,))."""
     s = torch.as_tensor(symbols)
-    accum = torch.cumsum(s.to(torch.int32), dim=-1, dtype=torch.int32) \
-        + torch.as_tensor(phase_accum0, dtype=torch.int32, device=s.device)
+    a0 = torch.as_tensor(phase_accum0, dtype=torch.int32, device=s.device)
+    if a0.ndim and a0.ndim == s.ndim - 1:
+        a0 = a0[..., None]          # one accumulator a stream, as returned
+    accum = torch.cumsum(s.to(torch.int32), dim=-1, dtype=torch.int32) + a0
     phase = accum.to(torch.float32) * float(np.float32(sensitivity))
     return expj(phase), accum[..., -1]
 

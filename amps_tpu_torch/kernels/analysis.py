@@ -35,7 +35,9 @@ from amps_tpu_torch.dsp.polyphase import _analysis_consts, _hop_sign
 from amps_tpu_torch.kernels import build
 
 MAX_TAPS = 16              # taps per phase the tiles hold (csrc kMaxT)
-FFT_WIDTHS = tuple(1 << b for b in range(6, 12))   # M the FFT tile takes
+# M the FFT tile takes: every power of two from the 8-channel bank of the
+# station app's default to 2048
+FFT_WIDTHS = tuple(1 << b for b in range(3, 12))
 # analysis hops a block of the FFT tile computes (csrc fft_tile_hops):
 # ~100 KB of shared plane at M = 1024, so two blocks share an SM
 FFT_TILE_HOPS = {M: 16 if M <= 512 else 12 if M == 1024 else 4
@@ -134,8 +136,9 @@ def _radix_code(M: int) -> int:
 
 def fft_twiddle_exponents(M: int) -> np.ndarray:
     """The exponents e of the FFT tile's twiddle table W_M^e (csrc
-    fft_twiddle_offset): M/16, M/8, 3M/16 (the butterflies' W_16^1..3),
-    then for each pass after the first, with Ns the product of the
+    fft_twiddle_offset): M/16, M/8, 3M/16 (the butterflies' W_16^1..3;
+    at M = 8 only the middle one is whole, and the only one the radix-8
+    butterfly reads), then for each pass after the first, with Ns the product of the
     earlier radices, the (R-1) x Ns block jm·r·M/(Ns·R) for r = 1 .. R-1,
     jm < Ns."""
     out = [M // 16, M // 8, 3 * M // 16]

@@ -13,7 +13,9 @@ M a power of two in ``FFT_WIDTHS``): a block computes
 ``FFT_WIDE_HOPS[M]`` analysis hops and owns the ``run_hops(M, sps)``
 demod hops after the first, whole symbols whose look-ahead fits in the
 tile; the 384-hop power partials of the runs go through a scratch that a
-second small kernel adds up.
+second small kernel adds up.  G independent bands of one geometry, a
+leading axis of the input, run as one launch with the band as the grid's
+second axis (``parallel.pipeline.rx_multichannel_block_batched``).
 """
 
 from __future__ import annotations
@@ -55,12 +57,15 @@ def run_hops(M: int, sps: int) -> int:
 def analyze_phases_reference(x_ext, M: int, T: int, sps: int = 3,
                              hop0_parity: int = 0,
                              out_dtype=torch.float32):
-    """Plain PyTorch version of the kernel, on any device."""
-    planar, _, Nh = block_geometry(x_ext, M, T)
+    """Plain PyTorch version of the kernel, on any device (a leading
+    band axis included)."""
+    planar, _, Nh = block_geometry(x_ext[0] if x_ext.ndim == 3 else x_ext,
+                                   M, T)
     _nsym(Nh, sps)
     ypl = analyze_reference(x_ext, M, T, hop0_parity, planar=True,
                             planar_in=planar)
-    demod, _, pw = quadrature_demod_planar(ypl[0], ypl[1],
+    demod, _, pw = quadrature_demod_planar(ypl[..., 0, :, :],
+                                           ypl[..., 1, :, :],
                                            return_power="series")
     phases = symbol_phase_streams(demod, sps).to(out_dtype)
     pw_blk = window_power_blocks([pw])
@@ -72,7 +77,7 @@ def _launcher():
     p, i = ctypes.c_void_p, ctypes.c_int
     return bind("rx_phases_launch",
                 [p, i, ctypes.c_longlong, p, p, p, i, p, p,
-                 i, i, i, i, i, i, i, p],
+                 i, i, i, i, i, i, i, i, p],
                 rx_phases_tile_hops=FFT_WIDE_HOPS,
                 rx_phases_fft_radices={M: _radix_code(M)
                                        for M in FFT_WIDTHS})
@@ -87,6 +92,8 @@ def analyze_phases(x_ext, M: int, T: int, sps: int = 3,
     the absolute parity of the block's first hop.  Returns
     (phases (M, sps, nsym) ``out_dtype``, chan_power (M,) float32,
     pw_blk (M, ceil(Nh / 384)) float32), nsym = (Nh - sps + 1) // sps.
+    G independent bands, x_ext (G, n_ext, 2) or (G, 2, n_ext), give the
+    same with a leading G axis, from one launch.
     """
     global LAUNCHES
     if not isinstance(x_ext, torch.Tensor):
@@ -100,19 +107,28 @@ def analyze_phases(x_ext, M: int, T: int, sps: int = 3,
     if sps < 1 or run_hops(M, sps) < sps:
         raise ValueError(f"kernel needs 1 <= sps <= "
                          f"{FFT_WIDE_HOPS[M] // 2} at M={M} (sps={sps})")
-    planar, n_ext, Nh = card_block(x_ext, M, T)
+    if x_ext.ndim == 3:
+        if not x_ext.is_contiguous():
+            raise ValueError("x_ext must be contiguous float32")
+        G = x_ext.shape[0]
+        planar, n_ext, Nh = card_block(x_ext[0], M, T)
+        lead = (G,)
+    else:
+        G, lead = 1, ()
+        planar, n_ext, Nh = card_block(x_ext, M, T)
     nsym = _nsym(Nh, sps)
     dev = x_ext.device
     coef, tw = _tables(M, T, dev)
     nrun = -(-Nh // run_hops(M, sps))
-    phases = torch.empty((M, sps, nsym), dtype=out_dtype, device=dev)
-    pw_part = torch.empty((M, nrun, 2), dtype=torch.float32, device=dev)
-    pw_blk = torch.empty((M, -(-Nh // RSSI_BLOCK)), dtype=torch.float32,
-                         device=dev)
+    phases = torch.empty(lead + (M, sps, nsym), dtype=out_dtype, device=dev)
+    pw_part = torch.empty(lead + (M, nrun, 2), dtype=torch.float32,
+                          device=dev)
+    pw_blk = torch.empty(lead + (M, -(-Nh // RSSI_BLOCK)),
+                         dtype=torch.float32, device=dev)
     launch("rx_phases", _launcher(), dev, x_ext.data_ptr(), int(planar),
            n_ext, coef.data_ptr(), tw.data_ptr(), phases.data_ptr(),
            int(out_dtype == torch.bfloat16), pw_part.data_ptr(),
            pw_blk.data_ptr(), M, T, sps, Nh, nsym, int(hop0_parity) % 2,
-           nrun)
+           nrun, G)
     LAUNCHES += 1
     return phases, power_from_blocks(pw_blk, Nh), pw_blk

@@ -1,6 +1,7 @@
 """The multichannel transmit and receive blocks, single device — the
 PyTorch port of ``amps_tpu.parallel.pipeline`` (``MultichannelSpec``,
-``tx_multichannel_block`` and ``rx_multichannel_block``).
+``tx_multichannel_block``, ``rx_multichannel_block`` and its batched
+small-bank form ``rx_multichannel_block_batched``).
 
   TX: word pairs (C, F, 2, 28)
     -> FOCC frame bits (C, F*463)                          [tx.focc]
@@ -47,6 +48,8 @@ class MultichannelSpec:
     # not used (bf16 wgmma / the two-stage split are later work).
     transform_bf16: bool = False
     transform_split: int = -1
+    # any fold name of the JAX package (dsp.channelizer.FOLDS); the port
+    # computes the bank fold for all of them
     fold: str = "conv"
     # io_bf16: phase streams and hard symbols in bfloat16
     io_bf16: bool = False
@@ -107,13 +110,30 @@ def rx_multichannel_block(x, spec: MultichannelSpec, max_bursts: int = 2,
     return _rx_block(x, spec, max_bursts, threshold, policy, analyze_phases)
 
 
+def rx_multichannel_block_batched(xs, spec: MultichannelSpec,
+                                  max_bursts: int = 2,
+                                  threshold: float = 0.55,
+                                  policy: str = "first_ok"):
+    """Batched small-bank receive: xs (G, N, 2), G independent wideband
+    streams through G copies of the M-channel bank in one call.  Returns
+    the dict of ``rx_multichannel_block`` with a leading G axis.  A small
+    bank alone leaves the card idle; several narrow bands a card is the
+    deployment.  On a CUDA device the front end is one launch of the
+    ``rx_phases`` kernel with the band as its grid's second axis; every
+    later stage is batch-polymorphic."""
+    if not isinstance(xs, torch.Tensor):
+        raise TypeError("xs must be a torch.Tensor")
+    if xs.ndim != 3 or xs.shape[-1] != 2:
+        raise ValueError(f"xs must be (G, N, 2), got {tuple(xs.shape)}")
+    return _rx_block(xs, spec, max_bursts, threshold, policy, analyze_phases)
+
+
 def _rx_block(x, spec: MultichannelSpec, max_bursts: int, threshold: float,
               policy: str, front_end):
     """rx_multichannel_block with stages 1-3 given as ``front_end`` (the
-    kernel wrapper, or its plain version for a same-device comparison)."""
-    if spec.fold != "bank":
-        raise NotImplementedError(
-            f"fold={spec.fold!r}: only the production fold 'bank' is ported")
+    kernel wrapper, or its plain version for a same-device comparison);
+    x (N, 2), planar (2, N), or G bands (G, N, 2)."""
+    chz.check_fold(spec.fold)
     if not isinstance(x, torch.Tensor):
         raise TypeError("x must be a torch.Tensor")
     M = spec.num_channels
@@ -121,9 +141,9 @@ def _rx_block(x, spec: MultichannelSpec, max_bursts: int, threshold: float,
     sps = spec.chan_sps
     planar_in = x.ndim == 2 and x.shape[0] == 2 and x.shape[1] != 2
     x = x.to(torch.float32)
-    hist = chz.analyzer_init(spec.chz_spec, planar_in=planar_in,
-                             device=x.device).history
-    x_ext = torch.cat([hist, x], dim=-1 if planar_in else 0).contiguous()
+    hist = chz.analyzer_init(spec.chz_spec, batch=tuple(x.shape[:-2]),
+                             planar_in=planar_in, device=x.device).history
+    x_ext = torch.cat([hist, x], dim=-1 if planar_in else -2).contiguous()
     phases, chan_power, pw_blk = front_end(
         x_ext, M, T, sps, hop0_parity=0,
         out_dtype=torch.bfloat16 if spec.io_bf16 else torch.float32)

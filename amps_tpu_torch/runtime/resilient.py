@@ -11,14 +11,20 @@ PyTorch port of ``amps_tpu.runtime.resilient``.
 * Burst reports are delivered exactly once across replays, deduplicated
   by (channel, absolute symbol); a callback exception propagates to the
   caller and never triggers a rebuild.
+* Supervision frames are delivered exactly once too: a replay delivers
+  only the frames of the block whose push failed (the earlier blocks'
+  frames went out before the failure, and a second delivery would advance
+  the SAT/ST timers twice), and an exception of the ``on_supervision``
+  callback is held back until the push has finished, then raised with
+  the block's burst reports attached as ``burst_reports``.
 
 Only a receiver error that persists through ``max_retries`` rebuilds is
-re-raised.  Supervision callbacks need the voice receive path, which is
-not ported yet, so there is none to guard.
+re-raised.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -64,15 +70,57 @@ class ResilientReceiver:
                 self.on_burst(r)
         return out
 
-    def _recover_and_replay_raw(self) -> List[BurstReport]:
+    @contextlib.contextmanager
+    def _sup_guard(self, cb_errors: List[Exception]):
+        """Run the current receiver with its ``on_supervision`` wrapped:
+        an exception of the user's callback is recorded in ``cb_errors``
+        instead of leaving ``rx.push``, where it would pass for a device
+        failure and trigger a rebuild and a replay that delivers the
+        block's frames again."""
+        rx = self.rx
+        cb = rx.on_supervision
+        if cb is None:
+            yield
+            return
+
+        def guarded(*a, **kw):
+            try:
+                cb(*a, **kw)
+            except Exception as e:  # noqa: BLE001 -- the user's callback
+                cb_errors.append(e)
+
+        rx.on_supervision = guarded
+        try:
+            yield
+        finally:
+            # on the receiver that ran under the guard: self.rx may be a
+            # rebuilt one by now
+            if rx.on_supervision is guarded:
+                rx.on_supervision = cb
+
+    def _recover_and_replay_raw(self, cb_errors: List[Exception]
+                                ) -> List[BurstReport]:
         """Fresh receiver + snapshot restore + ring replay (raw reports;
-        dedup happens at delivery)."""
+        dedup happens at delivery).  Supervision frames are delivered for
+        the last replayed block only, the one whose push failed, under
+        the callback guard."""
         self.recoveries += 1
         self.rx = self._make()
         restore_receiver(self._snap, self.rx)
         raw: List[BurstReport] = []
-        for blk in self._ring:
-            raw += self.rx.push(blk)       # copied to the receiver's device
+        saved_cb = self.rx.on_supervision
+        try:
+            with self._sup_guard(cb_errors):
+                guarded_cb = self.rx.on_supervision
+                for i, blk in enumerate(self._ring):
+                    if saved_cb is not None:
+                        self.rx.on_supervision = (
+                            guarded_cb if i == len(self._ring) - 1 else None)
+                    raw += self.rx.push(blk)   # copied to its device
+        finally:
+            # a failed replay must not leave the rebuilt receiver mute
+            if saved_cb is not None:
+                self.rx.on_supervision = saved_cb
         return raw
 
     def push(self, block) -> List[BurstReport]:
@@ -83,10 +131,15 @@ class ResilientReceiver:
         else:
             block = np.asarray(block)
             self._ring.append(block)
+        cb_errors: List[Exception] = []
         for attempt in range(self.max_retries + 1):
+            cb_errors.clear()   # a retried attempt delivers the frames anew
             try:
-                raw = (self.rx.push(block) if attempt == 0
-                       else self._recover_and_replay_raw())
+                if attempt == 0:
+                    with self._sup_guard(cb_errors):
+                        raw = self.rx.push(block)
+                else:
+                    raw = self._recover_and_replay_raw(cb_errors)
             except Exception:  # noqa: BLE001 -- any receiver failure
                 if attempt == self.max_retries:
                     # drop the failed block, so a caller that catches and
@@ -104,6 +157,17 @@ class ResilientReceiver:
             floor = int(self._snap["abs_base"]) // self.rx.sps \
                 - self._snap["carry"].shape[-1] // self.rx.sps
             self._delivered = {k for k in self._delivered if k[1] >= floor}
+        if cb_errors:
+            # the push itself succeeded (state advanced, reports
+            # delivered and marked): surface the callback's error with
+            # the block's reports attached, or a caller that only catches
+            # it would lose them to the positional dedup
+            err = cb_errors[0]
+            try:
+                err.burst_reports = out
+            except AttributeError:
+                pass    # an exception class with __slots__
+            raise err
         return out
 
     def flush(self) -> List[BurstReport]:

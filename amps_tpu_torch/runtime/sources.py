@@ -1,5 +1,6 @@
 """Channel-slot baseband sources for the MultichannelTransmitter, the
-PyTorch port of ``amps_tpu.runtime.sources.VoiceFvcSlot``.
+PyTorch port of ``amps_tpu.runtime.sources`` (``VoiceFvcSlot`` and its
+audio sources ``WavAudioSource`` and ``RvcRebroadcastSource``).
 
 The reference's voice channels are an audio+SAT NBFM chain and an FVC
 data chain feeding the same mixer through a pair of mute blocks toggled
@@ -14,6 +15,7 @@ plane.
 
 from __future__ import annotations
 
+import wave
 from typing import Callable, Optional
 
 import numpy as np
@@ -22,7 +24,8 @@ import torch
 from amps_tpu_torch.config import PipelineConfig, SystemConfig
 from amps_tpu_torch.control.station import BaseStation
 from amps_tpu_torch.device import resolve_device
-from amps_tpu_torch.dsp.fm import fm_modulate_symbols
+from amps_tpu_torch.dsp.fm import fm_modulate_symbols, quadrature_demod
+from amps_tpu_torch.rx.voice import nbfm_demod_audio, supervision_levels
 from amps_tpu_torch.tx.voice import voice_channel_baseband
 
 
@@ -84,3 +87,85 @@ class VoiceFvcSlot:
         if len(out) < n_hops:
             out = np.pad(out, ((0, n_hops - len(out)), (0, 0)))
         return out[:n_hops]
+
+
+class WavAudioSource:
+    """Looping audio file source (the reference's boot16k.wav player):
+    source(n) -> the next n float32 samples in [-1, 1), mono (channels
+    averaged), 8- or 16-bit PCM at ``rate``."""
+
+    def __init__(self, path: str, rate: int = 16_000):
+        with wave.open(path, "rb") as w:
+            if w.getframerate() != rate:
+                raise ValueError(f"{path} is at {w.getframerate()} Hz, "
+                                 f"the source needs {rate}")
+            raw = w.readframes(w.getnframes())
+            width = w.getsampwidth()
+            nch = w.getnchannels()
+        if width == 2:
+            data = np.frombuffer(raw, np.int16).astype(np.float32) / 32768.0
+        elif width == 1:
+            data = (np.frombuffer(raw, np.uint8).astype(np.float32)
+                    - 128.0) / 128.0
+        else:
+            raise ValueError(f"unsupported sample width {width}")
+        if nch > 1:
+            data = data.reshape(-1, nch).mean(axis=1)
+        if not len(data):
+            raise ValueError(f"{path} holds no samples")
+        self.data = data
+        self._off = 0
+
+    def __call__(self, n: int) -> np.ndarray:
+        out = np.empty(n, np.float32)
+        filled = 0
+        while filled < n:
+            take = min(n - filled, len(self.data) - self._off)
+            out[filled:filled + take] = self.data[self._off:self._off + take]
+            self._off = (self._off + take) % len(self.data)
+            filled += take
+        return out
+
+
+class RvcRebroadcastSource:
+    """ampsbs_rvc.grc loop-back: audio demodulated from a reverse-voice
+    channelizer slot, re-broadcast on a forward voice slot.
+
+    ``rvc_baseband(n_hops) -> (n_hops, 2)`` riq of the monitored RVC
+    slot at chan_rate.  Instances are ``audio_source`` callables for
+    VoiceFvcSlot, so the re-broadcast rides the standard voice+SAT chain
+    (fresh land-side SAT replaces the mobile's transponded one).  The
+    most recent supervision measurement of the monitored slot is kept in
+    ``last_levels``/``last_power`` (numpy) for the control plane.
+    ``device``: where the demodulation runs (default the current CUDA
+    device; the CPU only when named)."""
+
+    def __init__(self, rvc_baseband: Callable[[int], np.ndarray],
+                 system: Optional[SystemConfig] = None,
+                 pipe: Optional[PipelineConfig] = None,
+                 supervision_frame: int = 600, device=None):
+        self.rvc_baseband = rvc_baseband
+        self.device = resolve_device(device)
+        self.system = system or SystemConfig()
+        self.pipe = pipe or PipelineConfig()
+        self.sup_frame = supervision_frame
+        self.last_levels: Optional[np.ndarray] = None
+        self.last_power: Optional[np.ndarray] = None
+
+    def __call__(self, n_audio: int) -> np.ndarray:
+        pipe = self.pipe
+        n_hops = int(round(n_audio * pipe.chan_rate / pipe.audio_rate))
+        iq = torch.as_tensor(np.asarray(self.rvc_baseband(n_hops),
+                                        np.float32), device=self.device)
+        audio = nbfm_demod_audio(iq, self.system, pipe)[0].cpu().numpy()
+        # supervision measurement on the raw discriminator stream
+        sens = 2.0 * np.pi * pipe.deviation_hz / pipe.chan_rate
+        d = quadrature_demod(iq)[0] / sens
+        if d.shape[-1] >= self.sup_frame:
+            lv, pw = supervision_levels(d, self.sup_frame,
+                                        float(pipe.chan_rate))
+            self.last_levels = lv.cpu().numpy()
+            self.last_power = pw.cpu().numpy()
+        if len(audio) < n_audio:
+            audio = np.pad(audio, (0, n_audio - len(audio)))
+        return audio[:n_audio]

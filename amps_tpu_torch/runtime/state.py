@@ -2,8 +2,8 @@
 PyTorch port of the single-device part of ``amps_tpu.runtime.state``.
 
 A snapshot is a dict of numpy arrays (``np.savez`` persists it): the
-receiver's carried DSP state, hop parity, dedup positions and buffered
-sub-hop residue; the transmitter's synthesis carry, hop index, phase
+receiver's carried DSP state, hop parity, dedup positions, buffered
+sub-hop residue and sub-frame supervision leftover; the transmitter's synthesis carry, hop index, phase
 accumulators and FOCC word queues.  The transmitter's file has the JAX
 package's layout, so either package can resume the other's.  A resumed
 stream is identical to an uninterrupted one.
@@ -45,6 +45,10 @@ def snapshot_receiver(rx) -> Dict[str, np.ndarray]:
         "pw_carry": _host(rx._pw_carry),
         "residue": residue,
         "last_block_len": np.int64(rx._last_block_len),
+        # sub-frame supervision leftover: without it a resume drops up
+        # to one 10 ms frame
+        "sup_carry": (rx._sup_carry.copy() if rx._sup_carry is not None
+                      else np.zeros((0, 0), np.float32)),
     }
 
 
@@ -67,6 +71,11 @@ def restore_receiver(snap, rx) -> None:
     residue = np.asarray(snap["residue"], np.float32)
     rx._residue = dev(residue) if residue.shape[0] else None
     rx._last_block_len = int(snap["last_block_len"])
+    keys = snap.files if hasattr(snap, "files") else snap.keys()
+    if "sup_carry" in keys and rx._sup_carry is not None:
+        sc = np.asarray(snap["sup_carry"], np.float32)
+        if sc.shape[0] == rx._sup_carry.shape[0]:
+            rx._sup_carry = sc.copy()
 
 
 def save_receiver(path: str, rx) -> None:

@@ -1,7 +1,8 @@
 """The base station's streaming duplex, the PyTorch port of
 ``amps_tpu.runtime.streamer`` (``MultichannelReceiver``,
-``MultichannelTransmitter``, ``BurstReport``, ``decode_dcc`` and the
-receive block ``_rx_stream_block``).
+``MultichannelTransmitter``, ``BurstReport``, ``decode_dcc``, the
+receive block ``_rx_stream_block``, ``deliver_supervision_frames`` and
+the fused closed loop ``make_closed_loop_stream``).
 
 * ``MultichannelTransmitter.next_block`` produces one FOCC superframe of
   the forward band: every control channel's frame bits and FSK baseband
@@ -15,6 +16,12 @@ receive block ``_rx_stream_block``).
   next window, the power-series overlap of the per-burst rssi, and
   absolute-position dedup of bursts found twice.  The front end is
   ``kernels.rx_front``.
+
+* ``make_closed_loop_stream`` runs many consecutive blocks of the whole
+  TX -> RF -> RX chain (``kernels.synth`` -> ``kernels.rx_front`` ->
+  trigger search -> capture -> decode) with all state on the device; on
+  a CUDA device the block body is captured once as a CUDA graph and
+  replayed, the counterpart of the JAX package's jitted ``lax.scan``.
 
 Reports are selected on the device (top ``max_reports`` deliverable
 slots, as the JAX package does) and fetched when the block is drained;
@@ -34,10 +41,13 @@ from amps_tpu_torch.config import SystemConfig
 from amps_tpu_torch.device import as_tensor, resolve_device
 from amps_tpu_torch.dsp import channelizer as chz
 from amps_tpu_torch.dsp.fm import fsk_manchester_baseband
+from amps_tpu_torch.kernels import rx_front as _k_rx_front
+from amps_tpu_torch.kernels import synth as _k_synth
 from amps_tpu_torch.kernels.rx_front import analyze_demod
 from amps_tpu_torch.kernels.synth import synthesize_block
 from amps_tpu_torch.parallel.pipeline import MultichannelSpec
 from amps_tpu_torch.rx import correlator, decoder
+from amps_tpu_torch.rx.voice import supervision_levels
 from amps_tpu_torch.tx.focc import FoccStream, focc_frame_bits
 from amps_tpu_torch.tx.recc_ms import CODED_DCC
 
@@ -102,6 +112,36 @@ def _rx_stream_block(x, hist, demod_carry, prev_iq, pw_carry,
     }
 
 
+def deliver_supervision_frames(dem, carry, spec: MultichannelSpec, slots,
+                               callback):
+    """The supervision frame discipline of a receiver: prepend the
+    previous block's sub-frame leftover, measure the whole 10 ms frames
+    (``rx.voice.supervision_levels`` on the demod divided by the FSK
+    sensitivity, so the tone amplitudes come out in the TX units that
+    SupervisionConfig's nominals are stated in) and call
+    ``callback(slot, levels (F, 5), power (F,))`` (numpy) per slot.
+    ``dem``: (S, n) float32 demod rows of the watched slots, new samples
+    only, a tensor or numpy; the measurement runs on a tensor's device.
+    ``carry``: (S, < frame) numpy.  Returns the new sub-frame carry
+    (numpy)."""
+    fs = float(spec.pipe.chan_rate)
+    frame = int(fs * 0.01)                                # 10 ms frames
+    dem = torch.as_tensor(dem)
+    dem = torch.cat([torch.as_tensor(np.asarray(carry, np.float32),
+                                     device=dem.device),
+                     dem.to(torch.float32)], dim=-1)
+    nf = dem.shape[-1] // frame
+    new_carry = dem[:, nf * frame:].cpu().numpy().copy()
+    if nf >= 1:
+        sens = 2.0 * np.pi * spec.pipe.deviation_hz / fs
+        lv, pw = supervision_levels(dem[:, : nf * frame] / sens, frame, fs)
+        lv, pw = lv.cpu().numpy(), pw.cpu().numpy()
+        if callback:
+            for i, slot in enumerate(slots):
+                callback(slot, lv[i], pw[i])
+    return new_carry
+
+
 def _compact_reports(planes, min_rssi: float, R: int, require_word_a: bool):
     """Device-side selection of the top-R candidate slots (deliverable
     first, then by trigger quality) and their report fields.
@@ -136,6 +176,201 @@ def _candidates(fields):
             f["starts"].astype(np.int64), f["quality"].astype(np.float32),
             f["rssi"].astype(np.float32), f["words"], f["ok"].astype(bool),
             f["bad"], f["dccs"])
+
+
+def closed_loop_geometry(spec: MultichannelSpec, frames: int):
+    """(n_hops, block_samples, carry_hops) of a closed-loop block of
+    ``frames`` FOCC frames: 463 bits x 2 Manchester symbols x sps hops a
+    frame; the carried demod overlap is a whole burst (trigger + capture)
+    or, when the block is shorter, the block."""
+    n_hops = frames * 463 * 2 * spec.chan_sps
+    ovr = (correlator.TRIGGER_SYMBOLS
+           + correlator.CAPTURE_SYMBOLS) * spec.chan_sps
+    return n_hops, n_hops * (spec.num_channels // 2), min(ovr, n_hops)
+
+
+def closed_loop_state0(spec: MultichannelSpec, frames: int, device) -> dict:
+    """The closed loop's zero state on ``device``: the synthesis carry
+    and the analyzer history (L-P, 2), the demod overlap (M, carry_hops)
+    and the discriminator's previous sample (M, 2)."""
+    M, T = spec.num_channels, spec.taps_per_phase
+    keep = M * T - M // 2
+    carry_hops = closed_loop_geometry(spec, frames)[2]
+    dev = resolve_device(device)
+    return {"syn_carry": torch.zeros((keep, 2), device=dev),
+            "hist": torch.zeros((keep, 2), device=dev),
+            "carry": torch.zeros((M, carry_hops), device=dev),
+            "prev": torch.zeros((M, 2), device=dev)}
+
+
+def closed_loop_block(Y, st: dict, spec: MultichannelSpec,
+                      max_bursts: int = 2, threshold: float = 0.55,
+                      synthesize: Callable = synthesize_block,
+                      front_end: Callable = analyze_demod):
+    """One block of the closed loop: Y (n_hops, M, 2) channel basebands
+    and the state ``st`` (``closed_loop_state0``) -> (new state, planes).
+    The forward band is synthesized, analyzed and demodulated again with
+    the previous sample carried, searched over the carried overlap plus
+    the new hops, captured, gated and decoded.  planes: starts, valid,
+    quality (M, K), words (M, K, 7, 36), word_ok (M, K, 7).  The hop
+    parity is 0 at every block, which needs an even hop count.  Nothing
+    here reads a tensor on the host, so the body can be captured as a
+    CUDA graph."""
+    M, T, sps = spec.num_channels, spec.taps_per_phase, spec.chan_sps
+    if Y.shape[0] % 2:
+        raise ValueError(f"closed-loop blocks need an even hop count, got "
+                         f"{Y.shape[0]}")
+    x, syn_tail = synthesize(Y, M, T, 0, st["syn_carry"])
+    x_ext = torch.cat([st["hist"], x], dim=0)
+    demod_new, last, _ = front_end(x_ext, M, T, 0, st["prev"])
+    demod = torch.cat([st["carry"], demod_new], dim=-1)
+    dsp = demod.to(torch.bfloat16) if spec.io_bf16 else demod
+    phases = correlator.symbol_phase_streams(dsp, sps)
+    starts, valid, quality = correlator.find_bursts_phases(
+        phases, sps, max_bursts, threshold, out_bf16=spec.corr_bf16)
+    valid = valid & (starts + correlator.CAPTURE_SYMBOLS * sps
+                     <= demod.shape[-1])
+    lead = correlator.TRIGGER_SYMBOLS if spec.max_trigger_errors >= 0 else 0
+    ext = correlator.extract_from_phases(
+        phases, starts, sps,
+        hard_dtype=torch.bfloat16 if spec.io_bf16 else torch.uint8,
+        lead=lead)
+    if spec.max_trigger_errors >= 0:
+        valid = correlator.apply_trigger_gate_soft(
+            valid, ext[2], spec.max_trigger_errors, starts, sps)
+    dec = decoder.decode_bursts(ext[0], repeat_gate=spec.decode_repeat_gate)
+    nc = st["carry"].shape[-1]
+    keep = M * T - M // 2
+    st2 = {"syn_carry": syn_tail,
+           "hist": x_ext[x_ext.shape[0] - keep:],
+           "carry": demod[:, demod.shape[-1] - nc:],
+           "prev": last}
+    return st2, {"starts": starts, "valid": valid, "quality": quality,
+                 "words": dec.words, "word_ok": dec.word_ok}
+
+
+def make_closed_loop_stream(spec: MultichannelSpec, nblocks: int,
+                            frames: int = 2, max_bursts: int = 2,
+                            threshold: float = 0.55, device=None,
+                            graph: bool = True,
+                            synthesize: Callable = synthesize_block,
+                            front_end: Callable = analyze_demod):
+    """The fused full-duplex closed loop: ``nblocks`` consecutive blocks
+    of ``frames`` FOCC frames through the whole TX -> RF -> RX chain
+    (``closed_loop_block``) with all carried state on the device and no
+    host work between blocks.
+
+    Returns (run, block_samples): ``run(word_pairs (M, frames, 2, 28))``
+    -> (n_valid, quality_max, n_word_ok), 0-d tensors on the loop's
+    device (the sum of ``valid``, the maximum of ``quality`` as float32
+    and the sum of ``word_ok`` over all blocks), which the caller
+    fetches.  Framing and FSK run once a call; every block synthesizes,
+    analyzes and decodes anew on the carried state.
+
+    ``device``: the current CUDA device unless named (without CUDA the
+    default raises; ``"cpu"`` runs the kernels' plain versions).  On a
+    CUDA device with ``graph=True`` the body of one block is captured
+    once per ``run`` closure as a CUDA graph, after a warm-up on a side
+    stream, and replayed ``nblocks`` times: state, Y and the three sums
+    live in static buffers and the new state is copied in place.
+    ``graph=False`` runs the same body eagerly, as the CPU always does.
+    A failed capture or replay raises; ``run`` never falls back to the
+    eager loop.  A replay launches the kernels without passing
+    through their wrappers, so ``run`` adds each replay's kernel
+    launches, as counted at capture, to the wrappers' ``LAUNCHES``.
+    ``synthesize`` and ``front_end`` are the two kernel wrappers; their
+    plain versions run the plain path on any device (to compare)."""
+    M = spec.num_channels
+    dev = resolve_device(device)
+    chz.check_fold(spec.fold)
+    n_hops, block_samples, _ = closed_loop_geometry(spec, frames)
+    # whole frames: the hop count of a block is even, so every block
+    # starts at hop parity 0
+    assert n_hops % 2 == 0
+    use_graph = graph and dev.type == "cuda"
+
+    def prep(word_pairs) -> torch.Tensor:
+        pairs = torch.as_tensor(np.asarray(word_pairs), device=dev)
+        if tuple(pairs.shape) != (M, frames, 2, 28):
+            raise ValueError(f"word_pairs must be ({M}, {frames}, 2, 28), "
+                             f"got {tuple(pairs.shape)}")
+        bb, _ = fsk_manchester_baseband(focc_frame_bits(pairs),
+                                        spec.chan_sps, spec.fm_sensitivity)
+        return bb.transpose(0, 1).contiguous()             # (n_hops, M, 2)
+
+    def sums0():
+        return (torch.zeros((), dtype=torch.int64, device=dev),
+                torch.full((), float("-inf"), device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+
+    def step(Y, st, sums, in_place: bool):
+        """One block; the state and the sums are updated in place (the
+        graph's static buffers) or returned anew."""
+        st2, pl = closed_loop_block(Y, st, spec, max_bursts, threshold,
+                                    synthesize, front_end)
+        nv = torch.sum(pl["valid"])
+        q = torch.max(pl["quality"].to(torch.float32))
+        wok = torch.sum(pl["word_ok"])
+        if not in_place:
+            return st2, (sums[0] + nv, torch.maximum(sums[1], q),
+                         sums[2] + wok)
+        for k, v in st2.items():
+            st[k].copy_(v)
+        sums[0].add_(nv)
+        sums[1].copy_(torch.maximum(sums[1], q))
+        sums[2].add_(wok)
+        return st, sums
+
+    static = {}
+
+    def capture():
+        """Static buffers, a warm-up on a side stream (the kernels'
+        build, the cached tables and cuBLAS's workspace then exist), and
+        the capture of one block."""
+        static["Y"] = torch.zeros((n_hops, M, 2), device=dev)
+        static["st"] = closed_loop_state0(spec, frames, dev)
+        static["sums"] = sums0()
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step(static["Y"], static["st"], static["sums"], True)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = (_k_synth.LAUNCHES, _k_rx_front.LAUNCHES)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            step(static["Y"], static["st"], static["sums"], True)
+        # capture launched nothing: what it counted is one replay's share
+        static["per_replay"] = (_k_synth.LAUNCHES - before[0],
+                                _k_rx_front.LAUNCHES - before[1])
+        _k_synth.LAUNCHES, _k_rx_front.LAUNCHES = before
+        static["graph"] = g
+
+    def run(word_pairs):
+        Y = prep(word_pairs)
+        if not use_graph:
+            st, sums = closed_loop_state0(spec, frames, dev), sums0()
+            for _ in range(nblocks):
+                st, sums = step(Y, st, sums, False)
+            return sums
+        with torch.cuda.device(dev):
+            if not static:
+                try:
+                    capture()
+                except BaseException:
+                    static.clear()
+                    raise
+            static["Y"].copy_(Y)
+            for v in static["st"].values():
+                v.zero_()
+            for v, v0 in zip(static["sums"], sums0()):
+                v.copy_(v0)
+            for _ in range(nblocks):
+                static["graph"].replay()
+                _k_synth.LAUNCHES += static["per_replay"][0]
+                _k_rx_front.LAUNCHES += static["per_replay"][1]
+        return tuple(v.clone() for v in static["sums"])
+
+    return run, block_samples
 
 
 @dataclasses.dataclass
@@ -183,8 +418,16 @@ class MultichannelReceiver:
     ``tap_demod_path``: append each block's raw (M, Nh) float32 demod
     to this file.  ``max_reports``: report slots fetched per block
     before the full planes are (``report_overflows`` counts those
-    blocks).  ``supervision_slots`` needs the voice receive path, which
-    is not ported yet: a non-empty tuple raises."""
+    blocks).
+
+    ``supervision_slots`` + ``on_supervision``: SAT/ST supervision of
+    the given bank slots on every block.  Their rows of the new demod
+    are gathered on the device; when the block is drained, after its
+    report fetch and before its burst callbacks, the whole 10 ms frames
+    are measured (``deliver_supervision_frames``) and the callback gets
+    (slot, levels (F, 5), power (F,)) per slot, ready for
+    ``BaseStation.push_supervision``.  The sub-frame leftover is carried,
+    so the frames are continuous across blocks."""
 
     def __init__(self, spec: MultichannelSpec,
                  on_burst: Optional[Callable[[BurstReport], None]] = None,
@@ -195,17 +438,11 @@ class MultichannelReceiver:
                  min_rssi: float = 0.0,
                  require_word_a: bool = True,
                  supervision_slots: tuple = (),
+                 on_supervision: Optional[Callable] = None,
                  max_reports: int = 64,
                  device=None,
                  front_end: Callable = analyze_demod):
-        if spec.fold != "bank":
-            raise NotImplementedError(
-                f"fold={spec.fold!r}: only the production fold 'bank' is "
-                "ported")
-        if supervision_slots:
-            raise NotImplementedError(
-                "supervision_slots needs rx/voice.py, which is not ported "
-                "yet (ROADMAP Queue 1, M5)")
+        chz.check_fold(spec.fold)
         self.spec = spec
         M, T = spec.num_channels, spec.taps_per_phase
         self.M, self.T = M, T
@@ -234,6 +471,18 @@ class MultichannelReceiver:
         self._last_seen = np.full(M, -10**12, np.int64)
         self.reports: List[BurstReport] = []
         self._tap = open(tap_demod_path, "ab") if tap_demod_path else None
+        self.supervision_slots = tuple(int(k) for k in supervision_slots)
+        if any(not 0 <= k < M for k in self.supervision_slots):
+            raise ValueError(f"supervision_slots {self.supervision_slots} "
+                             f"outside the bank's {M} slots")
+        self.on_supervision = on_supervision
+        self._sup_idx = torch.as_tensor(self.supervision_slots,
+                                        dtype=torch.int64, device=dev)
+        # demod samples short of a 10 ms frame, left from the previous
+        # block's measurement
+        self._sup_carry = (np.zeros((len(self.supervision_slots), 0),
+                                    np.float32)
+                           if self.supervision_slots else None)
         self.depth = max(1, pipeline_depth)
         self._inflight: List[dict] = []
         self._last_block_len = 0
@@ -280,6 +529,8 @@ class MultichannelReceiver:
                                   self.require_word_a),
             full=planes,
             demod=blk["demod_new"] if self._tap is not None else None,
+            sup_dem=(blk["demod_new"][self._sup_idx]
+                     if self.supervision_slots else None),
             abs_base=self._abs_base))
         nh = x.shape[0] // P
         self._parity = (self._parity + nh) % 2
@@ -332,6 +583,10 @@ class MultichannelReceiver:
         idx, cvalid, starts, quality, rssi_pb, words, ok, bad, dccs = cand
         if self._tap is not None and e["demod"] is not None:
             e["demod"].cpu().numpy().astype(np.float32).tofile(self._tap)
+        if e["sup_dem"] is not None:
+            self._sup_carry = deliver_supervision_frames(
+                e["sup_dem"], self._sup_carry, self.spec,
+                self.supervision_slots, self.on_supervision)
         out = []
         # ascending flat (c*K+k) index: the (c, k) order of the full planes
         for r in np.argsort(idx, kind="stable"):

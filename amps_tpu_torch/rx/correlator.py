@@ -1,6 +1,8 @@
-"""RECC burst detection, capture and gates on integrate-and-dump phase
-streams, the PyTorch port of ``amps_tpu.rx.correlator`` (the fused
-symbol-domain forms the receive block uses).
+"""RECC burst detection, capture and gates, the PyTorch port of
+``amps_tpu.rx.correlator``: the fused symbol-domain forms on
+integrate-and-dump phase streams that the receive block uses, and the
+sample-domain forms of the single-channel chain (``find_bursts``,
+``extract_burst_symbols``, ``find_and_extract``).
 
 Trigger search correlates the 74-symbol seizure trigger (26 dotting +
 11 word-sync bits, Manchester) against the sps symbol-rate phase
@@ -285,3 +287,95 @@ def burst_rssi_blocks(blk, starts, sps: int):
                           .reshape(batch + (-1,))).reshape(tgt.shape)
     picked = torch.where(inside, picked, torch.zeros((), device=blk.device))
     return torch.sqrt(torch.mean(picked, dim=-1))
+
+
+@functools.cache
+def _sample_ops(sps: int, O: int, device):
+    """Device copies of the sample-domain Toeplitz and energy operators
+    (O + L - 1, 2O) of ``_detection_kernels(sps, O)``."""
+    T, E = _detection_kernels(sps, O)[:2]
+    return (torch.as_tensor(T, device=device),
+            torch.as_tensor(E, device=device))
+
+
+def find_bursts(demod, sps: int, max_bursts: int = 4,
+                threshold: float = 0.6, corr_block: int = CORR_BLOCK):
+    """Locate up to ``max_bursts`` trigger hits in an FM-demod block at
+    the sample rate: demod (..., n) float32.  Returns (starts (..., K)
+    int32, the first capture sample, just past the trigger; valid
+    (..., K) bool; quality (..., K) float32, the smaller of the cosine
+    similarities of the whole trigger and of its word-sync tail).  Greedy
+    NMS masks a trigger length before and a trigger plus a capture after
+    each accepted peak."""
+    x = torch.as_tensor(demod).to(torch.float32)
+    _, _, L, _, tnorm, wsnorm = _detection_kernels(sps, corr_block)
+    O = corr_block
+    n = x.shape[-1]
+    no = n - L + 1
+    nblk = -(-no // O)
+    npad = (nblk - 1) * O + O + L - 1
+    if npad > n:
+        xp = torch.cat([x, x.new_zeros(x.shape[:-1] + (npad - n,))], -1)
+    else:
+        xp = x[..., :npad]
+    wins = xp.unfold(-1, O + L - 1, O)             # (..., nblk, O+L-1)
+    T, E = _sample_ops(sps, O, x.device)
+    out = wins @ T                                  # (..., nblk, 2*O)
+    een = (wins * wins) @ E
+
+    def unblk(a):
+        return a.reshape(x.shape[:-1] + (nblk * O,))[..., :no]
+
+    corr, ws_corr = unblk(out[..., :O]), unblk(out[..., O:])
+    energy, ws_energy = unblk(een[..., :O]), unblk(een[..., O:])
+    q_full = corr / (torch.sqrt(torch.clamp(energy, min=1e-9)) * tnorm)
+    q_ws = ws_corr / (torch.sqrt(torch.clamp(ws_energy, min=1e-9)) * wsnorm)
+    q = torch.minimum(q_full, q_ws)
+    pos = torch.arange(no, device=x.device)
+    neg_inf = torch.full((), float("-inf"), device=x.device)
+    idx_l, peaks_l = [], []
+    for _ in range(max_bursts):
+        idx = torch.argmax(q, dim=-1)
+        idx_l.append(idx)
+        peaks_l.append(torch.gather(q, -1, idx[..., None])[..., 0])
+        mask = ((pos > idx[..., None] - L)
+                & (pos < idx[..., None] + L + CAPTURE_SYMBOLS * sps))
+        q = torch.where(mask, neg_inf, q)
+    peaks = torch.stack(peaks_l, dim=-1)
+    starts = (torch.stack(idx_l, dim=-1) + L).to(torch.int32)
+    return starts, peaks >= threshold, peaks
+
+
+def extract_burst_symbols(demod, starts, sps: int):
+    """Integrate-and-dump capture: for each start (first capture sample)
+    CAPTURE_SYMBOLS Manchester symbols of sps samples each, read from the
+    phase stream of the start's own phase.  demod (..., n) float32,
+    starts (..., K).  Returns (hard (..., K, 3374) uint8, soft float32).
+    A capture that would run past the stream's end is moved back to end
+    with it (the JAX package's clamped slice), so pad the demod."""
+    phases = symbol_phase_streams(torch.as_tensor(demod).to(torch.float32),
+                                  sps)             # (..., sps, nsym)
+    nsym = phases.shape[-1]
+    if nsym < CAPTURE_SYMBOLS:
+        raise ValueError(f"demod holds {nsym} symbols, a capture needs "
+                         f"{CAPTURE_SYMBOLS}")
+    st = torch.as_tensor(starts, device=phases.device).to(torch.int64)
+    ph = torch.remainder(st, sps)
+    k0 = torch.clamp(torch.div(st, sps, rounding_mode="floor"), 0,
+                     nsym - CAPTURE_SYMBOLS)
+    sym = k0[..., None] + torch.arange(CAPTURE_SYMBOLS, device=phases.device)
+    batch = phases.shape[:-2]
+    flat = phases.reshape(batch + (sps * nsym,))
+    gidx = ph[..., None] * nsym + sym
+    soft = torch.gather(flat, -1, gidx.reshape(batch + (-1,))) \
+        .reshape(gidx.shape)
+    return _dc_slice(soft).to(torch.uint8), soft
+
+
+def find_and_extract(demod, sps: int, max_bursts: int = 4,
+                     threshold: float = 0.6):
+    """Detection and capture of one (possibly batched) demod block:
+    (starts, valid, quality, hard, soft)."""
+    starts, valid, quality = find_bursts(demod, sps, max_bursts, threshold)
+    hard, soft = extract_burst_symbols(demod, starts, sps)
+    return starts, valid, quality, hard, soft

@@ -76,10 +76,35 @@ def test_analyze_continues_jax_state(planar_in):
 
 
 def test_analyze_rejects_other_folds():
+    """Every fold name of the JAX package is taken (below); any other
+    name raises."""
     spec = tchz.ChannelizerSpec(16, 4)
-    with pytest.raises(NotImplementedError):
-        tchz.analyze(torch.zeros(64, 2), spec, tchz.analyzer_init(spec, device="cpu"),
-                     fold="conv")
+    assert tchz.FOLDS == ("conv", "shift", "bank", "bank2", "bankp")
+    with pytest.raises(ValueError, match="unknown fold"):
+        tchz.analyze(torch.zeros(64, 2), spec,
+                     tchz.analyzer_init(spec, device="cpu"), fold="fft")
+
+
+@pytest.mark.parametrize("fold", ["conv", "shift", "bank", "bank2", "bankp"])
+def test_analyze_every_fold_matches_jax(fold):
+    """Each fold name against the JAX analysis run with that fold, two
+    streamed blocks (the second at odd parity), at the bank fold's
+    tolerance: the folds are one sum in different f32 orders."""
+    M, T = 16, 8
+    P = M // 2
+    rng = np.random.default_rng(5)
+    blocks = [rng.normal(0, 0.5, (n * P, 2)).astype(np.float32)
+              for n in (75, 40)]
+    jspec, tspec = jchz.ChannelizerSpec(M, T), tchz.ChannelizerSpec(M, T)
+    jst = jchz.analyzer_init(jspec)
+    tst = tchz.analyzer_init(tspec, device="cpu")
+    for x in blocks:
+        want, jst = jchz.analyze(jnp.asarray(x), jspec, jst, chmajor=True,
+                                 fold=fold, planar=True)
+        got, tst = tchz.analyze(torch.as_tensor(x), tspec, tst, fold=fold,
+                                planar=True)
+        assert np.abs(got.numpy() - np.asarray(want)).max() < ATOL
+    assert tst.hop_idx == jst.hop_idx == 115
 
 
 @pytest.mark.parametrize("M,split", [(32, 0), (32, 8), (64, 0)])

@@ -454,3 +454,276 @@ def test_tx_block_on_card_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     assert K4.LAUNCHES == before + 1
     assert (got.cpu() - want).abs().max().item() <= 2e-4
+
+
+# ---- the small banks (M = 8, 16, 32) -----------------------------------
+
+SMALL = [(8, 4, 0, False), (8, 8, 1, True), (16, 8, 0, True),
+         (16, 4, 1, False), (32, 8, 1, False), (32, 4, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T,parity,planar", SMALL)
+def test_small_width_analysis_kernel(cuda_device, M, T, parity, planar):
+    """K1 at the small banks, both parities, T = 4 and 8, riq and planar
+    in and out, the bound of the wide widths (2e-4 on unit-amplitude
+    channels); two chained calls (an odd first block) equal one bit for
+    bit."""
+    Nh, N1 = 1001, 333
+    P = M // 2
+    x = unit_channel_band(M, T, Nh, M + T, cuda_device)
+    cut = (lambda a, lo, hi: a[lo:hi].contiguous())
+    if planar:
+        x = x.t().contiguous()
+        cut = (lambda a, lo, hi: a[:, lo:hi].contiguous())
+    before = KA.LAUNCHES
+    y = KA.analyze_block(x, M, T, parity, planar, planar)
+    torch.cuda.synchronize()
+    assert KA.LAUNCHES == before + 1
+    ry = KA.analyze_reference(x, M, T, parity, planar, planar)
+    assert y.shape == ry.shape == ((2, M, Nh) if planar else (M, Nh, 2))
+    assert (y - ry).abs().max().item() <= 2e-4
+    ya = KA.analyze_block(cut(x, 0, (N1 + 2 * T - 1) * P), M, T, parity,
+                          planar, planar)
+    yb = KA.analyze_block(cut(x, N1 * P, None), M, T, parity + N1, planar,
+                          planar)
+    assert torch.equal(torch.cat([ya, yb], -1 if planar else 1), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T,parity,planar", SMALL)
+def test_small_width_rx_front_kernel(cuda_device, M, T, parity, planar):
+    """K2 at the small banks against its plain version (the wide widths'
+    bounds), and chained = one."""
+    Nh, N1 = 1001, 333
+    P = M // 2
+    x = torch.as_tensor(_x_ext(M, T, Nh, seed=M + T), device=cuda_device)
+    cut = (lambda a, lo, hi: a[lo:hi].contiguous())
+    if planar:
+        x = x.t().contiguous()
+        cut = (lambda a, lo, hi: a[:, lo:hi].contiguous())
+    prev = torch.randn((M, 2), device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(M))
+    d, last, pw = K2.analyze_demod(x, M, T, parity, prev)
+    rd, rlast, rpw = K2.analyze_demod_reference(x, M, T, parity, prev)
+    err = (d - rd).abs()
+    assert (err > 1e-3).sum().item() <= int(BRANCH_CUT_FRACTION * err.numel())
+    blk, rblk = (window_power_blocks([p]) for p in (pw, rpw))
+    assert ((blk - rblk).abs() / rblk).max().item() <= 1e-4
+    assert ((last - rlast).abs().max() / rlast.pow(2).mean().sqrt()).item() \
+        <= 1e-4
+    da, la, pa = K2.analyze_demod(cut(x, 0, (N1 + 2 * T - 1) * P), M, T,
+                                  parity, prev)
+    db, lb, pb = K2.analyze_demod(cut(x, N1 * P, None), M, T, parity + N1, la)
+    assert torch.equal(torch.cat([da, db], 1), d)
+    assert torch.equal(torch.cat([pa, pb], 1), pw)
+    assert torch.equal(lb, last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T,parity,planar", SMALL)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_small_width_rx_phases_kernel(cuda_device, M, T, parity, planar,
+                                      bf16):
+    """K3 at the small banks against its plain version (the wide widths'
+    bounds); a ragged hop count, one hop past whole runs of 27."""
+    Nh = 27 * 40 + 1
+    x = torch.as_tensor(_x_ext(M, T, Nh, seed=M + T + 1), device=cuda_device)
+    if planar:
+        x = x.t().contiguous()
+    dt = torch.bfloat16 if bf16 else torch.float32
+    ph, cp, pw = K.analyze_phases(x, M, T, 3, parity, dt)
+    rph, rcp, rpw = K.analyze_phases_reference(x, M, T, 3, parity, dt)
+    assert ph.shape == rph.shape == (M, 3, (Nh - 2) // 3) and ph.dtype == dt
+    err = (ph.float() - rph.float()).abs()
+    assert (err > (0.02 if bf16 else 1e-3)).sum().item() \
+        <= int(BRANCH_CUT_FRACTION * err.numel())
+    torch.testing.assert_close(pw, rpw, rtol=1e-4, atol=0)
+    torch.testing.assert_close(cp, rcp, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T,parity", [(m, t, p) for m, t, p, _ in SMALL])
+def test_small_width_synth_kernel(cuda_device, M, T, parity):
+    """K4 at the small banks against its plain version, with a carry in
+    (1e-4 of the output RMS, the wide widths' bound); chained = one
+    within the same bound."""
+    Nh, N1 = 1000, 333
+    g = torch.Generator(cuda_device).manual_seed(M + T)
+    Y = torch.randn((Nh, M, 2), device=cuda_device, generator=g)
+    carry = torch.randn((M * T - M // 2, 2), device=cuda_device, generator=g)
+    x, c = K4.synthesize_block(Y, M, T, parity, carry)
+    rx, rc = K4.synthesize_block_reference(Y, M, T, parity, carry)
+    rms = rx.pow(2).mean().sqrt()
+    assert ((x - rx).abs().max() / rms).item() <= 1e-4
+    assert ((c - rc).abs().max() / rms).item() <= 1e-4
+    xa, ca = K4.synthesize_block(Y[:N1].contiguous(), M, T, parity, carry)
+    xb, cb = K4.synthesize_block(Y[N1:].contiguous(), M, T, parity + N1, ca)
+    assert ((torch.cat([xa, xb]) - x).abs().max() / rms).item() <= 1e-4
+    assert ((cb - c).abs().max() / rms).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_widths_not_a_power_of_two_still_raise(cuda_device):
+    for M in (12, 24, 48, 4096):
+        x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
+        with pytest.raises(ValueError, match="power of two"):
+            KA.analyze_block(x, M, 8)
+        with pytest.raises(ValueError, match="power of two"):
+            K.analyze_phases(x, M, 8)
+
+
+# ---- the batched block, the closed loop, supervision -------------------
+
+@pytest.mark.cuda
+def test_rx_phases_band_axis_equals_one_launch_a_band(cuda_device):
+    """G bands in one launch (the band as the grid's second axis) equal G
+    launches bit for bit, and count as one launch."""
+    M, T, Nh, G = 128, 8, 1000, 5
+    x = torch.stack([torch.as_tensor(_x_ext(M, T, Nh, seed=g),
+                                     device=cuda_device) for g in range(G)])
+    before = K.LAUNCHES
+    ph, cp, pw = K.analyze_phases(x, M, T, 3, 0, torch.bfloat16)
+    assert K.LAUNCHES == before + 1
+    assert ph.shape[:2] == (G, M) and cp.shape == (G, M)
+    for g in range(G):
+        a = K.analyze_phases(x[g], M, T, 3, 0, torch.bfloat16)
+        for u, v in zip((ph[g], cp[g], pw[g]), a):
+            assert torch.equal(u, v)
+    with pytest.raises(ValueError):
+        K.analyze_phases(x.transpose(0, 1), M, T, 3)     # not contiguous
+
+
+@pytest.mark.cuda
+def test_batched_block_on_card_at_16_channels(cuda_device):
+    """tests/test_rx.py's batched scenario on the card: M=16, G=3, one
+    burst a band; the batched block (one K3 launch) equals the single-band
+    block on each band and the CPU's plain path on valid slots."""
+    M, G, total_hops = 16, 3, 12500
+    spec = pl.MultichannelSpec(num_channels=M, taps_per_phase=8)
+    rng = np.random.default_rng(16)
+    events = [BurstEvent(c, h, rng.integers(0, 2, (3, 36)).astype(np.uint8))
+              for c, h in ((2, 300), (9, 900), (15, 1500))]
+    xs = torch.stack([synthesize_reverse_band([ev], spec, total_hops,
+                                              noise_sigma=0.001)
+                      for ev in events])
+    assert xs.device == cuda_device
+    before = K.LAUNCHES
+    got = pl.rx_multichannel_block_batched(xs, spec, max_bursts=2)
+    assert K.LAUNCHES == before + 1
+    want = pl.rx_multichannel_block_batched(xs.cpu(), spec, max_bursts=2)
+    for g, ev in enumerate(events):
+        one = pl.rx_multichannel_block(xs[g], spec, max_bursts=2)
+        for k in one:
+            assert torch.equal(got[k][g], one[k]), (g, k)
+        valid = want["valid"][g]
+        assert int(valid.sum()) == 1 and valid[ev.channel, 0]
+        assert torch.equal(got["valid"][g].cpu(), valid)
+        for k in ("starts", "words", "word_ok", "dcc_bits"):
+            assert torch.equal(got[k][g].cpu()[valid], want[k][g][valid]), k
+        assert torch.equal(got["words"][g, ev.channel, 0, :3].cpu(),
+                           torch.as_tensor(ev.words))
+
+
+def _loop_pairs(M, frames=2):
+    """The steady-state FOCC superframe's first frames on every channel
+    (a forward control channel must not trigger the reverse detector)."""
+    from amps_tpu_torch.tx.focc import superframe_word_pairs
+    return np.broadcast_to(superframe_word_pairs()[:frames],
+                           (M, frames, 2, 28)).copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nblocks", [3, 4])
+def test_closed_loop_graph_equals_eager(cuda_device, nblocks):
+    """M=64: the loop under a CUDA graph (one block a replay) and the
+    eager loop launch the same kernels in the same order on the same data,
+    so the three sums are bit-identical; K4 and K2 count one launch a block
+    either way (a replay's launches are added by ``run``), plus the one
+    warm-up block before the capture in a closure's first run; a second
+    run replays without a new capture."""
+    from amps_tpu_torch.runtime.streamer import make_closed_loop_stream
+    spec = pl.MultichannelSpec(num_channels=64, taps_per_phase=8,
+                               io_bf16=True, corr_bf16=True)
+    wp = _loop_pairs(64)
+    eager, bs = make_closed_loop_stream(spec, nblocks, graph=False)
+    graphed, bs2 = make_closed_loop_stream(spec, nblocks)
+    assert bs == bs2 == 5556 * 32
+    b4, b2 = K4.LAUNCHES, K2.LAUNCHES
+    want = eager(wp)
+    assert (K4.LAUNCHES - b4, K2.LAUNCHES - b2) == (nblocks, nblocks)
+    for warm_up in (1, 0):
+        b4, b2 = K4.LAUNCHES, K2.LAUNCHES
+        got = graphed(wp)
+        torch.cuda.synchronize()
+        assert (K4.LAUNCHES - b4, K2.LAUNCHES - b2) \
+            == (nblocks + warm_up, nblocks + warm_up)
+        assert all(a.device == cuda_device and a.ndim == 0 for a in got)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[0]) == 0 and 0.2 < float(got[1]) < 0.55
+
+
+@pytest.mark.cuda
+def test_closed_loop_capture_failure_raises(cuda_device):
+    """A body that reads a tensor on the host cannot be captured: run
+    raises, and does not go eager by itself."""
+    from amps_tpu_torch.runtime.streamer import make_closed_loop_stream
+    spec = pl.MultichannelSpec(num_channels=64, taps_per_phase=8)
+    calls = []
+
+    def front_end(x_ext, M, T, parity, prev):
+        out = K2.analyze_demod(x_ext, M, T, parity, prev)
+        if calls:                 # the warm-up passes, the capture does not
+            out[0].sum().item()
+        calls.append(1)
+        return out
+
+    run, _ = make_closed_loop_stream(spec, 2, front_end=front_end)
+    with pytest.raises(RuntimeError):
+        run(_loop_pairs(64))
+    torch.cuda.synchronize()
+    assert len(calls) == 1
+    # the device and a fresh closure are fine afterwards
+    ok, _ = make_closed_loop_stream(spec, 2)
+    assert int(ok(_loop_pairs(64))[0]) == 0
+
+
+@pytest.mark.cuda
+def test_supervision_slots_on_card_match_cpu(cuda_device):
+    """A receiver with two supervision slots on the card (rows gathered
+    there, K2 front end) delivers the frames the CPU receiver delivers:
+    same slots in the same order, the voice slot's levels within 2e-3
+    (f32 transform orders; the idle slot demodulates roundoff, which no
+    two orders share), SAT near its transmitted 0.05 on the voice slot."""
+    from amps_tpu_torch.tx.voice import voice_channel_baseband
+    M, hops = 64, 3 * 4096
+    spec = pl.MultichannelSpec(num_channels=M, taps_per_phase=8)
+    audio = np.zeros(hops * 16000 // 60000 + 8, np.float32)
+    bb, _ = voice_channel_baseband(audio, sat=True)
+    Y = torch.zeros((hops, M, 2), device=cuda_device)
+    Y[:, 5] = bb[:hops]
+    x, _ = chz.synthesize(Y, spec.chz_spec,
+                          chz.synthesizer_init(spec.chz_spec))
+    n = 4096 * M // 2
+
+    def run(device):
+        calls = []
+        rx = MultichannelReceiver(
+            spec, supervision_slots=(5, 9), device=device,
+            on_supervision=lambda s, lv, pw: calls.append((s, lv, pw)))
+        for i in range(3):
+            rx.push(x[i * n: (i + 1) * n].to(device))
+        return calls
+
+    want = run("cpu")
+    before = K2.LAUNCHES
+    got = run(cuda_device)
+    assert K2.LAUNCHES - before == 3
+    assert [c[0] for c in got] == [c[0] for c in want] == [5, 9] * 3
+    for (slot, lv, pw), (_, wlv, wpw) in zip(got, want):
+        assert lv.shape == wlv.shape and lv.shape[1] == 5
+        assert pw.shape == wpw.shape == lv.shape[:1]
+        if slot == 5:
+            assert np.abs(lv - wlv).max() <= 2e-3
+    sat = np.concatenate([lv[:, 1] for s, lv, _ in got if s == 5])[12:]
+    assert np.abs(sat - 0.05).max() < 0.01

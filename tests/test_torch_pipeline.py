@@ -129,5 +129,40 @@ def test_rx_block_planar_input_is_identical():
 
 
 def test_rx_block_rejects_other_folds():
-    with pytest.raises(NotImplementedError):
-        trx(torch.zeros((32 * 16, 2)), TSpec(num_channels=32))
+    """Every fold name of the JAX package is taken (below); any other
+    name raises."""
+    with pytest.raises(ValueError, match="unknown fold"):
+        trx(torch.zeros((32 * 16, 2)), TSpec(num_channels=32, fold="fft"))
+
+
+@pytest.mark.parametrize("fold", [None, "conv", "shift", "bank", "bank2",
+                                  "bankp"])
+def test_rx_block_every_fold_matches_jax(fold):
+    """The default spec (fold None here: the dataclass default, "conv")
+    and every fold name, against the JAX block run with that same fold,
+    at the tolerances the bank fold meets above: the folds differ only
+    in f32 summation order, and the port computes the bank fold for
+    all."""
+    M = 32
+    x, events = _traffic(M)
+    kw = dict(num_channels=M, taps_per_phase=8)
+    if fold is not None:
+        kw["fold"] = fold
+    jspec, tspec = JSpec(**kw), TSpec(**kw)
+    assert tspec.fold == jspec.fold == (fold or "conv")
+    want = jax.device_get(jrx(jnp.asarray(x), jspec, max_bursts=2,
+                              threshold=0.55))
+    got = {k: v.numpy() for k, v in
+           trx(torch.as_tensor(x), tspec, max_bursts=2).items()}
+    valid = np.asarray(want["valid"])
+    assert valid.sum() == len(events)
+    for k in EXACT_KEYS:
+        assert np.array_equal(got[k], np.asarray(want[k])), k
+    for k in VALID_SLOT_KEYS:
+        assert np.array_equal(got[k][valid], np.asarray(want[k])[valid]), k
+    np.testing.assert_allclose(got["quality"][valid],
+                               np.asarray(want["quality"])[valid], atol=1e-4)
+    np.testing.assert_allclose(got["rssi"][valid],
+                               np.asarray(want["rssi"])[valid], rtol=1e-4)
+    np.testing.assert_allclose(got["chan_power"],
+                               np.asarray(want["chan_power"]), rtol=1e-4)

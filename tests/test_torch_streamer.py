@@ -319,14 +319,35 @@ def test_front_end_argument_runs_every_push():
     assert len(got) == len(events)
 
 
-def test_supervision_slots_raise():
-    with pytest.raises(NotImplementedError, match="M5"):
-        TRx(_specs()[1], supervision_slots=(1, 2))
-
-
 def test_receiver_rejects_other_folds():
-    with pytest.raises(NotImplementedError):
-        TRx(dataclasses.replace(_specs()[1], fold="conv"))
+    """Every fold name of the JAX package is taken (below); any other
+    name raises."""
+    with pytest.raises(ValueError, match="unknown fold"):
+        TRx(dataclasses.replace(_specs()[1], fold="fft"), device="cpu")
+
+
+@pytest.mark.parametrize("fold", [None, "conv", "shift", "bank", "bank2",
+                                  "bankp"])
+def test_receiver_every_fold_matches_jax(fold):
+    """The default spec (fold None here: the dataclass default, "conv")
+    and every fold name through push + flush, against the JAX receiver
+    built with that same fold, at the bank fold's tolerances: two bursts,
+    one cut by the push boundary and found in the next window."""
+    kw = dict(num_channels=8, taps_per_phase=8)
+    if fold is not None:
+        kw["fold"] = fold
+    jspec, tspec = JSpec(**kw), TSpec(**kw)
+    assert tspec.fold == jspec.fold == (fold or "conv")
+    wa = recc_ms.page_response_words("5551234567")
+    wb = recc_ms.registration_words("2135551212", esn=0xBEEF)
+    x = _reverse_band({2: (2000, recc_ms.burst_symbols(wa, 0, 3), 1.0),
+                       5: (9000, recc_ms.burst_symbols(wb, 0, 3), 1.0)},
+                      3 * 8192)
+    blocks = [x[i * 8192 * 4: (i + 1) * 8192 * 4] for i in range(3)]
+    want = _run(JRx(jspec, threshold=0.5), blocks)
+    got = _run(TRx(tspec, device="cpu", threshold=0.5), blocks)
+    assert sorted(r.channel for r in got) == [2, 5]
+    _assert_same_reports(got, want)
 
 
 def test_decode_dcc_matches_jax():

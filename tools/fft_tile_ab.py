@@ -100,7 +100,7 @@ def build_all(tmp: pathlib.Path):
     argtypes = {"analysis": [p, i, ll, p, p, p, i, i, i, i, i, p],
                 "rx_front": [p, i, ll, p, p, p, p, p, p, i, i, i, i, p],
                 "rx_phases": [p, i, ll, p, p, p, i, p, p, i, i, i, i, i,
-                              i, i, p],
+                              i, i, i, p],
                 "synth": [p, p, p, p, p, p, i, i, i, i, p]}
     libs = {}
     for name, (d, kernels, proc) in procs.items():
@@ -189,7 +189,7 @@ def main() -> int:
             lambda lib, ph, part, blk: lib.rx_phases_launch(
                 x.data_ptr(), 0, x.shape[0], coef.data_ptr(), tw.data_ptr(),
                 ph.data_ptr(), 1, part.data_ptr(), blk.data_ptr(), M, T, sps,
-                Nh, nsym, 0, nrun, stream),
+                Nh, nsym, 0, nrun, 1, stream),
             lambda: (torch.empty((M, sps, nsym), dtype=torch.bfloat16,
                                  device=dev),
                      torch.empty((M, nrun, 2), device=dev),
