@@ -4,17 +4,17 @@ The JAX package ``amps_tpu`` stays the reference; this package keeps its
 module paths and function names so each counterpart is easy to find, and
 never imports ``jax`` or ``amps_tpu``.
 
-Slices ported so far:
-
-* the single-device receive block
-  ``parallel.pipeline.rx_multichannel_block`` (analysis bank -> FM
-  discriminator -> integrate-and-dump -> trigger search -> capture ->
-  BCH decode), stages 1-3 in ``kernels/rx_phases.py``;
-* the station's streaming duplex, ``runtime.streamer``:
-  ``MultichannelReceiver`` with its front end in ``kernels/rx_front.py``
-  and ``MultichannelTransmitter`` with its synthesis bank in
-  ``kernels/synth.py``, plus checkpoints (``runtime.state``) and
-  elastic recovery (``runtime.resilient``).
+Ported so far (ROADMAP M0-M6): the single-device receive block
+(``parallel.pipeline``, stages 1-3 in ``kernels/rx_phases.py``) and its
+batched form; the station's streaming duplex (``runtime.streamer``:
+``MultichannelReceiver``, front end ``kernels/rx_front.py``;
+``MultichannelTransmitter``, synthesis ``kernels/synth.py``; the fused
+closed loop), checkpoints and elastic recovery; the control plane, the
+voice channel and the mobile simulator (its ear ``kernels/analysis.py``);
+and the station as operators run it: ``apps`` (``python -m
+amps_tpu_torch bs|monitor|demo``), the threaded executor, the command
+server, SDR and native ring I/O, and the traffic and link-quality
+harnesses (``eval``).
 
 Each kernel wrapper launches a hand-written CUDA kernel (``csrc/``) on
 CUDA tensors and runs its plain PyTorch version on CPU tensors.

@@ -1,5 +1,5 @@
-"""Host control plane: call control and command processing (the TCP
-server of ``amps_tpu.control.server`` is not ported yet).
+"""Host control plane: call control, command processing and the
+operator's TCP command server (``control.server``).
 
 The reference's PMT message-port topology (SURVEY.md §3.2) becomes
 explicit host-side wiring: the RECC decoder output feeds

@@ -15,7 +15,6 @@ replace filler slots of the next superframe's (F, 2, 28) word array.
 from __future__ import annotations
 
 import collections
-import logging
 import threading
 from typing import Iterable, List, Optional
 
@@ -26,6 +25,7 @@ from amps_tpu_torch.codec import words as W
 from amps_tpu_torch.codec.bch import focc_bch_encode
 from amps_tpu_torch.codec.manchester import manchester_encode_symbols
 from amps_tpu_torch.config import SystemConfig
+from amps_tpu_torch.utils.logging import log_warning
 
 DOTTING = np.array([1, 0, 1, 0, 1, 0, 1, 0, 1, 0], dtype=np.uint8)
 WORD_SYNC = np.array([1, 1, 1, 0, 0, 0, 1, 0, 0, 1, 0], dtype=np.uint8)
@@ -126,8 +126,8 @@ def symbols_from_bitfile(path: str, sps: int = 1) -> np.ndarray:
                     np.where((raw == 0) | (raw == ord("0")), 0, -1))
     invalid = int(np.sum(bits < 0))
     if invalid:
-        logging.getLogger(__name__).warning(
-            "symbols_from_bitfile: %d invalid bytes skipped", invalid)
+        log_warning("symbols_from_bitfile: %d invalid bytes skipped",
+                    invalid)
     bits = bits[bits >= 0].astype(np.uint8)
     return manchester_encode_symbols(torch.as_tensor(bits), sps).numpy()
 

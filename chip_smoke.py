@@ -9,11 +9,15 @@ through MultichannelReceiver --, a whole call over channelized RF
 analysis kernel, its RECC bursts through the receiver), the fused TX->RX
 closed loop under a CUDA graph (synth + rx_front once a block), the
 batched small-bank block (rx_phases with a band axis), the
-single-channel TX and RX chains and the receiver's voice supervision;
-and times kernels and paths against their plain versions, their bounds
-and a cuFFT yardstick, with profiler windows of one one-shot block, one
-receiver push, one transmitter superframe, one superframe of the ear and
-one run of the closed loop.
+single-channel TX and RX chains and the receiver's voice supervision,
+and the station as operators run it -- the BS-in-a-box app through the
+CLI (synth on its TX thread, rx_front on its RX thread), the executor
+over the native ring, the link-quality curve, the capture monitor and
+the demo; and times kernels and paths against their plain versions,
+their bounds and a cuFFT yardstick, with profiler windows of one
+one-shot block, one receiver push, one transmitter superframe, one
+superframe of the ear, one run of the closed loop and one run of the
+app.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -584,9 +588,11 @@ def phase_times(dev, M, T, card, n_timed=10):
     return out
 
 
-def profile_window(label, fn, dev, top=6):
+def profile_window(label, fn, dev, top=6, all_threads=False):
     """One call of ``fn`` under torch.profiler after a warm-up: device
-    busy time (the union of the card's kernel and copy spans), the host
+    busy time (the union of the card's kernel and copy spans), the traced
+    sections (``utils.profiling.trace`` ranges; of every thread when
+    ``all_threads``, through the profiler's experimental config), the host
     wall time of the same call without the profiler (median of 3; the
     profiler's own host cost would inflate it), the idle share between
     them, and the top device ops by total time.  Returns (busy ms, wall
@@ -601,8 +607,13 @@ def profile_window(label, fn, dev, top=6):
         sync(dev)
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = float(np.median(walls[1:]))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity is recorded from every thread in any case; other
+    # threads' record_function ranges (the app's TX and RX threads) only
+    # under this config
+    config = (torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+              if all_threads else None)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=config) as prof:
         # the first launch after the profiler starts may go unrecorded (a
         # window that opens on a hand-written kernel lost its span in some
         # runs): spend it on a fill, and count what starts in the window
@@ -615,9 +626,17 @@ def profile_window(label, fn, dev, top=6):
         wall_prof = (time.perf_counter() - t0) * 1e3
     t_win = min(e.time_range.start for e in prof.events()
                 if e.name == "profile_window")
+    # a record_function range (profile_window's own, the port's
+    # utils.profiling.trace sections) is not device work
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and e.time_range.start >= t_win and e.name != "profile_window"]
+          and e.time_range.start >= t_win and e.name != "profile_window"
+          and not e.is_user_annotation]
     assert ev, f"{label}: the profiler saw no device activity"
+    ranges = {}
+    for e in prof.events():
+        if e.is_user_annotation and e.device_type == DeviceType.CPU and \
+                e.name != "profile_window":
+            ranges[e.name] = ranges.get(e.name, 0) + 1
     busy, end, by_name = 0.0, -math.inf, {}
     for a, b, name in sorted((e.time_range.start, e.time_range.end, e.name)
                              for e in ev):
@@ -629,6 +648,9 @@ def profile_window(label, fn, dev, top=6):
     log(f"  profile, {label}: device busy {busy:.3f} ms in {len(ev)} device "
         f"ops, host wall {wall:.3f} ms ({wall_prof:.3f} under the "
         f"profiler), idle share {1 - busy / wall:.1%}")
+    if ranges:
+        log("    traced sections: " + ", ".join(
+            f"{k} {n}x" for k, n in sorted(ranges.items())))
     for name, (us, calls) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:top]:
         log(f"    {us / 1e3:8.3f} ms {us / 1e3 / busy:6.1%} {calls:5d}x  "
@@ -1624,6 +1646,279 @@ def phase_supervision(dev, M, T, push_hops=8192, n_push=6):
     return R.LAUNCHES
 
 
+STATION_ARGS = ["--superframes", "2", "--no-server",
+                "--voice-slot-map", "355:4,356:5",
+                "--simulate", "origination:5551234567:5551230000",
+                "--simulate", "registration:7735550000:0x77"]
+CROSSOVER_SNRS = [3.0, 1.5, 0.0]
+
+
+def quiet(fn):
+    """``fn`` with its standard output discarded (the app's per-block
+    lines under repeated runs)."""
+    import contextlib
+    import io
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+    return run
+
+
+def phase_station_app(dev, M, card, times):
+    """Phase 18: the station as operators run it, ``python -m
+    amps_tpu_torch bs`` in-process through the dispatcher at M: the
+    synthesis kernel on the TX thread, the front-end kernel on the RX
+    thread (with the voice slots' supervision rows), the control plane on
+    this thread.  Two simulated mobiles on slot 3.  Then the front-end
+    kernel against its plain version at the app's RX shape.  Returns the
+    kernels' launches in the run (synth, rx_front) and that comparison's
+    max abs demod error in bursts."""
+    from amps_tpu_torch.__main__ import main as cli
+    from amps_tpu_torch.eval.traffic import (MobileEvent,
+                                             synthesize_reverse_band)
+    from amps_tpu_torch.kernels import rx_front as R
+    from amps_tpu_torch.kernels import synth as S
+    from amps_tpu_torch.parallel import pipeline as pl
+    from amps_tpu_torch.tx import recc_ms
+    argv = ["bs", "--channels", str(M), *STATION_ARGS]
+    log(f"phase 18: the station app, python -m amps_tpu_torch "
+        f"{' '.join(argv)}, on {card}")
+    result = {}
+    S.LAUNCHES = R.LAUNCHES = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    cli(argv, _result=result)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = (S.LAUNCHES, R.LAUNCHES)
+    stats, st, reps = result["stats"], result["station"], result["reports"]
+    def key(words):                         # words A and B
+        return np.asarray(words[:2], np.uint8).tobytes()
+
+    want = {key(w): name for name, w in (
+        ("origination", recc_ms.origination_words("5551234567",
+                                                  "5551230000")),
+        ("registration", recc_ms.registration_words("7735550000",
+                                                    esn=0x77)))}
+    got = sorted(want.get(key(r.words), "other") for r in reps)
+    assert got == sorted(want.values()), got
+    assert all(r.channel == 3 and r.word_ok[:2].all() for r in reps)
+    kinds = [(e.kind, str(e.payload)) for e in st.events]
+    assert ("command", "page 5551230000") in kinds, kinds
+    i_reg = next(i for i, (k, p) in enumerate(kinds)
+                 if k == "debug" and "registration from MIN=7735550000" in p)
+    assert any(k == "focc_words" for k, _ in kinds[i_reg:]), kinds
+    n_sf = 18 * 463 * 2 * 3
+    assert stats.tx_samples == 2 * n_sf * (M // 2), stats
+    assert launches[0] >= 2 and launches[1] >= stats.rx_blocks, launches
+    log(f"  2 bursts reported once each on slot 3, words A and B good; "
+        f"'page 5551230000' dispatched, the registration answered on the "
+        f"FOCC; launches synth {launches[0]}, rx_front {launches[1]} "
+        f"({stats.rx_blocks} RX blocks)")
+    # throughput over the synced wall of the whole call (the app's set-up
+    # included); the executor's own wall ends in join(), after the app's
+    # 50 ms poll of the threads
+    log(f"  wall {wall * 1e3:.1f} ms in-process, synced: TX "
+        f"{stats.tx_samples / wall / 1e6:.1f}, RX "
+        f"{stats.rx_samples / wall / 1e6:.1f} Msamples/s over it; executor "
+        f"threads {stats.wall_s * 1e3:.1f} ms (up to 50 ms of the app's "
+        f"poll in it), on {card}")
+    tx_ms = 1e3 * np.asarray(result["tx_block_s"])
+    rx_ms = 1e3 * np.asarray(result["rx_block_s"])
+    rx_n = stats.rx_samples // max(stats.rx_blocks, 1)
+    log(f"  TX thread, next_block per superframe: {np.round(tx_ms, 3).tolist()} "
+        f"ms (phase 9 alone, production spec: "
+        f"{times['next_block']['kernel']:.3f} ms)")
+    log(f"  RX thread, push per block of {rx_n} samples: "
+        f"{np.round(rx_ms, 3).tolist()} ms, "
+        f"{rx_n / np.median(rx_ms) / 1e3:.1f} Msamples/s (phase 9 alone, "
+        f"push of {RX_PUSH} samples at depth 1: {times['push']['kernel']:.3f}"
+        f" ms, {RX_PUSH / times['push']['kernel'] / 1e3:.1f} Msamples/s)")
+    profile_window("the station app, one run (2 superframes, 2 RX blocks)",
+                   quiet(lambda: cli(argv)), dev, all_threads=True)
+    # the front-end kernel at the shape the app hands it: one RX block
+    # (rx_n samples) after the bank's history, the app's spec, the
+    # simulated mobiles on slot 3 (where the app puts them) and on slot 5
+    # (a supervision row) beside phase 6's planted bursts
+    spec = pl.MultichannelSpec(num_channels=M)
+    T, P = spec.taps_per_phase, M // 2
+    Nh = rx_n // P
+    events = plant_events(M, 18) + [
+        MobileEvent.parse(STATION_ARGS[-3], channel=3, start_hop=1000),
+        MobileEvent.parse(STATION_ARGS[-1], channel=5, start_hop=4000)]
+    band = synthesize_reverse_band(events, spec, Nh, noise_sigma=BAND_SIGMA,
+                                   device=dev)
+    x_ext = torch.cat([torch.zeros(((2 * T - 1) * P, 2), device=dev),
+                       band]).contiguous()
+    err = compare_rx_front(R, x_ext, M, T,
+                           f"rx_front at the app's block, M={M} Nh={Nh}",
+                           events, dev)
+    return launches, err
+
+
+def phase_ring(dev, M, card, total_hops=32768, n_events=24):
+    """Phase 19: a reverse band of ``random_events`` from a writer thread
+    (the radio process) through ``RingIQSink`` into a native ring half
+    the band's size, drained by the executor into a receiver at M; each
+    event reported once, the FOCC responses under the station's capacity
+    rule.  Then a FileIQSink round trip of one CUDA-tensor superframe.
+    Returns the front-end kernel's launches on the ring run."""
+    import tempfile
+    import threading
+    from amps_tpu_torch.control.station import BaseStation
+    from amps_tpu_torch.eval.traffic import (random_events,
+                                             synthesize_reverse_band)
+    from amps_tpu_torch.kernels import rx_front as R
+    from amps_tpu_torch.parallel import pipeline as pl
+    from amps_tpu_torch.runtime.executor import ThreadedExecutor
+    from amps_tpu_torch.runtime.native_rt import Ring
+    from amps_tpu_torch.runtime.sdr import (FileIQSink, FileIQSource,
+                                            RingIQSink, RingIQSource,
+                                            source_reader)
+    from amps_tpu_torch.runtime.streamer import (MultichannelReceiver,
+                                                 MultichannelTransmitter)
+    spec = pl.MultichannelSpec(num_channels=M)
+    events = random_events(n_events, spec, total_hops, seed=7)
+    x = synthesize_reverse_band(events, spec, total_hops, noise_sigma=0.02,
+                                device=dev)
+    log(f"phase 19: {len(events)} random_events over {total_hops} hops at "
+        f"M={M} ({x.shape[0]} samples, {nbytes(x) / 2**20:.0f} MiB) through "
+        f"a 64 MiB native ring into the executor, on {card}")
+    st = BaseStation(sps=spec.chan_sps)
+    rx = MultichannelReceiver(
+        spec, on_burst=lambda r: st.handle_burst(r.words, r.word_ok),
+        threshold=0.6, max_bursts=6, min_rssi=0.05)
+    ring = Ring(1 << 26)
+    src = RingIQSource(ring, timeout_s=5.0)
+    errors = []
+
+    def radio():
+        try:
+            RingIQSink(ring).write(x)
+        except BaseException as e:
+            errors.append(e)
+        finally:
+            src.mark_eof()
+
+    R.LAUNCHES = 0
+    t0 = time.perf_counter()
+    writer = threading.Thread(target=radio)
+    writer.start()
+    stats = ThreadedExecutor(rx_source=source_reader(src, 1 << 22),
+                             rx_push=rx.push).start().join(timeout=300)
+    writer.join(60)
+    rx.flush()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = R.LAUNCHES
+    assert not errors and not writer.is_alive(), errors
+    assert stats.rx_samples == x.shape[0], (stats.rx_samples, x.shape)
+    reps = rx.reports
+    assert len(reps) == len(events), (len(reps), len(events))
+    assert all(r.word_ok[:2].all() for r in reps)
+
+    def event_of(r):                        # its channel, words A and B
+        ab = np.asarray(r.words[:2], np.uint8)
+        hits = [e for e in events if e.channel == r.channel and
+                np.array_equal(np.stack(e.words()[:2]).astype(np.uint8), ab)]
+        assert len(hits) == 1, (r.channel, len(hits))
+        return hits[0]
+
+    delivered = [event_of(r) for r in reps]
+    assert len({id(e) for e in delivered}) == len(events)
+    # the capacity rule of tests/test_traffic.py, in the order the
+    # station heard the bursts (a block delivers its reports by channel):
+    # a registration is answered (+1), a served page response +1, a
+    # served origination +2 (assignment + loopback page), an intercept
+    # origination +2 with no channel, one over capacity +0
+    free, expect = set(st._vc_plan), 0
+    for ev in delivered:
+        if ev.kind == "registration":
+            expect += 1
+        elif ev.kind == "page_response":
+            if free:
+                free.pop()
+                expect += 1
+        elif ev.dialed[:1] == "0":
+            expect += 2
+        elif free:
+            free.pop()
+            expect += 2
+    focc = sum(e.kind == "focc_words" for e in st.events)
+    assert focc == expect, (focc, expect)
+    log(f"  {len(reps)} reports, one per event on its channel with its "
+        f"words A and B; {focc} FOCC responses as the capacity rule says; "
+        f"{stats.rx_blocks} blocks in {wall * 1e3:.1f} ms "
+        f"({stats.rx_samples / wall / 1e6:.1f} Msamples/s through the ring "
+        f"and the receiver), rx_front launches {launches}")
+    del x
+    tx = MultichannelTransmitter(spec)
+    blk = tx.next_block()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/superframe.f32"
+        sink = FileIQSink(path)
+        t0 = time.perf_counter()
+        sink.write(blk)
+        sink.close()
+        t_write = time.perf_counter() - t0
+        back = FileIQSource(path).read(blk.shape[0] + 1)
+    assert np.array_equal(back, blk.cpu().numpy())
+    log(f"  FileIQSink of one CUDA-tensor superframe ({blk.shape[0]} "
+        f"samples, {nbytes(blk) / 1e6:.0f} MB): read back equal; write "
+        f"{t_write * 1e3:.1f} ms")
+    return launches
+
+
+def phase_entry_points(dev, card):
+    """Phase 20: the link-quality curve on the card at 128 trials a point
+    inside the pinned crossover bounds, the capture monitor's self-test
+    and the loopback demo, through the dispatcher."""
+    import contextlib
+    import io
+    import tempfile
+    from amps_tpu_torch.__main__ import main as cli
+    from amps_tpu_torch.eval.ber import recc_link_curve
+    log(f"phase 20: recc_link_curve at {CROSSOVER_SNRS} dB, 128 trials, "
+        f"seed 1; the monitor; the demo; on {card}")
+    sync(dev)
+    t0 = time.perf_counter()
+    first = recc_link_curve(CROSSOVER_SNRS, trials=128, seed=1)
+    maj = recc_link_curve(CROSSOVER_SNRS, trials=128, seed=1,
+                          policy="majority")
+    t_curve = time.perf_counter() - t0
+    for name, c in (("first_ok", first), ("majority", maj)):
+        log(f"  {name}: " + ", ".join(
+            f"{s:+.1f} dB detect {c[s]['detect_rate']:.3f} words "
+            f"{c[s]['word_success_rate']:.3f}" for s in CROSSOVER_SNRS))
+    d = [first[s]["detect_rate"] for s in CROSSOVER_SNRS]
+    assert d[0] >= 0.85 and 0.45 <= d[1] <= 0.85 and d[2] <= 0.30, d
+    assert all(d[i] - d[i + 1] < 0.65 for i in range(2)) and \
+        d[0] > d[1] > d[2], d
+    gain_mid = maj[1.5]["word_success_rate"] - first[1.5]["word_success_rate"]
+    gain_floor = (maj[0.0]["word_success_rate"]
+                  - first[0.0]["word_success_rate"])
+    assert gain_mid >= 0.05 and gain_floor <= gain_mid, (gain_mid,
+                                                         gain_floor)
+    assert maj[1.5].get("majority_vote_fraction", 0.0) >= 0.5
+    log(f"  inside the pinned crossover bounds; both curves "
+        f"{t_curve * 1e3:.1f} ms")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli(["monitor", "--synthesize", "page_response:5551234567",
+                      f"{tmp}/cap.f32"])
+    assert rc == 0 and "1 burst(s) decoded" in out.getvalue(), out.getvalue()
+    log("  monitor --synthesize page_response:5551234567: 1 burst decoded, "
+        "MIN 5551234567")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["demo"])
+    assert rc == 0, out.getvalue()
+    log("  demo: origination dispatched, assignment and repeated page "
+        "delivered")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU",
@@ -1820,6 +2115,11 @@ def main() -> int:
     phase_single_channel(dev)
     sup_launches = phase_supervision(dev, M, T)
 
+    # -- phases 18-20: the station as operators run it ----------------------
+    app_launches, app_front_err = phase_station_app(dev, M, card, times)
+    phase_ring(dev, M, card)
+    phase_entry_points(dev, card)
+
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
@@ -1862,7 +2162,9 @@ def main() -> int:
               rx_launches, front_err[1024], times["rx_front"],
               launches_by_path={"receiver": rx_launches,
                                 "closed_loop": loop["launches"][1],
-                                "supervision": sup_launches},
+                                "supervision": sup_launches,
+                                "station_app": app_launches[1]},
+              station_app_max_abs_err=app_front_err,
               loop_graph_spans=loop["rx_front_spans"],
               loop_max_abs_err=max(loop["rx_front_err"],
                                    loop_err["rx_front"]),
@@ -1873,7 +2175,8 @@ def main() -> int:
         entry("synth", "amps_tpu/pallas/synthesizer_kernel.py:128",
               tx_launches, synth_err[1024], times["synth_sf"],
               launches_by_path={"transmitter": tx_launches,
-                                "closed_loop": loop["launches"][0]},
+                                "closed_loop": loop["launches"][0],
+                                "station_app": app_launches[0]},
               loop_graph_spans=loop["synth_spans"],
               loop_max_abs_err=max(loop["synth_err"], loop_err["synth"]),
               loop_ms=loop["synth"], loop_in_graph_ms=loop["synth_dev"],

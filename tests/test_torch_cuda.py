@@ -727,3 +727,41 @@ def test_supervision_slots_on_card_match_cpu(cuda_device):
             assert np.abs(lv - wlv).max() <= 2e-3
     sat = np.concatenate([lv[:, 1] for s, lv, _ in got if s == 5])[12:]
     assert np.abs(sat - 0.05).max() < 0.01
+
+
+@pytest.mark.cuda
+def test_bs_app_on_card_launches_both_kernels(cuda_device):
+    """The BS-in-a-box app at M=64 on the card (its default device): the
+    TX thread runs the synthesis kernel, the RX thread the front-end
+    kernel, and the simulated origination is dispatched."""
+    from amps_tpu_torch.apps import bs_app
+    K4.LAUNCHES = K2.LAUNCHES = 0
+    result = {}
+    bs_app.main(["--channels", "64", "--superframes", "1", "--no-server",
+                 "--simulate", "origination:5551234567:5551230000"], result)
+    assert K4.LAUNCHES >= 1 and K2.LAUNCHES >= 1
+    assert [r.channel for r in result["reports"]] == [3]
+    assert any(e.kind == "command" and str(e.payload) == "page 5551230000"
+               for e in result["station"].events)
+    assert result["stats"].tx_samples == 50004 * 32
+
+
+@pytest.mark.cuda
+def test_file_sink_writes_cuda_tensor(cuda_device, tmp_path):
+    from amps_tpu_torch.runtime.sdr import FileIQSink, FileIQSource
+    x = torch.randn((1000, 2), device=cuda_device)
+    sink = FileIQSink(str(tmp_path / "iq.f32"))
+    sink.write(x)
+    sink.close()
+    got = FileIQSource(str(tmp_path / "iq.f32")).read(2000)
+    assert np.array_equal(got, x.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_link_curve_on_card(cuda_device):
+    from amps_tpu_torch.eval.ber import recc_link_curve
+    curve = recc_link_curve([20.0, 6.0, -14.0], trials=16)
+    assert curve[20.0]["detect_rate"] == 1.0
+    assert curve[20.0]["word_success_rate"] == 1.0
+    assert curve[6.0]["word_success_rate"] >= 0.9
+    assert curve[-14.0]["word_success_rate"] <= 0.25

@@ -274,3 +274,130 @@ def test_snapshot_keeps_sub_hop_residue():
     assert (rx._residue is None) == (tr.rx._residue is None)
     if rx._residue is not None:
         assert torch.equal(rx._residue, tr.rx._residue)
+
+
+# -- the base station's checkpoint, across the two packages ------------------
+
+def _page_response_burst():
+    from amps_tpu.tx import recc_ms
+    arr = np.zeros((7, 36), np.uint8)
+    ok = np.zeros(7, bool)
+    for i, w in enumerate(recc_ms.page_response_words("5551234567")):
+        arr[i] = w
+        ok[i] = True
+    return arr, ok
+
+
+def _ring_frames(n):
+    """SAT (scc=1) + ST present: the mobile is ringing."""
+    lv = np.zeros((n, 4), np.float32)
+    lv[:, 1] = 0.05
+    lv[:, 3] = 0.05
+    return lv, np.full(n, 1e-3, np.float32)
+
+
+def _drive_to_checkpoint(bs):
+    arr, ok = _page_response_burst()
+    bs.handle_burst(arr, ok)                 # page response -> alert
+    bs.handle_command("page 2135551212")     # second FOCC queue entry
+    part = np.asarray(bs.fvc.next_block(4000))   # mid-burst offset
+    bs.push_supervision(355, *_ring_frames(50))  # 0.5 s of ringing
+    return part
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_station_checkpoint_across_packages(tmp_path, direction):
+    """A station checkpoint written by either package resumes in the
+    other: the continued FOCC superframes, the FVC stream and the
+    supervision timeline equal those of an uninterrupted station of the
+    writing package (tests/test_state.py's resume test)."""
+    from amps_tpu.control.station import BaseStation as JStation
+    from amps_tpu_torch.control.station import BaseStation as TStation
+    if direction == "jax_to_port":
+        src_cls, dst_cls = JStation, TStation
+        save, load = jstate.save_station, tstate.load_station
+    else:
+        src_cls, dst_cls = TStation, JStation
+        save, load = tstate.save_station, jstate.load_station
+    full, a = src_cls(), src_cls()
+    part_full = _drive_to_checkpoint(full)
+    assert np.array_equal(_drive_to_checkpoint(a), part_full)
+    path = str(tmp_path / "station.npz")
+    save(path, a)
+    b = dst_cls()
+    load(path, b)
+    assert (b.fvc_mute, b.audio_mute) == (full.fvc_mute, full.audio_mute)
+    for _ in range(3):
+        assert np.array_equal(
+            np.asarray(full.focc.next_superframe_symbols()),
+            np.asarray(b.focc.next_superframe_symbols()))
+    assert np.array_equal(np.asarray(full.fvc.next_block(6000)),
+                          np.asarray(b.fvc.next_block(6000)))
+    assert (full.fvc._timer, full.fvc._off) == (b.fvc._timer, b.fvc._off)
+    # supervision resumes mid-alert: ST drops -> answer at the same time
+    lv, pw = _ring_frames(10)
+    lv[:, 3] = 0.0
+    for bs in (full, b):
+        bs.push_supervision(355, lv, pw)
+    ans = [[e for e in bs.supervisors[355].events if e.kind == "answer"]
+           for bs in (full, b)]
+    assert len(ans[0]) == len(ans[1]) == 1
+    assert abs(ans[0][0].t - ans[1][0].t) < 1e-9
+    assert full.supervisors[355].state == b.supervisors[355].state \
+        == "conversation"
+    assert (full.fvc_mute, full.audio_mute) == (b.fvc_mute, b.audio_mute) \
+        == (True, False)
+
+
+def test_station_checkpoint_per_channel_fvc(tmp_path):
+    """A per-channel-FVC station's streams and mute pairs round-trip
+    through the port's checkpoint."""
+    from amps_tpu_torch.config import SystemConfig
+    from amps_tpu_torch.control.station import BaseStation as TStation
+    sys_ = SystemConfig(voice_channels=(355, 356))
+    full = TStation(sys_, per_channel_fvc=True)
+    a = TStation(sys_, per_channel_fvc=True)
+    for bs in (full, a):
+        _drive_to_checkpoint(bs)
+        bs.fvc_for(355).next_block(1234)
+    path = str(tmp_path / "station.npz")
+    tstate.save_station(path, a)
+    b = TStation(sys_, per_channel_fvc=True)
+    tstate.load_station(path, b)
+    assert sorted(b.fvc_streams) == sorted(full.fvc_streams)
+    assert b.fvc_mutes == full.fvc_mutes and \
+        b.audio_mutes == full.audio_mutes
+    for c in full.fvc_streams:
+        assert np.array_equal(full.fvc_for(c).next_block(5000),
+                              b.fvc_for(c).next_block(5000))
+
+
+def test_station_checkpoint_carries_voice_slot_continuity(tmp_path):
+    """The voice slots' FM phase accumulator, SAT tone clock and audio
+    offset join the checkpoint (the sources map), so the resumed TX
+    waveform has no phase step."""
+    from amps_tpu_torch.config import SystemConfig
+    from amps_tpu_torch.control.station import BaseStation as TStation
+    from amps_tpu_torch.runtime.sources import VoiceFvcSlot
+
+    st = TStation(SystemConfig())
+    slot = VoiceFvcSlot(st, chan=355, device="cpu")
+    _ = slot(3000)
+    want = (slot._fvc_accum, slot._voice_phase, slot._t)
+    assert want[2] > 0.0
+    path = str(tmp_path / "station.npz")
+    tstate.save_station(path, st, sources={355: slot})
+    st2 = TStation(SystemConfig())
+    slot2 = VoiceFvcSlot(st2, chan=355, device="cpu")
+    tstate.load_station(path, st2, sources={355: slot2})
+    assert (slot2._fvc_accum, slot2._voice_phase, slot2._t) == want
+    assert np.allclose(slot(3000), slot2(3000), atol=1e-6)
+
+
+def test_station_checkpoint_refuses_other_kinds(tmp_path):
+    from amps_tpu_torch.control.station import BaseStation as TStation
+    tx = TTx(TSPEC, device="cpu", control_channels=[1])
+    path = str(tmp_path / "tx.npz")
+    tstate.save_transmitter(path, tx)
+    with pytest.raises(ValueError, match="not a station"):
+        tstate.load_station(path, TStation())

@@ -109,18 +109,24 @@ def test_bits_match_jax(nbits):
 
 
 def test_port_imports_without_jax():
-    """The port must run where JAX is not installed: every module of it
-    imports with jax and amps_tpu blocked."""
+    """The port must run where JAX is not installed: every module of it,
+    the apps and examples included, imports with jax, amps_tpu and the
+    repository's JAX apps and examples blocked."""
     code = ("import sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['amps_tpu'] = None\n"
+            "for name in ('jax', 'amps_tpu', 'apps', 'examples'):\n"
+            "    sys.modules[name] = None\n"
             "import importlib, pkgutil, amps_tpu_torch\n"
             "for m in pkgutil.walk_packages(amps_tpu_torch.__path__,\n"
             "                               'amps_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "assert 'amps_tpu_torch.runtime.resilient' in sys.modules\n"
+            "for m in ('amps_tpu_torch.runtime.resilient',\n"
+            "          'amps_tpu_torch.apps.bs_app',\n"
+            "          'amps_tpu_torch.examples.call_lifecycle_demo',\n"
+            "          'amps_tpu_torch.__main__'):\n"
+            "    assert m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'jaxlib', 'amps_tpu') and sys.modules[m] is not None]\n"
+            " ('jax', 'jaxlib', 'amps_tpu', 'apps', 'examples')"
+            " and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
