@@ -1,5 +1,5 @@
 """BS-in-a-box application -- the grc/ampsbs.grc equivalent, the PyTorch
-port of the single-device mode of ``apps/bs_app.py``.
+port of ``apps/bs_app.py``.
 
 A running AMPS base station over the multichannel pipeline:
 
@@ -23,12 +23,18 @@ one after another.  No CUDA graph is captured here: a capture fails
 while another thread launches.
 
 Runs on the current CUDA device unless ``--device`` names another
-(``--device cpu`` runs the kernels' plain versions).  The multi-device
-``--mesh`` mode of the JAX package is not ported yet (ROADMAP M7).
+(``--device cpu`` runs the kernels' plain versions).
+
+``--mesh TxC`` runs the multi-device station: ``ShardedTransceiver``
+full-duplex blocks over a (time, chan) worker mesh under the same
+control plane (command server, BaseStation, SAT/ST supervision through
+the sharded analysis).  The T*C workers go round-robin over the visible
+cards (all on one card when there is one), or all on ``--device``.
 
 Examples:
   python -m amps_tpu_torch bs --channels 8 --simulate origination:5551234567:5551230000
   python -m amps_tpu_torch bs --channels 1024 --rx-in capture.f32 --superframes 4
+  python -m amps_tpu_torch bs --mesh 2x2 --channels 1024 --voice-slot-map 355:4,356:5 --simulate mobile:5551234567:originate:7025551000
 """
 
 from __future__ import annotations
@@ -74,9 +80,14 @@ def build_parser():
     p.add_argument("--rx-in", type=str, default=None,
                    help="read wideband RX IQ (raw float32 interleaved)")
     p.add_argument("--simulate", type=str, action="append", default=[],
-                   help="one-shot mobile event on slot 3 of the reverse "
-                        "band: origination:MIN:DIALED | page_response:MIN "
-                        "| registration:MIN[:ESN]; repeatable")
+                   help="single-device mode -- one-shot mobile event on "
+                        "slot 3 of the reverse band: origination:MIN:DIALED "
+                        "| page_response:MIN | registration:MIN[:ESN].  "
+                        "Mesh mode -- a live scripted mobile: mobile:MIN "
+                        "(answers a page, hangs up) | mobile:MIN:hangup:N "
+                        "(paged; talks N blocks) | mobile:MIN:originate:"
+                        "DIGITS[:BLOCK[:HANGUP_AFTER]] | "
+                        "mobile:MIN:register[:BLOCK]; repeatable")
     p.add_argument("--port", type=int, default=64652,
                    help="TCP command port (reference Socket PDU port; 0 "
                         "binds a free one)")
@@ -96,8 +107,20 @@ def build_parser():
     p.add_argument("--aggressive-registration", action="store_true",
                    help="38-frame registration superframe (reference flag)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="the multi-device station ('TxC' mesh) is not "
-                        "ported yet (ROADMAP M7): naming it exits")
+                   help="run the multi-device station: a 'TxC' worker mesh "
+                        "(e.g. 2x2) of ShardedTransceiver full-duplex "
+                        "blocks under the same control plane; the workers "
+                        "go round-robin over the visible cards")
+    p.add_argument("--fvc-slot", type=int, default=None,
+                   help="bank slot carrying the FVC blank-and-burst stream "
+                        "in mesh mode (default control_slot+1)")
+    p.add_argument("--blocks", type=int, default=40,
+                   help="mesh mode: most full-duplex blocks to run (the "
+                        "loop ends early once the simulated calls are torn "
+                        "down)")
+    p.add_argument("--sup-timers", type=str, default=None,
+                   help="compress supervision timers for demos: "
+                        "'<fade_s>:<st_release_s>' (e.g. 2.0:0.8)")
     return p
 
 
@@ -116,6 +139,224 @@ def _sim_block(text: str, spec, dev):
     return synthesize_reverse_band([ev], spec, 16384, device=dev)
 
 
+def _run_mesh(args, result: dict | None = None):
+    """The multi-device station: the sharded full-duplex transceiver
+    under the control plane -- the command server (an operator 'page'
+    in through the socket, the reference's Socket PDU), BaseStation call
+    control, and SAT/ST supervision measured through the sharded analysis
+    (the RVC tap of grc/ampsbs_rvc.grc).
+
+    With ``--simulate mobile:MIN`` a scripted SimMobile lives on the
+    reverse band: it hears the sharded FOCC/FVC wideband through its own
+    analysis bank, answers on the RECC (slot 3), transponds SAT + ST on
+    its assigned voice channel, answers one block after ringing and hangs
+    up after three conversation blocks.  ``result`` (optional dict)
+    receives the station, the mobiles, the timeline, the host time of
+    each block (seconds) and the RX samples a block."""
+    import dataclasses
+
+    import numpy as np
+
+    from amps_tpu_torch.control.server import CommandServer
+    from amps_tpu_torch.control.station import BaseStation
+    from amps_tpu_torch.dsp import channelizer as chz
+    from amps_tpu_torch.dsp.fm import fm_modulate_symbols, quadrature_demod
+    from amps_tpu_torch.ms import SimMobile
+    from amps_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from amps_tpu_torch.parallel.pipeline import MultichannelSpec
+    from amps_tpu_torch.parallel.stream import ShardedTransceiver
+    from amps_tpu_torch.runtime.sources import VoiceFvcSlot
+    from amps_tpu_torch.utils.profiling import meter, trace
+
+    T, C = (int(v) for v in args.mesh.lower().split("x"))
+    mesh = make_mesh(MeshSpec(time=T, chan=C),
+                     None if args.device is None else [args.device])
+    dev = mesh.device
+    if dev.type == "cuda":
+        from amps_tpu_torch.kernels import build
+        build.load()
+    spec = MultichannelSpec(num_channels=args.channels)
+    M, Phop, SPS = args.channels, args.channels // 2, spec.chan_sps
+    system, per_chan = _station_config(args)
+    station = BaseStation(system, sps=SPS, per_channel_fvc=per_chan)
+    if args.sup_timers:
+        fade_s, st_s = (float(v) for v in args.sup_timers.split(":"))
+        station.supervision_config = dataclasses.replace(
+            station.supervision_config, fade_timeout_s=fade_s,
+            st_release_s=st_s)
+
+    # voice-slot map: bank_slot -> AMPS channel (RVC supervision tap)
+    slot_map = {}
+    for pair in filter(None, args.voice_slot_map.split(",")):
+        chan_s, slot_s = pair.split(":")
+        slot_map[int(slot_s)] = int(chan_s)
+    chan_to_slot = {c: s for s, c in slot_map.items()}
+
+    def on_burst(rep):
+        print(f"[rx] burst ch={rep.channel} q={rep.quality:.2f} "
+              f"ok={int(rep.word_ok.sum())}/7 rssi={rep.rssi:.3f}")
+        station.handle_burst(rep.words, rep.word_ok, rep.bad_symbols)
+
+    def on_sup(slot, lv, pw):
+        station.push_supervision(slot_map[slot], lv, pw)
+
+    trx = ShardedTransceiver(
+        mesh, spec, system=system, control_channels=[args.control_slot],
+        threshold=0.5, min_rssi=args.min_rssi, on_burst=on_burst,
+        supervision_slots=tuple(sorted(slot_map)),
+        on_supervision=on_sup if slot_map else None)
+    station.focc = trx.focc[args.control_slot]
+    # every mapped voice slot carries its blank-and-burst voice channel
+    # (FVC data or voice + SAT by its own mute pair); the FVC slot carries
+    # the shared stream unless it is mapped
+    for bank_slot, amps_chan in slot_map.items():
+        trx.set_channel_source(
+            bank_slot, VoiceFvcSlot(station,
+                                    chan=amps_chan if per_chan else None,
+                                    device=dev))
+    fvc_slot = (args.fvc_slot if args.fvc_slot is not None
+                else args.control_slot + 1)
+    if fvc_slot not in slot_map:
+        trx.set_channel_source(fvc_slot, VoiceFvcSlot(station, device=dev))
+
+    # reverse-band block: each time row's span (block hops / T) must
+    # cover the carried halo (trx.ovr channel samples)
+    rxh = T * (-(-(trx.ovr + 8) // C) * C)
+    sens = spec.fm_sensitivity
+    fs = float(spec.pipe.chan_rate)
+
+    mobs = []        # {mob, action, sched}
+    for ev in args.simulate:
+        parts = ev.split(":")
+        if parts[0] == "mobile":
+            mobs.append({"mob": SimMobile(parts[1], sps=SPS, system=system),
+                         "action": tuple(parts[2:]) if len(parts) > 2
+                         else None,
+                         "sched": {"ring": 0, "conv": 0}})
+        else:
+            print(f"[bs] mesh mode ignores --simulate {ev!r}: use "
+                  f"'mobile:MIN[:originate:DIGITS[:BLOCK[:N]]]' "
+                  f"(live scripted mobile)", file=sys.stderr)
+    mob = mobs[0]["mob"] if mobs else None
+    REVERSE_SLOT = 3
+    # the mobiles' ear and the reverse-band "ether" are continuous
+    # streams: both carry their state across blocks (a fresh synthesizer
+    # a block puts an FM click at every boundary, which breaks the
+    # supervision tone runs)
+    ana_state = {"s": chz.analyzer_init(spec.chz_spec, device=dev)}
+    rev_state = {"s": chz.synthesizer_init(spec.chz_spec, device=dev)}
+    sched = {"block": 0}
+    block_s = []
+
+    def hear(m, action, ms, ya):
+        """One mobile hears the block and acts on its script."""
+        m.hear_focc(quadrature_demod(ya[args.control_slot])[0].cpu().numpy(),
+                    sps=SPS)
+        # FVC data arrives on the mobile's assigned voice channel
+        # (per-channel mode) or the shared slot
+        fvc_bank = (chan_to_slot.get(m.voice_chan, fvc_slot) if per_chan
+                    else fvc_slot)
+        m.hear_fvc(quadrature_demod(ya[fvc_bank])[0].cpu().numpy(), sps=SPS)
+        # originate at its block (default 2), answer one block after
+        # ringing, hang up after hangup_after (default 3) conversation
+        # blocks
+        if (action and action[0] == "originate" and m.state == "idle"
+                and sched["block"] ==
+                (int(action[2]) if len(action) > 2 else 2)):
+            m.originate(action[1])
+        elif (action and action[0] == "register" and "register" not in m.log
+                and sched["block"] >=
+                (int(action[1]) if len(action) > 1 else 2)):
+            # retried until the access queues: with concurrent mobiles
+            # the busy/idle bit can read busy at the scheduled block
+            m.register()
+        hang_after = 3
+        if action and action[0] == "originate" and len(action) > 3:
+            hang_after = int(action[3])
+        elif action and action[0] == "hangup":
+            hang_after = int(action[1])
+        if m.state == "ringing":
+            ms["ring"] += 1
+            if ms["ring"] >= 2:
+                m.answer()
+        elif m.state == "conversation":
+            ms["conv"] += 1
+            if ms["conv"] > hang_after:
+                m.hang_up()
+
+    def one_block():
+        """One full-duplex sharded block: the reverse band in, TX out, the
+        mobiles' ears fed from the TX wideband."""
+        t0 = time.perf_counter()
+        Y = torch.zeros((rxh, M, 2), device=dev)
+        cursor = 2000
+        for rec in mobs:
+            m = rec["mob"]
+            # stagger concurrent accesses on the shared RECC; a burst
+            # that does not fit this block waits for the next one
+            if m.outbox and cursor + len(m.outbox[0][1]) <= rxh:
+                _, syms = m.outbox.pop(0)
+                bb = fm_modulate_symbols(
+                    torch.as_tensor(syms.astype(np.int8), device=dev),
+                    sens)[0]
+                Y[cursor: cursor + bb.shape[0], REVERSE_SLOT] = bb
+                cursor += bb.shape[0] + 2000
+            if m.voice_chan in chan_to_slot:
+                Y[:, chan_to_slot[m.voice_chan]] += torch.as_tensor(
+                    m.rvc_baseband(rxh, fs, sens), device=dev)
+        x_rx, rev_state["s"] = chz.synthesize(Y, spec.chz_spec,
+                                              rev_state["s"])
+        with trace("bs_app.mesh_block"):
+            tx, _ = trx.push(x_rx)
+        if mobs:
+            ya, ana_state["s"] = chz.analyze(tx, spec.chz_spec,
+                                             ana_state["s"])
+            sched["block"] += 1
+            for rec in mobs:
+                hear(rec["mob"], rec["action"], rec["sched"], ya)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        block_s.append(time.perf_counter() - t0)
+        return tx.shape[0]
+
+    async def run():
+        server = None
+        if not args.no_server:
+            server = CommandServer(station, port=args.port)
+            await server.start()
+            print(f"[ctl] command server on 127.0.0.1:{server.port} "
+                  f"(mesh {T}x{C})")
+        tx_meter = meter("tx_wideband")
+        loop = asyncio.get_running_loop()
+        had_call = False
+        for b in range(args.blocks):
+            ntx = await loop.run_in_executor(None, one_block)
+            tx_meter.update(ntx)
+            print(f"[bs] block {b}: tx {ntx} samples "
+                  f"({tx_meter.rate / 1e6:.1f} Msps), rx {rxh * Phop}; "
+                  f"calls={sorted(station.supervisors)}"
+                  + (f" mob={mob.state}" if mob else ""))
+            had_call = had_call or bool(station.supervisors)
+            if (mobs and had_call and not station.supervisors
+                    and all(r["mob"].state == "released" for r in mobs)):
+                print("[bs] call(s) complete and torn down")
+                break
+        if server:
+            await server.stop()
+
+    asyncio.run(run())
+    timeline = [(e.kind, e.payload.kind if hasattr(e.payload, "kind")
+                 else e.payload) for e in station.events
+                if e.kind in ("supervision_event", "release", "handoff")]
+    print(f"[bs] station events: {timeline}")
+    for rec in mobs:
+        print(f"[bs] mobile {rec['mob'].min_str} log: {rec['mob'].log}")
+    if result is not None:
+        result.update(station=station, mob=mob,
+                      mobs=[r["mob"] for r in mobs], timeline=timeline,
+                      block_s=block_s, rx_samples=rxh * Phop)
+
+
 def main(argv=None, _result: dict | None = None):
     """Run the station.  ``_result`` (optional dict) receives the
     station, the executor's stats, the receiver's reports, the two
@@ -123,8 +364,8 @@ def main(argv=None, _result: dict | None = None):
     (seconds), for tests and measurement scripts."""
     args = build_parser().parse_args(argv)
     if args.mesh:
-        raise SystemExit("bs --mesh: the multi-device station is not ported "
-                         "yet (ROADMAP M7); run without --mesh")
+        _run_mesh(args, _result)
+        return
 
     from amps_tpu_torch.control.server import CommandServer
     from amps_tpu_torch.control.station import BaseStation

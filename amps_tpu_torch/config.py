@@ -1,4 +1,4 @@
-"""Typed configuration for the AMPS pipeline (copied from amps_tpu.config).
+"""Typed configuration for the AMPS pipeline (a copy of amps_tpu.config).
 
 The reference hardcodes system constants (``GLOBAL_SID``/``GLOBAL_DCC_SHORT``/
 ``GLOBAL_SCC`` at lib/amps_packet.h:12-14, channels 355/356 at

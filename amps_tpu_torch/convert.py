@@ -15,6 +15,7 @@ import torch
 
 from amps_tpu_torch.device import resolve_device
 from amps_tpu_torch.dsp.channelizer import AnalyzerState
+from amps_tpu_torch.parallel.pipeline import sharded_state_from_arrays
 from amps_tpu_torch.runtime.state import restore_receiver, restore_transmitter
 
 
@@ -63,3 +64,12 @@ def closed_loop_state_from_numpy(syn_carry, hist, carry, prev,
     return {k: torch.tensor(np.asarray(v, dtype=np.float32), device=dev)
             for k, v in (("syn_carry", syn_carry), ("hist", hist),
                          ("carry", carry), ("prev", prev))}
+
+
+def sharded_state_from_jax(state, device=None) -> dict:
+    """A JAX ``sharded_stream_state`` (hist, iq_carry, syn_carry, parity,
+    tx_parity; numpy arrays, e.g. ``jax.device_get`` of the state a JAX
+    step returned) as the port's, so the port's sharded step continues
+    the JAX stream at the next block; on ``device`` (default the current
+    CUDA device, the CPU when named: a mesh's ``Mesh.device``)."""
+    return sharded_state_from_arrays(state, device)

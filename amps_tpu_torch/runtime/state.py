@@ -1,5 +1,5 @@
-"""Checkpoint/resume of the streaming receiver, the transmitter and the
-base station, the PyTorch port of the single-device part of
+"""Checkpoint/resume of the streaming receiver, the transmitter, the base
+station and the sharded receiver, the PyTorch port of
 ``amps_tpu.runtime.state``.
 
 A snapshot is a dict of numpy arrays (``np.savez`` persists it): the
@@ -7,9 +7,12 @@ receiver's carried DSP state, hop parity, dedup positions, buffered
 sub-hop residue and sub-frame supervision leftover; the transmitter's
 synthesis carry, hop index, phase accumulators and FOCC word queues; the
 station's FOCC queue, FVC bursts, mutes, supervision timers and the
-voice slots' modulator continuity.  The transmitter's and the station's
-files have the JAX package's layout, so either package can resume the
-other's.  A resumed stream is identical to an uninterrupted one.
+voice slots' modulator continuity; the sharded receiver's (or
+transceiver's) carried stream state with its consumed-sample counter and
+dedup positions.  The transmitter's, the station's and the sharded
+receiver's files have the JAX package's layout, so either package can
+resume the other's.  A resumed stream is identical to an uninterrupted
+one.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from amps_tpu_torch.control.supervision import ChannelSupervisor
 from amps_tpu_torch.dsp.channelizer import SynthesizerState
+from amps_tpu_torch.parallel.pipeline import sharded_state_from_arrays
 
 
 def _host(t) -> np.ndarray:
@@ -281,3 +285,51 @@ def load_station(path: str, bs, sources: Optional[dict] = None) -> None:
         sup._st_quiet_t = float(vec[6])
         sup._conv_run_snap = float(vec[7])
         bs.supervisors[c] = sup
+
+
+def snapshot_sharded_receiver(rx) -> Dict[str, np.ndarray]:
+    """``parallel.stream.ShardedReceiver`` (or ``ShardedTransceiver``)
+    carried state as host arrays: the stream state (``st_hist``,
+    ``st_iq_carry``, ``st_syn_carry``, ``st_parity``, ``st_tx_parity``)
+    and the host report discipline (consumed-sample counter, dedup
+    positions, last block length, sub-frame supervision leftover)."""
+    snap: Dict[str, np.ndarray] = {
+        "kind": np.asarray("sharded_receiver"),
+        "nh_done": np.int64(rx._nh_done),
+        "last_seen": rx._last_seen.copy(),
+        "last_block_len": np.int64(rx._last_block_len),
+        "flushed": np.int64(rx._flushed),
+    }
+    if rx._sup_carry is not None:
+        snap["sup_carry"] = rx._sup_carry.copy()
+    for k, v in rx._state.items():
+        snap[f"st_{k}"] = (_host(v) if isinstance(v, torch.Tensor)
+                           else np.asarray(v, np.int32))
+    return snap
+
+
+def restore_sharded_receiver(snap, rx) -> None:
+    """Restore a snapshot_sharded_receiver dict (or an .npz of either
+    package) into a sharded receiver of the same mesh and spec."""
+    if str(snap["kind"]) != "sharded_receiver":
+        raise ValueError(f"not a sharded receiver snapshot: {snap['kind']}")
+    keys = list(snap.files if hasattr(snap, "files") else snap.keys())
+    rx._nh_done = int(snap["nh_done"])
+    rx._last_seen = np.asarray(snap["last_seen"], np.int64).copy()
+    rx._last_block_len = int(snap["last_block_len"])
+    rx._flushed = bool(snap["flushed"])
+    if "sup_carry" in keys and rx._sup_carry is not None:
+        sc = np.asarray(snap["sup_carry"], np.float32)
+        if sc.shape[0] == rx._sup_carry.shape[0]:
+            rx._sup_carry = sc.copy()
+    rx._state = sharded_state_from_arrays(
+        {k[3:]: snap[k] for k in keys if k.startswith("st_")}, rx.device)
+
+
+def save_sharded_receiver(path: str, rx) -> None:
+    np.savez(path, **snapshot_sharded_receiver(rx))
+
+
+def load_sharded_receiver(path: str, rx) -> None:
+    with np.load(path, allow_pickle=False) as z:
+        restore_sharded_receiver(z, rx)

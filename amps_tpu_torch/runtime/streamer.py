@@ -168,6 +168,27 @@ def _compact_reports(planes, min_rssi: float, R: int, require_word_a: bool):
             "n_valid": torch.sum(deliverable)}
 
 
+def _compact_reports_rows(planes, min_rssi: float, R: int,
+                          require_word_a: bool):
+    """``_compact_reports`` of each time row of (rows, M, K, ...) report
+    planes, the sharded receiver's selection: a list of one field dict
+    a row."""
+    return [_compact_reports(tuple(p[r] for p in planes), min_rssi, R,
+                             require_word_a)
+            for r in range(planes[0].shape[0])]
+
+
+def _flatten_full(planes):
+    """The full (M, K, ...) report planes as the fields of
+    ``_compact_reports`` with every slot selected, in ascending flat
+    c*K+k order: the lossless overflow path."""
+    names = ("starts", "cvalid", "quality", "words", "ok", "bad", "dccs",
+             "rssi")
+    full = {n: a.reshape((-1,) + a.shape[2:]) for n, a in zip(names, planes)}
+    full["idx"] = torch.arange(full["cvalid"].shape[0])
+    return full
+
+
 def _candidates(fields):
     """Host arrays (idx, cvalid, starts, quality, rssi, words, ok, bad,
     dccs) of fetched report fields."""
@@ -573,12 +594,7 @@ class MultichannelReceiver:
             # more deliverable slots than max_reports: fetch the full
             # planes (ascending flat c*K+k index, as below) so that no
             # report is dropped; counted after the fallible fetch
-            names = ("starts", "cvalid", "quality", "words", "ok", "bad",
-                     "dccs", "rssi")
-            full = {n: a.reshape((-1,) + a.shape[2:])
-                    for n, a in zip(names, e["full"])}
-            full["idx"] = torch.arange(full["cvalid"].shape[0])
-            cand = _candidates(full)
+            cand = _candidates(_flatten_full(e["full"]))
             self.report_overflows += 1
         idx, cvalid, starts, quality, rssi_pb, words, ok, bad, dccs = cand
         if self._tap is not None and e["demod"] is not None:

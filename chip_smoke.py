@@ -13,11 +13,15 @@ single-channel TX and RX chains and the receiver's voice supervision,
 and the station as operators run it -- the BS-in-a-box app through the
 CLI (synth on its TX thread, rx_front on its RX thread), the executor
 over the native ring, the link-quality curve, the capture monitor and
-the demo; and times kernels and paths against their plain versions,
+the demo; the multi-device station on the card -- the sharded
+full-duplex step and closed loop on a 2x2 mesh whose four workers share
+it (each worker's analysis on K1, its synthesis on K4), ``bs --mesh 2x2``
+through a paged call, ``dryrun_multichip(4)`` and weak scaling; and
+times kernels and paths against their plain versions,
 their bounds and a cuFFT yardstick, with profiler windows of one
 one-shot block, one receiver push, one transmitter superframe, one
-superframe of the ear, one run of the closed loop and one run of the
-app.
+superframe of the ear, one run of the closed loop, one run of the app
+and one sharded step.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -30,8 +34,9 @@ plain version, both times, its bound (the least time of the function:
 an FFT-sized transform and the fold or overlap-add against the bytes
 moved), its transform ("fft": all four run the all-channel FFT tile),
 the cuFFT time of its transform alone, its error at the small banks and
-its launches and times on the closed loop or the batched block.  Without
-a CUDA card it exits non-zero.
+its launches and times on the closed loop or the batched block, and for
+K1 and K4 their launches, errors and times at the sharded workers'
+shapes.  Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -1919,6 +1924,339 @@ def phase_entry_points(dev, card):
         "delivered")
 
 
+MESH_ROW_HOPS = 12482      # 2x2 rows: each worker analyzes 6241 hops (odd)
+MESH_FRAMES = 2            # 5556 TX hops: each worker synthesizes 1389 (odd)
+
+
+def mesh_spec(M, T):
+    """The sharded phases' spec: f32 planes, so that starts are exact."""
+    from amps_tpu_torch.parallel import pipeline as pl
+    return pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank")
+
+
+def mesh_found(out, row0, row, hal, sps, found):
+    """Add each valid slot of a sharded step's output whose Word A
+    decoded (the receivers' gate) to ``found`` {(channel, abs): (quality,
+    words, word_ok)}, but not a re-find within half a capture of a burst
+    already there (the receivers' dedup)."""
+    from amps_tpu_torch.rx.correlator import CAPTURE_SYMBOLS
+    o = {k: out[k].cpu().numpy()
+         for k in ("valid", "starts", "quality", "words", "word_ok")}
+    for r, c, k in sorted(zip(*np.nonzero(o["valid"]
+                                          & o["word_ok"][..., 0]))):
+        a = (row0 + r) * row - hal + int(o["starts"][r, c, k])
+        if any(ch == c and abs(a - pos) < CAPTURE_SYMBOLS * sps // 2
+               for ch, pos in found):
+            continue
+        found[(int(c), a)] = (float(o["quality"][r, c, k]),
+                              o["words"][r, c, k], o["word_ok"][r, c, k])
+
+
+def phase_mesh_step(dev, M, T, card, nblocks=3):
+    """Phase 21: the sharded full-duplex step on a 2x2 mesh whose four
+    workers share the card, at M, with rows of MESH_ROW_HOPS and
+    MESH_FRAMES of FOCC a block: three blocks of reverse-band traffic with
+    bursts mid-row, across the row boundary, across the block 1|2
+    boundary and in block 3, the state restored from an .npz between
+    blocks 1 and 2.  Every burst decodes bit-exactly once, and the
+    reports are the single-device MultichannelReceiver's on the same
+    stream.  The analysis (K1) and synthesis (K4) kernels launch once a
+    worker a block, and each is held to its plain version at the
+    workers' shapes.  Then the step's times and a profiler window of one
+    step.  Returns a dict of the readings."""
+    import os
+    import tempfile
+    from amps_tpu_torch.eval.traffic import (MobileEvent,
+                                             synthesize_reverse_band,
+                                             unit_channel_band)
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import synth as S
+    from amps_tpu_torch.parallel import pipeline as pl
+    from amps_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from amps_tpu_torch.runtime.streamer import MultichannelReceiver
+    spec = mesh_spec(M, T)
+    sps, P, row = spec.chan_sps, M // 2, MESH_ROW_HOPS
+    block, hal = 2 * row, pl.full_demod_halo(spec)
+    mesh = make_mesh(MeshSpec(2, 2), [dev])
+    n_sub_rx, n_sub_tx = block // 4, MESH_FRAMES * 463 * 2 * sps // 4
+    log(f"phase 21: the sharded full-duplex step, 2x2 mesh of workers "
+        f"sharing {mesh.device} (one card: no multi-card scaling), M={M}, "
+        f"{nblocks} blocks of {block} RX hops (rows of {row}, {n_sub_rx} "
+        f"hops a worker's analysis) and {MESH_FRAMES} FOCC frames "
+        f"({n_sub_tx} hops a worker's synthesis), on {card}")
+    events = [MobileEvent("origination", 1, 700, "5551234567", "7025551000",
+                          esn=777),
+              MobileEvent("registration", M // 2, row - 5000, "9165554321",
+                          esn=42),
+              MobileEvent("page_response", M - 1, block - 4000,
+                          "4155559876"),
+              MobileEvent("registration", 5, 2 * block + 3000, "2125550000",
+                          esn=5)]
+    x = synthesize_reverse_band(events, spec, nblocks * block,
+                                noise_sigma=1e-3, device=dev)
+    blocks = [x[b * block * P:(b + 1) * block * P] for b in range(nblocks)]
+    wp = torch.as_tensor(loop_pairs(M, MESH_FRAMES), device=dev)
+    step = pl.make_sharded_bs_stream_step(mesh, spec, hal, max_bursts=2,
+                                          rx_external=True)
+    st = pl.sharded_stream_state(spec, hal, dev)
+    found = {}
+    sync(dev)
+    KA.LAUNCHES = S.LAUNCHES = 0
+    for b in range(nblocks):
+        if b == 1:
+            # the state through the host and an .npz: the block-boundary
+            # burst's head is in this carry
+            with tempfile.TemporaryDirectory() as td:
+                path = os.path.join(td, "mesh_state.npz")
+                np.savez(path, **{k: (v.cpu().numpy() if torch.is_tensor(v)
+                                      else np.int32(v))
+                                  for k, v in st.items()})
+                with np.load(path) as z:
+                    st = pl.sharded_state_from_arrays(z, dev)
+        out, st = step(wp, st, blocks[b])
+        assert torch.isfinite(out["tx_wideband"]).all()
+        mesh_found(out, 2 * b, row, hal, sps, found)
+    sync(dev)
+    launches = (KA.LAUNCHES, S.LAUNCHES)
+    assert launches == (4 * nblocks, 4 * nblocks), launches
+    assert len(found) == len(events), sorted(found)
+    for ev in events:
+        hits = [(a, v) for (c, a), v in found.items() if c == ev.channel]
+        assert len(hits) == 1, (ev.channel, hits)
+        want = np.stack(ev.words())
+        _, words, ok = hits[0][1]
+        assert ok[: len(want)].all() and np.array_equal(words[: len(want)],
+                                                        want), ev.channel
+    for ev, boundary in ((events[1], row), (events[2], block)):
+        a = next(a for (c, a) in found if c == ev.channel)
+        assert a < boundary < a + 3374 * sps, (ev.channel, a, boundary)
+    log(f"  {len(events)} bursts decoded bit-exact once each (across the row "
+        f"boundary and the restored block boundary included); launches "
+        f"analysis {launches[0]}, synth {launches[1]} ({nblocks} blocks x 4 "
+        f"workers)")
+    mr = MultichannelReceiver(spec, max_bursts=2, policy="first_ok",
+                              device=dev)
+    reps = []
+    for i in range(2 * nblocks):
+        reps += mr.push(x[i * row * P:(i + 1) * row * P])
+    reps += mr.flush()
+    mine = sorted((c, a // sps, v[1].tobytes(), v[2].tobytes())
+                  for (c, a), v in found.items())
+    theirs = sorted((r.channel, r.abs_symbol, r.words.tobytes(),
+                     r.word_ok.tobytes()) for r in reps)
+    assert mine == theirs, ([m[:2] for m in mine], [t[:2] for t in theirs])
+    log(f"  = the single-device MultichannelReceiver's {len(reps)} reports "
+        f"(channel, abs_symbol, words, word_ok) on the same stream in "
+        f"row-sized pushes")
+    # the kernels alone at the workers' shapes, against their plain versions
+    res = {"launches": launches}
+    xa = unit_channel_band(M, T, n_sub_rx, 21, dev)
+    err = 0.0
+    for parity in (0, 1):
+        y = KA.analyze_block(xa, M, T, parity, planar=True)
+        ry = KA.analyze_reference(xa, M, T, parity, planar=True)
+        sync(dev)
+        err = max(err, (y - ry).abs().max().item())
+    assert err <= ANALYSIS_ATOL, err
+    g = torch.Generator(dev).manual_seed(21)
+    Y = torch.randn((n_sub_tx, M, 2), device=dev, generator=g)
+    zero = torch.zeros((M * T - P, 2), device=dev)
+    serr, srel = 0.0, 0.0
+    for parity in (0, 1):
+        xs, cs = S.synthesize_block(Y, M, T, parity, zero)
+        rxs, rcs = S.synthesize_block_reference(Y, M, T, parity, zero)
+        sync(dev)
+        rms = rxs.pow(2).mean().sqrt().item()
+        e = max((xs - rxs).abs().max().item(), (cs - rcs).abs().max().item())
+        serr, srel = max(serr, e), max(srel, e / rms)
+    assert srel <= SYNTH_RTOL, srel
+    res["analysis_err"], res["synth_err"] = err, serr
+    t = timed({
+        "analysis": lambda: KA.analyze_block(xa, M, T, 1, planar=True),
+        "analysis_plain": lambda: KA.analyze_reference(xa, M, T, 1,
+                                                       planar=True),
+        "synth": lambda: S.synthesize_block(Y, M, T, 1, zero),
+        "synth_plain": lambda: S.synthesize_block_reference(Y, M, T, 1,
+                                                            zero),
+    }, 10, KERNEL_REPS)
+    res.update(t)
+    res["analysis_bound"], _ = bound(
+        M, T, n_sub_rx, nbytes(xa, *KA._tables(M, T, dev)) + M * n_sub_rx * 8)
+    res["synth_bound"], _ = bound(M, T, n_sub_tx, 2 * nbytes(zero)
+                                  + nbytes(Y) + n_sub_tx * P * 8)
+    log(f"  at the workers' shapes: analysis Nh={n_sub_rx} planar, max|err| "
+        f"{err:.3e} <= {ANALYSIS_ATOL} over both parities, {t['analysis']:.3f}"
+        f" ms (plain {t['analysis_plain']:.3f}, bound "
+        f"{res['analysis_bound']:.3f}); synth Nh={n_sub_tx} from a zero "
+        f"carry, max|err| {serr:.3e} ({srel:.2e} of RMS <= {SYNTH_RTOL}), "
+        f"{t['synth']:.3f} ms (plain {t['synth_plain']:.3f}, bound "
+        f"{res['synth_bound']:.3f})")
+    st0 = pl.sharded_stream_state(spec, hal, dev)
+    ms = timed({"step": lambda: step(wp, st0, blocks[1])}, 10)["step"]
+    rx_n, tx_n = block * P, MESH_FRAMES * 2778 * P
+    res["step_ms"] = ms
+    log(f"  one step: {ms:.3f} ms a block (median of 10, CUDA events): RX "
+        f"{rx_n / ms / 1e3:.1f} Msamples/s ({rx_n} samples), TX "
+        f"{tx_n / ms / 1e3:.1f} Msamples/s ({tx_n} samples), on {card}")
+    busy, wall, _ = profile_window("one sharded full-duplex step (2x2, "
+                                   "workers sharing the card)",
+                                   lambda: step(wp, st0, blocks[1]), dev,
+                                   top=8)
+    res["step_idle"] = 1 - busy / wall
+    return res
+
+
+def phase_mesh_loop(dev, M, T, card, nblocks=8, n_runs=3):
+    """Phase 22: ``make_sharded_closed_loop_stream`` on the 2x2 mesh,
+    ``nblocks`` blocks of MESH_FRAMES frames with external traffic (rows
+    of MESH_ROW_HOPS; bursts in several blocks, one across a block
+    boundary): its per-block counts equal the manual steps', the bursts
+    decode; then its ms a block beside the single-device closed loop
+    (phase 14's function, same spec and frames) in this process."""
+    from amps_tpu_torch.eval.traffic import (MobileEvent,
+                                             synthesize_reverse_band)
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import synth as S
+    from amps_tpu_torch.parallel import pipeline as pl
+    from amps_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from amps_tpu_torch.runtime import streamer as st
+    spec = mesh_spec(M, T)
+    P, block = M // 2, 2 * MESH_ROW_HOPS
+    mesh = make_mesh(MeshSpec(2, 2), [dev])
+    log(f"phase 22: the sharded closed loop, 2x2 mesh on {mesh.device}, M={M},"
+        f" {nblocks} blocks of {MESH_FRAMES} frames TX and {block} hops RX "
+        f"traffic, on {card}")
+    events = [MobileEvent("page_response", 2, 5000, "4155559876"),
+              MobileEvent("registration", M // 3, 3 * block + 9000,
+                          "9165554321", esn=9),
+              MobileEvent("origination", M - 4, 5 * block - 5000,
+                          "5551234567", "7025551000", esn=77)]
+    x = synthesize_reverse_band(events, spec, nblocks * block,
+                                noise_sigma=1e-3, device=dev)
+    x_rx = x.reshape(nblocks, block * P, 2)
+    wp = torch.as_tensor(loop_pairs(M, MESH_FRAMES), device=dev)
+    run, block_samples = pl.make_sharded_closed_loop_stream(
+        mesh, spec, nblocks, frames=MESH_FRAMES, max_bursts=2,
+        rx_external=True)
+    sync(dev)
+    KA.LAUNCHES = S.LAUNCHES = 0
+    n_valid, q_max, n_ok = (v.cpu().numpy() for v in run(wp, x_rx))
+    launches = (KA.LAUNCHES, S.LAUNCHES)
+    assert launches == (4 * nblocks, 4 * nblocks), launches
+    step = pl.make_sharded_bs_stream_step(mesh, spec, max_bursts=2,
+                                          rx_external=True)
+    s = pl.sharded_stream_state(spec, pl.full_demod_halo(spec), dev)
+    for b in range(nblocks):
+        out, s = step(wp, s, x_rx[b])
+        assert int(out["valid"].sum()) == n_valid[b]
+        assert int(out["word_ok"].sum()) == n_ok[b]
+        assert float(out["quality"].max()) == q_max[b]
+    words = sum(len(ev.words()) for ev in events)
+    assert int(n_valid.sum()) >= len(events) and int(n_ok.sum()) >= words
+    log(f"  n_valid {n_valid.tolist()}, n_word_ok {n_ok.tolist()} (>= "
+        f"{len(events)} bursts, {words} words), each block equal to the "
+        f"manual step; launches analysis {launches[0]}, synth {launches[1]}")
+    single = st.make_closed_loop_stream(spec, nblocks, MESH_FRAMES)[0]
+    eager = st.make_closed_loop_stream(spec, nblocks, MESH_FRAMES,
+                                       graph=False)[0]
+    wp_np = loop_pairs(M, MESH_FRAMES)
+    t = timed({"sharded": lambda: run(wp, x_rx),
+               "single_graph": lambda: single(wp_np),
+               "single_eager": lambda: eager(wp_np)}, n_runs)
+    out = {k: v / nblocks for k, v in t.items()}
+    out["launches"] = launches
+    log(f"  ms a block (median of {n_runs} runs, CUDA events): sharded "
+        f"{out['sharded']:.3f} ({block * P / out['sharded'] / 1e3:.1f} "
+        f"Msamples/s RX + {block_samples / out['sharded'] / 1e3:.1f} TX); "
+        f"single-device loop (TX -> RX loopback of the same {MESH_FRAMES} "
+        f"frames) graph {out['single_graph']:.3f}, eager "
+        f"{out['single_eager']:.3f}; on {card}")
+    return out
+
+
+def phase_mesh_app(dev, M, card, max_blocks=30):
+    """Phase 23: ``python -m amps_tpu_torch bs --mesh 2x2`` at M through
+    the dispatcher, a scripted mobile on the reverse band, the operator's
+    page through the command server's socket: page -> response ->
+    assignment -> alert -> answer -> conversation -> the mobile's ST
+    release, within ``max_blocks`` blocks.  Each block launches K1 and K4
+    once a worker and K1 once more for the mobile's ear.  Returns the
+    launches (analysis, synth)."""
+    import socket
+    import threading
+    from amps_tpu_torch.__main__ import main as cli
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import synth as S
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = ["bs", "--mesh", "2x2", "--channels", str(M), "--port", str(port),
+            "--simulate", "mobile:5551234567", "--voice-slot-map",
+            "355:4,356:5", "--sup-timers", "3.0:0.8", "--blocks",
+            str(max_blocks)]
+    log(f"phase 23: python -m amps_tpu_torch {' '.join(argv)}, the page "
+        f"through the socket, on {card}")
+    result = {}
+    sync(dev)
+    KA.LAUNCHES = S.LAUNCHES = 0
+    th = threading.Thread(target=quiet(lambda: cli(argv, _result=result)))
+    th.start()
+    deadline = time.time() + 120
+    sock = None
+    while sock is None and time.time() < deadline and th.is_alive():
+        try:
+            sock = socket.create_connection(("127.0.0.1", port), timeout=1)
+        except OSError:
+            time.sleep(0.1)
+    assert sock is not None, "command server never came up"
+    sock.sendall(b"page 5551234567\n")
+    sock.close()
+    th.join(timeout=600)
+    assert not th.is_alive(), "the mesh station did not finish"
+    sync(dev)
+    launches = (KA.LAUNCHES, S.LAUNCHES)
+    mob, station, n = result["mob"], result["station"], len(result["block_s"])
+    assert mob.log[:4] == ["paged", "assigned 355", "ringing", "answered"], \
+        mob.log
+    assert "hang_up" in mob.log and not station.supervisors, mob.log
+    rel = [e.payload for e in station.events
+           if e.kind == "supervision_event" and e.payload.kind == "release"]
+    assert len(rel) == 1 and "ST" in rel[0].reason, rel
+    assert launches == (5 * n, 4 * n), (launches, n)
+    ms = 1e3 * np.asarray(result["block_s"])
+    tx_n, rx_n = 50004 * (M // 2), result["rx_samples"]
+    log(f"  mobile log {mob.log}; timeline {result['timeline']}; {n} blocks;"
+        f" launches analysis {launches[0]} (4 workers + the ear a block), "
+        f"synth {launches[1]}")
+    log(f"  per block (host, synced, the mobile's ear and the reverse-band "
+        f"synthesis included): median {np.median(ms):.1f} ms, min "
+        f"{ms.min():.1f}, max {ms.max():.1f}; TX {tx_n / np.median(ms) / 1e3:.1f}"
+        f" and RX {rx_n / np.median(ms) / 1e3:.1f} Msamples/s at the median, "
+        f"on {card}")
+    return launches
+
+
+def phase_mesh_dryrun(card, M, T):
+    """Phase 24: ``dryrun_multichip(4)`` (2x2, M=32) and ``weak_scaling``
+    at 1, 2 and 4 workers at M, the workers sharing the one card."""
+    from amps_tpu_torch.dryrun import dryrun_multichip
+    from amps_tpu_torch.eval.scaling import weak_scaling
+    log(f"phase 24: dryrun_multichip(4) and weak_scaling at 1, 2, 4 workers "
+        f"(all sharing one card: this measures that each size runs, not "
+        f"multi-card scaling), on {card}")
+    s = dryrun_multichip(4)
+    assert s["bursts"] == 4 and len(s["devices"]) == 1, s
+    res = weak_scaling((1, 2, 4), spec=mesh_spec(M, T), frames_per_device=2,
+                       iters=3)
+    for size, r in res.items():
+        assert r["devices"] == 1
+        log(f"  {size} worker(s) on {r['devices']} card, M={M}: "
+            f"{r['samples_per_sec'] / 1e6:.1f} Msamples/s, "
+            f"{r['per_worker'] / 1e6:.1f} a worker, efficiency "
+            f"{r['efficiency']:.3f}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU",
@@ -2120,6 +2458,12 @@ def main() -> int:
     phase_ring(dev, M, card)
     phase_entry_points(dev, card)
 
+    # -- phases 21-24: the multi-device station on one card ----------------
+    mesh = phase_mesh_step(dev, M, T, card)
+    mesh_loop = phase_mesh_loop(dev, M, T, card)
+    mesh_app = phase_mesh_app(dev, M, card)
+    phase_mesh_dryrun(card, M, T)
+
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
@@ -2145,7 +2489,14 @@ def main() -> int:
         entry("analysis", "amps_tpu/pallas/channelizer_kernel.py:151",
               call_launches["analysis"], max(ana_err.values()),
               ana_times[M, 50004],
-              launches_by_path={"call": call_launches["analysis"]}),
+              launches_by_path={"call": call_launches["analysis"],
+                                "sharded_step": mesh["launches"][0],
+                                "sharded_loop": mesh_loop["launches"][0],
+                                "mesh_app": mesh_app[0]},
+              sharded_max_abs_err=mesh["analysis_err"],
+              sharded_ms=mesh["analysis"],
+              sharded_plain_ms=mesh["analysis_plain"],
+              sharded_bound_ms=mesh["analysis_bound"]),
         # launches_by_path: each path driven with the count set to 0 just
         # before it; the loop's are those of one graph run of 32 blocks,
         # loop_graph_spans the kernel's spans the profiler saw in such a run
@@ -2176,7 +2527,13 @@ def main() -> int:
               tx_launches, synth_err[1024], times["synth_sf"],
               launches_by_path={"transmitter": tx_launches,
                                 "closed_loop": loop["launches"][0],
-                                "station_app": app_launches[0]},
+                                "station_app": app_launches[0],
+                                "sharded_step": mesh["launches"][1],
+                                "sharded_loop": mesh_loop["launches"][1],
+                                "mesh_app": mesh_app[1]},
+              sharded_max_abs_err=mesh["synth_err"],
+              sharded_ms=mesh["synth"], sharded_plain_ms=mesh["synth_plain"],
+              sharded_bound_ms=mesh["synth_bound"],
               loop_graph_spans=loop["synth_spans"],
               loop_max_abs_err=max(loop["synth_err"], loop_err["synth"]),
               loop_ms=loop["synth"], loop_in_graph_ms=loop["synth_dev"],

@@ -55,9 +55,119 @@ def test_bs_without_device_raises_without_cuda(monkeypatch):
                      "--no-server"])
 
 
-def test_bs_mesh_exits_naming_m7():
-    with pytest.raises(SystemExit, match="M7"):
-        cli(["bs", "--mesh", "2x2", "--channels", "8", "--device", "cpu"])
+def test_bs_mesh_exits_naming_m7(capsys):
+    """``bs --mesh`` runs the multi-device station (it once exited naming
+    ROADMAP M7): two blocks of a 2x2 mesh on CPU workers."""
+    assert cli(["bs", "--mesh", "2x2", "--channels", "8", "--device", "cpu",
+                "--no-server", "--blocks", "2"]) is None
+    out = capsys.readouterr().out
+    assert "M7" not in out
+    assert "[bs] block 1: tx 200016 samples" in out
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_app(package, args, page_port=None):
+    """One run of the mesh app of either package; with ``page_port`` the
+    app serves commands there and an operator pages 5551234567 through
+    the socket once the server is up."""
+    import socket
+    import threading
+    import time
+    from apps import bs_app as jbs_app
+    result = {}
+    if package == "port":
+        argv = ["--mesh", "2x2", "--channels", "8", "--device", "cpu", *args]
+        main = bs_app.main
+    else:
+        argv = ["--mesh", "2x2", "--channels", "8", "--platform", "cpu",
+                *args]
+        main = jbs_app.main
+    if page_port is None:
+        main(argv + ["--no-server"], result)
+        return result
+    th = threading.Thread(target=main,
+                          args=(argv + ["--port", str(page_port)], result),
+                          daemon=True)
+    th.start()
+    deadline = time.time() + 300
+    sock = None
+    while time.time() < deadline and sock is None:
+        try:
+            sock = socket.create_connection(("127.0.0.1", page_port),
+                                            timeout=1)
+        except OSError:
+            time.sleep(0.2)
+    assert sock is not None, "command server never came up"
+    sock.sendall(b"page 5551234567\n")
+    time.sleep(0.2)
+    sock.close()
+    th.join(timeout=600)
+    assert not th.is_alive(), "mesh station did not finish"
+    return result
+
+
+def _events(station):
+    return [(e.kind, str(e.payload)) for e in station.events]
+
+
+SUP_ARGS = ["--voice-slot-map", "355:4,356:5", "--sup-timers", "3.0:0.8"]
+MESH_SCENARIOS = {
+    "origination": (["--simulate", "mobile:5551234567:originate:7025551000",
+                     *SUP_ARGS, "--blocks", "30"],
+                    ["originate 7025551000", "assigned 355", "hang_up"]),
+    "two_calls": (["--simulate", "mobile:5551234567:originate:7025551000:2:3",
+                   "--simulate", "mobile:4155559876:originate:7025552000:5:6",
+                   *SUP_ARGS, "--blocks", "40"],
+                  ["originate 7025551000", "assigned 355", "hang_up"]),
+    "registration": (["--simulate", "mobile:2135551212:register:2",
+                      "--blocks", "6"], ["register", "audit_confirmed"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MESH_SCENARIOS))
+def test_mesh_station_matches_jax(name):
+    """tests/test_apps.py's mesh scenarios through both apps (2x2, M=8):
+    the port's station log, its supervision timeline and each mobile's
+    log equal the JAX app's."""
+    args, first_log = MESH_SCENARIOS[name]
+    got, want = _mesh_app("port", args), _mesh_app("jax", args)
+    assert got["timeline"] == want["timeline"]
+    assert [m.log for m in got["mobs"]] == [m.log for m in want["mobs"]]
+    assert got["mobs"][0].log == first_log
+    assert _events(got["station"]) == _events(want["station"])
+    assert not got["station"].supervisors
+    if name == "two_calls":
+        rels = [e.payload.channel for e in got["station"].events
+                if e.kind == "supervision_event"
+                and e.payload.kind == "release"]
+        assert rels == [355, 356]
+    if name != "registration":
+        assert any(k == "release" for k, _ in got["timeline"])
+
+
+def test_mesh_station_paged_through_the_socket_matches_jax():
+    """The operator pages through the command server of each app; the
+    mobile answers over the sharded RX, SAT/ST through the sharded
+    analysis drive the call to its ST release: the same supervision
+    timeline and mobile log as the JAX app."""
+    args = ["--simulate", "mobile:5551234567", *SUP_ARGS, "--blocks", "30"]
+    got = _mesh_app("port", args, _free_port())
+    want = _mesh_app("jax", args, _free_port())
+    assert got["mob"].log[:4] == ["paged", "assigned 355", "ringing",
+                                  "answered"]
+    assert got["mob"].log == want["mob"].log
+    assert got["timeline"] == want["timeline"]
+    kinds = [k for _, k in got["timeline"]]
+    assert "answer" in kinds and "release" in kinds
+    assert any(e.kind == "debug" and "paging" in str(e.payload)
+               for e in got["station"].events)
+    assert not got["station"].supervisors
 
 
 def test_bs_voice_slots_and_two_mobiles():

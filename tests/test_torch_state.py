@@ -401,3 +401,128 @@ def test_station_checkpoint_refuses_other_kinds(tmp_path):
     tstate.save_transmitter(path, tx)
     with pytest.raises(ValueError, match="not a station"):
         tstate.load_station(path, TStation())
+
+
+# -- the sharded receiver ----------------------------------------------------
+
+def _sharded(package, **kw):
+    """A 2x2 sharded receiver of either package (the port's on CPU
+    workers, the JAX package's on four virtual devices)."""
+    kw = dict(max_bursts=4, threshold=0.55, policy="first_ok",
+              min_rssi=0.05, **kw)
+    if package == "port":
+        from amps_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+        from amps_tpu_torch.parallel.stream import ShardedReceiver
+        return ShardedReceiver(make_mesh(MeshSpec(2, 2), ["cpu"]), TSPEC,
+                               **kw)
+    import jax
+    from amps_tpu.parallel.mesh import MeshSpec, make_mesh
+    from amps_tpu.parallel.stream import ShardedReceiver
+    return ShardedReceiver(make_mesh(MeshSpec(2, 2), jax.devices()[:4]),
+                           JSPEC, **kw)
+
+
+@functools.cache
+def _sharded_stream():
+    """3 blocks of 2 rows x 12480 hops; one burst spans the block 1|2
+    boundary, where the checkpoints are taken."""
+    block = 2 * 12480
+    events = [MobileEvent("page_response", 2, 5000, "4155559876"),
+              MobileEvent("origination", 5, 2 * block - 4000, "5551234567",
+                          "7025551000", esn=11)]
+    x = synthesize_reverse_band(events, JSPEC, 3 * block, noise_sigma=0.001)
+    return [x[i: i + block * P] for i in range(0, len(x), block * P)], events
+
+
+def test_sharded_receiver_checkpoint_resume(tmp_path):
+    """Mid-stream checkpoint -> a fresh ShardedReceiver -> restore: the
+    resumed stream's reports are bit-identical to an uninterrupted
+    receiver's."""
+    blocks, events = _sharded_stream()
+    ref_rx = _sharded("port")
+    ref = [r for b in blocks for r in ref_rx.push(b)] + ref_rx.flush()
+    rx = _sharded("port")
+    got = rx.push(blocks[0]) + rx.push(blocks[1])
+    path = str(tmp_path / "sharded.npz")
+    tstate.save_sharded_receiver(path, rx)
+    rx2 = _sharded("port")
+    tstate.load_sharded_receiver(path, rx2)
+    got += rx2.push(blocks[2]) + rx2.flush()
+    assert len(got) == len(ref) == len(events)
+    assert _keys(got) == _keys(ref)
+    assert [(r.quality, r.rssi) for r in got] == \
+        [(r.quality, r.rssi) for r in ref]
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_sharded_checkpoint_across_packages(tmp_path, direction):
+    """A sharded checkpoint of one package resumes in the other: the
+    JAX file's stream state crosses through convert.sharded_state_from_jax
+    (what load_sharded_receiver uses), and the resumed receiver reports
+    what the writer reports on the next block."""
+    import jax
+    blocks, events = _sharded_stream()
+    src, dst = (("jax", "port") if direction == "jax_to_port"
+                else ("port", "jax"))
+    writer = _sharded(src)
+    writer.push(blocks[0])
+    writer.push(blocks[1])
+    path = str(tmp_path / "sharded.npz")
+    (jstate if src == "jax" else tstate).save_sharded_receiver(path, writer)
+    reader = _sharded(dst)
+    (jstate if dst == "jax" else tstate).load_sharded_receiver(path, reader)
+    if src == "jax":
+        want_state = convert.sharded_state_from_jax(
+            jax.device_get(writer._state), "cpu")
+        for k in ("hist", "iq_carry", "syn_carry"):
+            assert torch.equal(reader._state[k], want_state[k])
+        assert reader._state["parity"] == want_state["parity"] == 0
+    want = writer.push(blocks[2]) + writer.flush()
+    got = reader.push(blocks[2]) + reader.flush()
+    assert len(got) == 1 and got[0].channel == events[1].channel
+    assert _keys(got) == _keys(want)
+    assert abs(got[0].quality - want[0].quality) <= 2e-4
+
+
+def test_sharded_supervision_carry_survives_checkpoint(tmp_path):
+    """The sub-frame supervision leftover is part of the sharded
+    checkpoint: a resumed stream measures the same frames."""
+    from amps_tpu_torch.dsp import channelizer as chz
+    from amps_tpu_torch.dsp.fm import fm_modulate
+    nh_row, SLOT = 11520, 5
+    n = 3 * 2 * nh_row
+    t = np.arange(n) / float(TSPEC.pipe.chan_rate)
+    Y = torch.zeros((n, M, 2))
+    Y[:, SLOT] = fm_modulate(torch.as_tensor(
+        0.05 * np.cos(2 * np.pi * 6000.0 * t), dtype=torch.float32),
+        TSPEC.fm_sensitivity)[0]
+    x, _ = chz.synthesize(Y, TSPEC.chz_spec,
+                          chz.synthesizer_init(TSPEC.chz_spec, device="cpu"))
+    blk = 2 * nh_row * P
+
+    def run(split):
+        frames = []
+        kw = dict(supervision_slots=(SLOT,),
+                  on_supervision=lambda s, lv, pw: frames.append(
+                      (lv.copy(), pw.copy())))
+        rx = _sharded("port", **kw)
+        for b in range(3):
+            rx.push(x[b * blk:(b + 1) * blk])
+            if split and b == 0:
+                path = str(tmp_path / "sup.npz")
+                tstate.save_sharded_receiver(path, rx)
+                rx = _sharded("port", **kw)
+                tstate.load_sharded_receiver(path, rx)
+        return frames
+
+    ref, got = run(False), run(True)
+    assert len(ref) == len(got) == 3
+    for (la, pa), (lb, pb) in zip(ref, got):
+        assert np.array_equal(la, lb) and np.array_equal(pa, pb)
+
+
+def test_sharded_checkpoint_refuses_other_kinds(tmp_path):
+    rx = _sharded("port")
+    with pytest.raises(ValueError, match="not a sharded receiver"):
+        tstate.restore_sharded_receiver(tstate.snapshot_receiver(
+            TRx(TSPEC, device="cpu")), rx)
