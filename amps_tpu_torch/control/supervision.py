@@ -112,6 +112,22 @@ class SupervisionConfig:
     carrier_guard_max: float = 0.04
 
 
+# SAT return debounce (measured feeds, with the guard column): a
+# DECLARED SAT loss (3 frames) ends only after good SAT on this many
+# seconds of consecutive frames -- the mirror of the 3-frame loss
+# declaration.  On a dead carrier seen through the channelizer the
+# guard bins fluctuate, so white discriminator noise passes the
+# carrier gate on isolated frames (about 3 of 120 at M=128), and
+# the 120 ms SAT aggregate then reads one of them as SAT back: the
+# fade timer restarted and a dead call outlived its fade timeout (3
+# of 12 noise draws of the one-call voice soak at M=128, in both
+# packages alike; the port's voice soak on the H100).  A returning
+# SAT holds on every frame: its sat_back, dated by its first frame as
+# before, is emitted two frames later (the fade timer runs on
+# meanwhile).  Legacy (F, 4) feeds keep the single-frame return.
+SAT_BACK_CONFIRM_S = 0.03
+
+
 def classify_frames(levels, power, scc: int, cfg: "SupervisionConfig"):
     """Vectorized evaluation of the production supervision gates:
     (carrier, sat_ok, st_on) boolean arrays for (F, n_tones) levels +
@@ -177,6 +193,9 @@ class ChannelSupervisor:
         self.state = state
         self.t = 0.0
         self._sat_loss_t = 0.0     # continuous seconds without good SAT
+        self._sat_back_run = 0.0   # consecutive good-SAT seconds ending a
+        self._sat_back_t0 = 0.0    # declared loss (SAT_BACK_CONFIRM_S),
+                                   # and the time of the first
         self._st_run_t = 0.0       # ST-present seconds (continuous in
                                    # CONVERSATION; accumulated while
                                    # ALERTING, see _step)
@@ -190,8 +209,10 @@ class ChannelSupervisor:
 
     # -- plumbing ----------------------------------------------------------
 
-    def _emit(self, kind: str, reason: str = "") -> None:
-        ev = SupervisionEvent(kind, self.channel, reason, self.t)
+    def _emit(self, kind: str, reason: str = "",
+              t: Optional[float] = None) -> None:
+        ev = SupervisionEvent(kind, self.channel, reason,
+                              self.t if t is None else t)
         self.events.append(ev)
         if self.on_event:
             self.on_event(ev)
@@ -228,24 +249,41 @@ class ChannelSupervisor:
         power = np.asarray(power)
         carrier_v, sat_ok_v, st_on_v = classify_frames(
             levels, power, self.scc, cfg)
+        confirm = levels.shape[-1] > 4
         for f in range(levels.shape[0]):
             if self.state in (IDLE, RELEASED):
                 self.t += cfg.frame_s
                 continue
             self._step(bool(sat_ok_v[f]), bool(st_on_v[f]),
-                       bool(carrier_v[f]))
+                       bool(carrier_v[f]), confirm)
             self.t += cfg.frame_s
 
-    def _step(self, sat_ok: bool, st_on: bool, carrier: bool = True) -> None:
+    def _step(self, sat_ok: bool, st_on: bool, carrier: bool = True,
+              confirm: bool = False) -> None:
         cfg = self.cfg
         # SAT / carrier fade timing (553 §2.4.2)
         was_lost = self._sat_loss_t > 0.0
-        if sat_ok or (st_on and self.state == ALERTING):
-            # during alerting the mobile sends ST; treat it as proof of
-            # life even if SAT measurement is degraded by the tone
+        # during alerting the mobile sends ST; treat it as proof of life
+        # even if SAT measurement is degraded by the tone
+        present = sat_ok or (st_on and self.state == ALERTING)
+        t_back = self.t
+        if present and confirm and self._sat_loss_t >= cfg.frame_s * 3:
+            # a declared loss ends only once SAT has held (see
+            # SAT_BACK_CONFIRM_S); until then the loss clock runs on.
+            # The return is dated by its first frame, as without it.
+            if self._sat_back_run == 0.0:
+                self._sat_back_t0 = self.t
+            self._sat_back_run += cfg.frame_s
+            present = self._sat_back_run >= \
+                SAT_BACK_CONFIRM_S - cfg.frame_s / 2
+            t_back = self._sat_back_t0
+        else:
+            self._sat_back_run = 0.0
+        if present:
             if was_lost and self._sat_loss_t >= cfg.frame_s * 3:
-                self._emit("sat_back")
+                self._emit("sat_back", t=t_back)
             self._sat_loss_t = 0.0
+            self._sat_back_run = 0.0
         else:
             self._sat_loss_t += cfg.frame_s
             if abs(self._sat_loss_t - cfg.frame_s * 3) < cfg.frame_s / 2:

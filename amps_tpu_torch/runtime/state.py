@@ -61,8 +61,8 @@ def snapshot_receiver(rx) -> Dict[str, np.ndarray]:
 
 
 def restore_receiver(snap, rx) -> None:
-    """Restore a snapshot_receiver dict (or its .npz) into a receiver of
-    the same spec."""
+    """Restore a snapshot_receiver dict (or its .npz, either package's)
+    into a receiver of the same spec."""
     if str(snap["kind"]) != "receiver":
         raise ValueError(f"not a receiver snapshot: {snap['kind']}")
 
@@ -75,11 +75,16 @@ def restore_receiver(snap, rx) -> None:
     rx._prev = dev(snap["prev"])
     rx._abs_base = int(snap["abs_base"])
     rx._last_seen = np.asarray(snap["last_seen"], np.int64).copy()
-    rx._pw_carry = dev(snap["pw_carry"])
-    residue = np.asarray(snap["residue"], np.float32)
-    rx._residue = dev(residue) if residue.shape[0] else None
-    rx._last_block_len = int(snap["last_block_len"])
+    # the JAX package's files have no residue or block length, and older
+    # ones no pw_carry (the fresh receiver's zeros stay)
     keys = snap.files if hasattr(snap, "files") else snap.keys()
+    if "pw_carry" in keys:
+        rx._pw_carry = dev(snap["pw_carry"])
+    residue = (np.asarray(snap["residue"], np.float32) if "residue" in keys
+               else np.zeros((0, 2), np.float32))
+    rx._residue = dev(residue) if residue.shape[0] else None
+    if "last_block_len" in keys:
+        rx._last_block_len = int(snap["last_block_len"])
     if "sup_carry" in keys and rx._sup_carry is not None:
         sc = np.asarray(snap["sup_carry"], np.float32)
         if sc.shape[0] == rx._sup_carry.shape[0]:
@@ -204,7 +209,8 @@ def save_station(path: str, bs, sources: Optional[dict] = None) -> None:
         payload[f"sup_{c}"] = np.asarray(
             [_SUP_STATES.index(s.state), s.t, s._sat_loss_t, s._st_run_t,
              s._alert_t, float(s._st_seen_in_alert),
-             s._st_quiet_t, s._conv_run_snap], np.float64)
+             s._st_quiet_t, s._conv_run_snap, s._sat_back_run,
+             s._sat_back_t0], np.float64)
     # per-channel FVC streams + mute pairs (per_channel_fvc stations)
     fchans = sorted(bs.fvc_streams)
     payload["fvc_channels"] = np.asarray(fchans, np.int64)
@@ -284,6 +290,10 @@ def load_station(path: str, bs, sources: Optional[dict] = None) -> None:
         sup._st_seen_in_alert = bool(vec[5])
         sup._st_quiet_t = float(vec[6])
         sup._conv_run_snap = float(vec[7])
+        # the SAT-return run and its start (port fields: the JAX package
+        # reads the first eight and writes no more)
+        if len(vec) > 9:
+            sup._sat_back_run, sup._sat_back_t0 = float(vec[8]), float(vec[9])
         bs.supervisors[c] = sup
 
 

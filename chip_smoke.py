@@ -16,7 +16,11 @@ over the native ring, the link-quality curve, the capture monitor and
 the demo; the multi-device station on the card -- the sharded
 full-duplex step and closed loop on a 2x2 mesh whose four workers share
 it (each worker's analysis on K1, its synthesis on K4), ``bs --mesh 2x2``
-through a paged call, ``dryrun_multichip(4)`` and weak scaling; and
+through a paged call, ``dryrun_multichip(4)`` and weak scaling; the
+station's certification -- every soak of ``eval/soak.py`` at its full
+size, each held to its bar, and the paced legs of ``eval/pacing.py``
+shortened (receive 20 s with no deadline miss, full duplex 10 s threaded
+and 10 s in one thread); and
 times kernels and paths against their plain versions,
 their bounds and a cuFFT yardstick, with profiler windows of one
 one-shot block, one receiver push, one transmitter superframe, one
@@ -36,7 +40,9 @@ moved), its transform ("fft": all four run the all-channel FFT tile),
 the cuFFT time of its transform alone, its error at the small banks and
 its launches and times on the closed loop or the batched block, and for
 K1 and K4 their launches, errors and times at the sharded workers'
-shapes.  Without a CUDA card it exits non-zero.
+shapes; ``launches_by_path`` counts each kernel's launches on every path
+it runs, the soaks' and the paced legs' among them.  Without a CUDA card
+it exits non-zero.
 """
 
 from __future__ import annotations
@@ -2257,6 +2263,99 @@ def phase_mesh_dryrun(card, M, T):
     return res
 
 
+SOAK_SHARDED_1024 = 1024    # the sharded soak also runs at the full bank
+PACING_SECONDS = {"rx": 20.0, "fdx": 10.0, "fdx1": 10.0}
+
+
+def launched(counts: dict, path: str) -> None:
+    """A path that ran none of its kernels was not the ported path."""
+    assert any(counts.values()), (path, counts)
+
+
+def phase_soaks(dev, card, sizes=None):
+    """Phase 25: every certification soak of ``eval/soak.py`` at its JAX
+    artifact's size (the sharded soak also at M=1024), each family's
+    verdict held to its bar; the clean soak's reports with the kernel
+    front end against those with the plain front end.  ``sizes``: keyword
+    overrides a family (a smaller rehearsal)."""
+    from amps_tpu_torch.eval import soak
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import rx_front as KR
+    from amps_tpu_torch.kernels.rx_front import analyze_demod_reference
+    from amps_tpu_torch.parallel.pipeline import MultichannelSpec
+    sizes = sizes or {}
+    log(f"phase 25: the certification soaks at full size on {card}")
+
+    def emit(**kw):
+        if kw["event"] in ("done", "verdict", "checkpoint_restore"):
+            log(json.dumps(kw, default=soak._jsonable))
+
+    runs = [(name, name, {}) for name in soak.FAMILIES]
+    runs.insert(6, ("sharded_1024", "sharded", {"spec": MultichannelSpec(
+        num_channels=SOAK_SHARDED_1024, taps_per_phase=8)}))
+    out, launches, clean_reports = {}, {}, []
+    for label, family, kw in runs:
+        kw = dict(kw, **sizes.get(label, {}))
+        if family == "clean":
+            kw["reports"] = clean_reports
+        sync(dev)
+        KR.LAUNCHES = KA.LAUNCHES = 0
+        v = getattr(soak, family)(dev, emit=emit, **kw)
+        sync(dev)
+        launches[label] = {"rx_front": KR.LAUNCHES, "analysis": KA.LAUNCHES}
+        launched(launches[label], f"soak {label}")
+        out[label] = v
+        log(f"  {label}: ok {v['ok']}, {v['wall_s']:.3f} s streaming, "
+            f"{v['streaming_msps']:.1f} Msamples/s; launches "
+            f"{launches[label]}")
+        assert v["ok"], (label, v)
+    plain = []
+    soak.clean(dev, front_end=analyze_demod_reference, reports=plain,
+               emit=emit, **sizes.get("clean", {}))
+    assert [report_key(r) for r in plain] == \
+        [report_key(r) for r in clean_reports]
+    log(f"  clean soak: {len(plain)} reports with the plain front end, "
+        f"identical to the kernel's")
+    log(json.dumps({"soaks": {k: {f: v[f] for f in (
+        "ok", "n_events", "found", "exact", "dcc_ok", "exactly_once",
+        "duplicates", "ghosts", "misdecodes", "recoveries", "snapshot_ms",
+        "wall_s", "samples", "streaming_msps", "realtime_factor",
+        "host_us_per_call_block", "timeline") if f in v}
+        for k, v in out.items()}, "card": card}, default=soak._jsonable))
+    return launches
+
+
+def phase_pacing(dev, card, seconds=None, **kw):
+    """Phase 26: the paced legs of ``eval/pacing.py``, shortened: rx 20
+    s (zero deadline misses, every burst exactly once a period), then
+    full duplex 10 s threaded and 10 s in one thread (every block
+    received; misses recorded, not held)."""
+    from amps_tpu_torch.eval import pacing
+    from amps_tpu_torch.kernels import rx_front as KR
+    from amps_tpu_torch.kernels import synth as KS
+    seconds = seconds or PACING_SECONDS
+    log(f"phase 26: the paced legs at {pacing.CHANNEL_RATE * 1024 / 1e6} "
+        f"Msamples/s, rx {seconds['rx']} s, fdx and fdx1 {seconds['fdx']} s "
+        f"each, on {card}")
+    launches, res = {}, {}
+    for leg in ("rx", "fdx", "fdx1"):
+        sync(dev)
+        KR.LAUNCHES = KS.LAUNCHES = 0
+        r = pacing.LEGS[leg](seconds[leg], dev, **kw)
+        sync(dev)
+        launches[leg] = {"rx_front": KR.LAUNCHES, "synth": KS.LAUNCHES}
+        launched(launches[leg], f"pacing {leg}")
+        res[leg] = r
+        log(json.dumps(dict(r, card=card, launches=launches[leg])))
+        if leg == "rx":
+            assert r["deadline_misses"] == 0, r
+            assert r["exactly_once_per_period"], r
+        else:
+            launched({"synth": launches[leg]["synth"]}, f"pacing {leg} TX")
+            assert r["tx_blocks"] == r["rx_blocks"] == r["blocks"], r
+    return launches, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU",
@@ -2464,6 +2563,10 @@ def main() -> int:
     mesh_app = phase_mesh_app(dev, M, card)
     phase_mesh_dryrun(card, M, T)
 
+    # -- phases 25-26: the certification soaks and the paced legs ----------
+    soak_launches = phase_soaks(dev, card)
+    pace_launches, _ = phase_pacing(dev, card)
+
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
@@ -2492,7 +2595,10 @@ def main() -> int:
               launches_by_path={"call": call_launches["analysis"],
                                 "sharded_step": mesh["launches"][0],
                                 "sharded_loop": mesh_loop["launches"][0],
-                                "mesh_app": mesh_app[0]},
+                                "mesh_app": mesh_app[0],
+                                **{f"soak_{k}": n["analysis"]
+                                   for k, n in soak_launches.items()
+                                   if n["analysis"]}},
               sharded_max_abs_err=mesh["analysis_err"],
               sharded_ms=mesh["analysis"],
               sharded_plain_ms=mesh["analysis_plain"],
@@ -2514,7 +2620,12 @@ def main() -> int:
               launches_by_path={"receiver": rx_launches,
                                 "closed_loop": loop["launches"][1],
                                 "supervision": sup_launches,
-                                "station_app": app_launches[1]},
+                                "station_app": app_launches[1],
+                                **{f"soak_{k}": n["rx_front"]
+                                   for k, n in soak_launches.items()
+                                   if n["rx_front"]},
+                                **{f"pacing_{k}": n["rx_front"]
+                                   for k, n in pace_launches.items()}},
               station_app_max_abs_err=app_front_err,
               loop_graph_spans=loop["rx_front_spans"],
               loop_max_abs_err=max(loop["rx_front_err"],
@@ -2530,7 +2641,9 @@ def main() -> int:
                                 "station_app": app_launches[0],
                                 "sharded_step": mesh["launches"][1],
                                 "sharded_loop": mesh_loop["launches"][1],
-                                "mesh_app": mesh_app[1]},
+                                "mesh_app": mesh_app[1],
+                                "pacing_fdx": pace_launches["fdx"]["synth"],
+                                "pacing_fdx1": pace_launches["fdx1"]["synth"]},
               sharded_max_abs_err=mesh["synth_err"],
               sharded_ms=mesh["synth"], sharded_plain_ms=mesh["synth_plain"],
               sharded_bound_ms=mesh["synth_bound"],
