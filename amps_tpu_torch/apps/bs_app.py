@@ -310,7 +310,7 @@ def _run_mesh(args, result: dict | None = None):
             tx, _ = trx.push(x_rx)
         if mobs:
             ya, ana_state["s"] = chz.analyze(tx, spec.chz_spec,
-                                             ana_state["s"])
+                                             ana_state["s"], chmajor=True)
             sched["block"] += 1
             for rec in mobs:
                 hear(rec["mob"], rec["action"], rec["sched"], ya)

@@ -102,6 +102,13 @@ def lut_lookup(idx: torch.Tensor, n_code: int = 48) -> torch.Tensor:
     return _device_table("lut", n_code, idx.device)[idx.long()]
 
 
+def packed_lut_lookup(idx, table: np.ndarray) -> torch.Tensor:
+    """table[idx] for a (4096,) packed int table (pos1 | pos2 << 8 |
+    valid << 16): a direct index."""
+    idx = torch.as_tensor(idx)
+    return torch.as_tensor(table, device=idx.device)[idx.long()]
+
+
 def apply_error_pattern(word, g, k_keep: int):
     """XOR the <=2-bit error pattern encoded in packed LUT value ``g``
     into (..., >=k_keep) received bits; returns (..., k_keep) uint8."""
@@ -119,6 +126,12 @@ def _syndrome_packed(rx, n_code: int):
     H = _device_table("syndrome", n_code, rx.device)
     syn_bits = torch.remainder(rx @ H, 2.0).to(torch.int32)
     return lut_lookup(packbits(syn_bits), n_code)
+
+
+def recc_syndrome_packed(rx48):
+    """(..., 48) received bits -> (...,) packed int32 LUT values (valid
+    bit 16)."""
+    return _syndrome_packed(rx48, 48)
 
 
 def recc_syndrome_matrix() -> np.ndarray:

@@ -1,9 +1,11 @@
-"""FOCC/FVC word builders, the PyTorch port of the builders of
+"""FOCC/FVC word builders and RECC word parsers, the PyTorch port of
 ``amps_tpu.codec.words``.
 
 Every builder accepts Python ints or integer tensors of any batch shape
 and returns (..., 28) uint8 bit tensors, bit for bit the JAX package's
-layouts.
+layouts.  The parsers take (..., 36) bit tensors and return a dict of
+(...,) fields: int32, and int64 for the 24- and 32-bit fields (the JAX
+package's uint32).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from amps_tpu_torch.codec.bits import expandbits
+from amps_tpu_torch.codec.bits import expandbits, packbits
 
 
 def _bcast(*parts):
@@ -111,3 +113,42 @@ def registration_id(dcc, regid, end=False):
                   _bits(end, 1),
                   _const(0, 0, 0))                   # OHD = 000
 
+
+# -- RECC word parsers (lib/amps_packet.h:103-274), batched -----------------
+
+def _flag(b, i):
+    return b[..., i].to(torch.int32)
+
+
+def parse_recc_word_a(bits36):
+    """(..., 36) -> dict of fields (F/NAWC/T/S/E/ER/SCM/MIN1)."""
+    b = torch.as_tensor(bits36)
+    return {"F": _flag(b, 0), "NAWC": packbits(b[..., 1:4]),
+            "T": _flag(b, 4), "S": _flag(b, 5), "E": _flag(b, 6),
+            "ER": _flag(b, 7), "SCM": packbits(b[..., 8:12]),
+            "MIN1": packbits(b[..., 12:36], torch.int64)}
+
+
+def parse_recc_word_b(bits36):
+    b = torch.as_tensor(bits36)
+    return {"F": _flag(b, 0), "NAWC": packbits(b[..., 1:4]),
+            "MSG_TYPE": packbits(b[..., 4:9]),
+            "ORDQ": packbits(b[..., 9:12]),
+            "ORDER": packbits(b[..., 12:17]), "LT": _flag(b, 17),
+            "EP": _flag(b, 18), "SCM4": _flag(b, 19),
+            "MPCI": packbits(b[..., 20:22]),
+            "SDCC1": packbits(b[..., 22:24]),
+            "SDCC2": packbits(b[..., 24:26]),
+            "MIN2": packbits(b[..., 26:36])}
+
+
+def parse_recc_word_c_serial(bits36):
+    b = torch.as_tensor(bits36)
+    return {"F": _flag(b, 0), "NAWC": packbits(b[..., 1:4]),
+            "SERIAL": packbits(b[..., 4:36], torch.int64)}
+
+
+def parse_recc_word_called(bits36):
+    b = torch.as_tensor(bits36)
+    return {"F": _flag(b, 0), "NAWC": packbits(b[..., 1:4]),
+            "DIGITS": packbits(b[..., 4:36], torch.int64)}

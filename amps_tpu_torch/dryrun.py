@@ -1,5 +1,10 @@
-"""Multi-worker dry run of the sharded station, the port's counterpart of
-``__graft_entry__.dryrun_multichip``.
+"""The port's counterparts of ``__graft_entry__``: the flagship forward
+``entry()`` and the multi-worker dry run of the sharded station.
+
+``entry(device=None)`` returns ``(fn, (x,))``: ``fn`` is
+``rx_multichannel_block`` at M=16, T=8 (on a CUDA device its front end
+is the ``rx_phases`` kernel) and ``x`` the JAX entry's input, 8192
+samples of N(0, 0.1) IQ from ``default_rng(0)``, on the device.
 
 ``dryrun_multichip(n_workers)`` drives the full sharded base-station
 step (FOCC synthesis on every channel through the synthesis kernel,
@@ -35,6 +40,26 @@ import torch
 def _check(ok: bool, what) -> None:
     if not ok:
         raise RuntimeError(f"dryrun_multichip: {what}")
+
+
+def entry(device=None):
+    """(fn, example_args): the multichannel receive block (polyphase
+    channelizer -> FM demod -> RECC correlate -> batched BCH word decode)
+    at the JAX entry's spec and input, on ``device`` (the current CUDA
+    device unless the CPU is named)."""
+    from amps_tpu_torch.device import resolve_device
+    from amps_tpu_torch.parallel.pipeline import (MultichannelSpec,
+                                                  rx_multichannel_block)
+    spec = MultichannelSpec(num_channels=16, taps_per_phase=8)
+    n = 16 * 512   # wideband samples (a multiple of the hop)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(0, 0.1, (n, 2)).astype(np.float32),
+                        device=resolve_device(device))
+
+    def fn(xb):
+        return rx_multichannel_block(xb, spec)
+
+    return fn, (x,)
 
 
 def dryrun_multichip(n_workers: int, device=None) -> dict:

@@ -52,6 +52,16 @@ class ChannelizerSpec:
     def ntaps(self) -> int:
         return self.num_channels * self.taps_per_phase
 
+    @property
+    def fs(self) -> float:
+        """Wideband sample rate."""
+        return self.num_channels * self.spacing_hz
+
+    @property
+    def channel_rate(self) -> float:
+        """Per-channel output rate (2x oversampled)."""
+        return 2 * self.spacing_hz
+
 
 # the analysis fold names of the JAX package; all compute the bank fold
 FOLDS = ("conv", "shift", "bank", "bank2", "bankp")
@@ -171,21 +181,30 @@ def _synthesize_block(Y, M: int, T: int, hop0_parity: int, carry,
 
 
 def analyze(x, spec: ChannelizerSpec, state: AnalyzerState,
-            fold: str = "bank", planar: bool = False,
+            chmajor: bool = False, bf16: bool = False, split: int = -1,
+            fold: str = "conv", planar: bool = False,
             planar_in: bool = False, block=None):
-    """Streaming channel-major analysis: x (N, 2), N a multiple of
-    spec.hop — or planar planes (2, N) when ``planar_in`` (state from
-    analyzer_init(..., planar_in=True)); ``fold`` any name of ``FOLDS``
-    (one fold is computed for all).  Returns (Y, new state); Y is
-    (M, N/P, 2), or (2, M, N/P) when ``planar``.  A block with an odd hop
-    count flips the parity of the next one.  Runs on the state's device.
+    """Streaming analysis: x (..., N, 2), N a multiple of spec.hop — or
+    planar planes (..., 2, N) when ``planar_in`` (channel-major only;
+    state from analyzer_init(..., planar_in=True)).  Returns (Y, new
+    state); Y is (..., N/P, M, 2) hop-major, (..., M, N/P, 2)
+    channel-major when ``chmajor``, or (..., 2, M, N/P) planar
+    channel-major when also ``planar``.  ``fold`` any name of ``FOLDS``
+    (one fold is computed for all).  ``bf16`` and ``split`` are accepted
+    and change nothing: the transform is f32 for every spec.  A block
+    with an odd hop count flips the parity of the next one.  Runs on the
+    state's device.
 
     ``block``: the block analysis, by default
-    ``kernels.analysis.analyze_block`` (the kernel on a CUDA device, its
-    plain version on the CPU, which also takes leading batch
-    dimensions); ``kernels.analysis.analyze_reference`` runs the plain
-    version on any device (to compare the two)."""
+    ``kernels.analysis.analyze_block`` (the kernel on a CUDA device, one
+    launch a row of the leading dimensions; its plain version on the
+    CPU); ``kernels.analysis.analyze_reference`` runs the plain version
+    on any device (to compare the two)."""
     check_fold(fold)
+    if planar and not chmajor:
+        raise ValueError("planar output requires chmajor")
+    if planar_in and not chmajor:
+        raise ValueError("planar input requires chmajor")
     P = spec.hop
     x = as_tensor(x, device=state.history.device)
     n = x.shape[-1] if planar_in else x.shape[-2]
@@ -196,15 +215,18 @@ def analyze(x, spec: ChannelizerSpec, state: AnalyzerState,
     Y = (block or analyze_block)(x_ext, spec.num_channels,
                                  spec.taps_per_phase, state.hop_idx % 2,
                                  planar, planar_in)
+    if not chmajor:
+        Y = Y.transpose(-3, -2).contiguous()
     keep = spec.ntaps - P
     new_hist = x_ext[..., -keep:] if planar_in else x_ext[..., -keep:, :]
     return Y, AnalyzerState(new_hist, state.hop_idx + n // P)
 
 
 def synthesize(Y, spec: ChannelizerSpec, state: SynthesizerState,
-               split: int = -1):
+               bf16: bool = False, split: int = -1):
     """Streaming synthesis: Y (..., Nh, M, 2) -> (x (..., Nh*P, 2), state).
-    split=-1 auto-selects the two-stage transform for large M."""
+    split=-1 auto-selects the two-stage transform for large M; ``bf16``
+    is accepted and changes nothing (the transform is f32)."""
     Y = as_tensor(Y, device=state.carry.device)
     Nh = Y.shape[-3]
     if split < 0:
@@ -212,3 +234,9 @@ def synthesize(Y, spec: ChannelizerSpec, state: SynthesizerState,
     x, carry = _synthesize_block(Y, spec.num_channels, spec.taps_per_phase,
                                  state.hop_idx % 2, state.carry, split)
     return x, SynthesizerState(carry, state.hop_idx + Nh)
+
+
+def channel_index(offset_channels: int, M: int) -> int:
+    """Signed channel offset (e.g. -3..+3 around the band center) to the
+    k index used by the bank."""
+    return offset_channels % M

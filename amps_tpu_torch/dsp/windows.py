@@ -1,5 +1,6 @@
-"""Window functions and GNU Radio ``firdes.low_pass`` filter design, the
-port of ``amps_tpu.dsp.windows`` (numpy, bit-equal)."""
+"""Window functions and GNU Radio ``firdes`` filter design (low-pass,
+root raised cosine), the port of ``amps_tpu.dsp.windows`` (numpy,
+bit-equal)."""
 
 from __future__ import annotations
 
@@ -58,3 +59,27 @@ def firdes_low_pass(gain: float, fs: float, cutoff: float, transition: float,
                     np.sin(safe_n * fwT0) / (safe_n * np.pi)) * w
     taps = taps * (gain / taps.sum())
     return taps.astype(np.float32)
+
+
+def firdes_root_raised_cosine(gain, fs, symbol_rate, alpha, ntaps):
+    """Root-raised-cosine taps (odd length), designed in float64 and
+    normalized to DC gain ``gain``; returns float32."""
+    ntaps |= 1
+    spb = fs / symbol_rate
+    t = (np.arange(ntaps) - ntaps // 2) / spb
+    num = (np.sin(np.pi * t * (1 - alpha))
+           + 4 * alpha * t * np.cos(np.pi * t * (1 + alpha)))
+    den = np.pi * t * (1 - (4 * alpha * t) ** 2)
+    h = np.empty(ntaps)
+    eps = 1e-9
+    ordinary = np.abs(den) > eps
+    h[ordinary] = num[ordinary] / den[ordinary]
+    h[~ordinary] = 0
+    # the limits at t = 0 and |4 alpha t| = 1
+    h[np.abs(t) < eps] = 1 - alpha + 4 * alpha / np.pi
+    sing = np.abs(np.abs(4 * alpha * t) - 1) < eps
+    h[sing] = (alpha / np.sqrt(2)) * (
+        (1 + 2 / np.pi) * np.sin(np.pi / (4 * alpha))
+        + (1 - 2 / np.pi) * np.cos(np.pi / (4 * alpha)))
+    h = h * gain / h.sum()
+    return h.astype(np.float32)

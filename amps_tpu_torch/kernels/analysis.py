@@ -240,17 +240,24 @@ def analyze_block(x_ext, M: int, T: int, hop0_parity: int = 0,
                   planar: bool = False, planar_in: bool = False):
     """Analysis of one streaming block.
 
-    x_ext: ((Nh + 2T - 1) * M/2, 2) float32 riq, or (2, ...) planar
-    planes when ``planar_in``, with the analyzer history already
+    x_ext: (..., (Nh + 2T - 1) * M/2, 2) float32 riq, or (..., 2, ...)
+    planar planes when ``planar_in``, with the analyzer history already
     prepended; hop0_parity the absolute parity of the block's first hop.
-    Returns Y (M, Nh, 2) float32, or (2, M, Nh) when ``planar``:
-    y_k[n] = (-1)^{k(n+parity)} sum_m f_n[m] e^{-j2πkm/M} of the folded
-    hop-n window f_n."""
+    Returns Y (..., M, Nh, 2) float32, or (..., 2, M, Nh) when
+    ``planar``: y_k[n] = (-1)^{k(n+parity)} sum_m f_n[m] e^{-j2πkm/M} of
+    the folded hop-n window f_n.  On the card each row of the leading
+    dimensions is one launch."""
     global LAUNCHES
     if not isinstance(x_ext, torch.Tensor):
         raise TypeError("x_ext must be a torch.Tensor")
     if x_ext.device.type == "cpu":
         return analyze_reference(x_ext, M, T, hop0_parity, planar, planar_in)
+    if x_ext.ndim > 2:
+        rows = x_ext.reshape((-1,) + tuple(x_ext.shape[-2:]))
+        ys = [analyze_block(r, M, T, hop0_parity, planar, planar_in)
+              for r in rows.unbind(0)]
+        return torch.stack(ys).reshape(tuple(x_ext.shape[:-2])
+                                       + tuple(ys[0].shape))
     is_planar, n_ext, Nh = card_block(x_ext, M, T)
     check_fft_width(M)
     if is_planar != planar_in:

@@ -7,9 +7,14 @@ processes (each owns whole time rows, a contiguous time range) and
 run along ``time`` cross a process boundary: the halo to the next row
 (point-to-point to the neighbour), the sum over the ring (``all_reduce``
 after the in-process sum) and the carried tail of the last worker
-(``broadcast`` from the last process).  The backend is gloo on the CPU
-and NCCL where each process owns its own cards; NCCL takes one rank a
-card, so workers sharing a card stay in one process.
+(``broadcast`` from the last process).
+
+The backend is NCCL where every process has a card of its own, and gloo
+otherwise: on the CPU, and where processes share a card (NCCL refuses
+two ranks on one card).  ``initialize`` decides from each process's card
+UUID, gathered over the job's store before the group starts.  Under
+gloo a CUDA tensor crosses through a pinned host copy in both
+directions.
 
 Nothing tells a program of its cluster: ``initialize`` takes the
 coordinator's address, the process count and this process's index, or
@@ -19,8 +24,10 @@ reads them from ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` /
 
 from __future__ import annotations
 
+import datetime
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
+from urllib.parse import urlsplit
 
 import torch
 import torch.distributed as dist
@@ -28,24 +35,75 @@ import torch.distributed as dist
 from amps_tpu_torch.device import resolve_device
 from amps_tpu_torch.parallel.mesh import Mesh, MeshSpec, visible_cuda_devices
 
+BACKENDS = ("nccl", "gloo")
+STORE_TIMEOUT_S = 300
+_CARD_KEY = "amps_tpu_torch/card/"
+
+
+def choose_backend(cards: Sequence[Optional[str]],
+                   backend: Optional[str] = None) -> str:
+    """The backend of a job whose ranks hold ``cards`` (each rank's card
+    UUID, None for a rank without one).  None picks NCCL when every rank
+    has a card no other rank holds, else gloo.  ``backend`` asked for
+    explicitly is checked: NCCL with a rank on the CPU, or with two ranks
+    on one card, raises ``ValueError``."""
+    holders = {}
+    for rank, card in enumerate(cards):
+        if card is not None:
+            holders.setdefault(card, []).append(rank)
+    shared = {c: r for c, r in holders.items() if len(r) > 1}
+    bare = [rank for rank, card in enumerate(cards) if card is None]
+    if backend is None:
+        return "gloo" if bare or shared or not cards else "nccl"
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    if backend == "nccl":
+        if bare:
+            raise ValueError(f"NCCL needs a CUDA card in every process: "
+                             f"ranks {bare} have none")
+        if shared:
+            card, ranks = next(iter(shared.items()))
+            raise ValueError(f"NCCL takes one process a card: ranks {ranks} "
+                             f"share card {card}")
+    return backend
+
+
+def _card() -> str:
+    """This process's current CUDA card as its UUID, "" without one."""
+    if not torch.cuda.is_available():
+        return ""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    return f"{props.name} {props.uuid}"
+
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
-    """``init_process_group`` over ``tcp://coordinator_address`` (host:port;
-    a ``tcp://`` prefix is kept) with ``num_processes`` ranks, this one
-    ``process_id``; each None is read from the environment variable of
-    the JAX package.  The backend is NCCL when CUDA is available, else
-    gloo."""
+               process_id: Optional[int] = None,
+               backend: Optional[str] = None) -> None:
+    """``init_process_group`` over a TCP store at ``coordinator_address``
+    (host:port, a ``tcp://`` prefix allowed; process 0 serves it) with
+    ``num_processes`` ranks, this one ``process_id``; each None is read
+    from the environment variable of the JAX package.  ``backend``: see
+    ``choose_backend``; the processes' cards are gathered over the store
+    first, so every rank makes the same choice."""
     addr = coordinator_address or os.environ["COORDINATOR_ADDRESS"]
     n = int(num_processes if num_processes is not None
             else os.environ["NUM_PROCESSES"])
     pid = int(process_id if process_id is not None
               else os.environ["PROCESS_ID"])
-    if "://" not in addr:
-        addr = "tcp://" + addr
-    dist.init_process_group("nccl" if torch.cuda.is_available() else "gloo",
-                            init_method=addr, world_size=n, rank=pid)
+    url = urlsplit(addr if "://" in addr else "tcp://" + addr)
+    store = dist.TCPStore(url.hostname, url.port, n, is_master=pid == 0,
+                          timeout=datetime.timedelta(seconds=STORE_TIMEOUT_S))
+    store.set(f"{_CARD_KEY}{pid}", _card())
+    cards = [store.get(f"{_CARD_KEY}{r}").decode() or None for r in range(n)]
+    dist.init_process_group(choose_backend(cards, backend), store=store,
+                            world_size=n, rank=pid)
+
+
+def backend() -> Optional[str]:
+    """The backend of the job's process group (None before
+    ``initialize``)."""
+    return dist.get_backend() if dist.is_initialized() else None
 
 
 def process_count() -> int:
@@ -80,24 +138,67 @@ def global_mesh(spec: Optional[MeshSpec] = None, devices=None) -> Mesh:
 
 # -- the cross-process legs of parallel.halo --------------------------------
 
+def _staged() -> bool:
+    """Whether CUDA tensors cross through the host: gloo takes CPU
+    tensors."""
+    return dist.get_backend() == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of the CUDA tensor ``t``, complete on return
+    (the copy is queued on the current stream, which is then waited
+    for)."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host
+
+
 def exchange(sends: List[tuple], recvs: List[tuple]) -> None:
     """Point-to-point: ``sends`` (tensor, process, tag) go out and
-    ``recvs`` (buffer, process, tag) are filled, in one batch."""
-    ops = ([dist.P2POp(dist.irecv, t, p, tag=g) for t, p, g in recvs]
-           + [dist.P2POp(dist.isend, t.contiguous(), p, tag=g)
-              for t, p, g in sends])
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    ``recvs`` (buffer, process, tag) are filled, in one batch, the
+    receives posted first.  Under gloo a CUDA tensor is sent from a
+    pinned host copy and received into one, then copied into its
+    buffer."""
+    if not sends and not recvs:
+        return
+    stage = _staged()
+    ops, landed = [], []
+    for buf, p, g in recvs:
+        if stage and buf.is_cuda:
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            landed.append((buf, host))
+            buf = host
+        ops.append(dist.P2POp(dist.irecv, buf, p, tag=g))
+    for t, p, g in sends:
+        t = t.contiguous()
+        if stage and t.is_cuda:
+            t = _to_host(t)
+        ops.append(dist.P2POp(dist.isend, t, p, tag=g))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    for buf, host in landed:
+        buf.copy_(host)
 
 
 def all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over every process, in place."""
+    """The sum of ``t`` over every process, in place (under gloo a CUDA
+    tensor is summed in a pinned host copy)."""
+    if _staged() and t.is_cuda:
+        host = _to_host(t)
+        dist.all_reduce(host)
+        return t.copy_(host)
     dist.all_reduce(t)
     return t
 
 
 def broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
-    """``t`` of process ``src`` on every process, in place."""
+    """``t`` of process ``src`` on every process, in place (under gloo a
+    CUDA tensor goes through a pinned host copy)."""
+    if _staged() and t.is_cuda:
+        host = (_to_host(t) if dist.get_rank() == src else
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+        dist.broadcast(host, src)
+        return t.copy_(host)
     dist.broadcast(t, src)
     return t

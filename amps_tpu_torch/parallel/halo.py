@@ -8,8 +8,9 @@ in ring order (``Mesh.worker``).  Each collective returns such a list,
 every tensor on its worker's device.  The semantics are JAX's exactly:
 along an axis, shard 0 receives zeros or the carry, and the last
 worker's tail is dropped (the caller keeps it as the next block's
-carry).  ``axis`` is ``"time"``, ``"chan"`` or the flattened ring
-``("time", "chan")`` (row-major: w = t * chan + c).
+carry).  ``axis_name`` (``axis`` for the in-row collectives) is
+``"time"``, ``"chan"`` or the flattened ring ``("time", "chan")``
+(row-major: w = t * chan + c).
 
 Within a process a collective is a copy to the receiving worker's device
 (none when the two share one).  Across processes only ``time`` moves
@@ -86,29 +87,30 @@ def _tail(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
     return x.narrow(dim, x.shape[dim] - n, n)
 
 
-def halo_exchange_left(mesh: Mesh, parts: Parts, n: int, axis,
+def halo_exchange_left(mesh: Mesh, x: Parts, n: int, axis_name,
                        sample_axis: int = 0) -> Parts:
-    """Prepend each shard with the last ``n`` samples of its left
-    neighbour along ``axis``; shard 0 gets zeros (cold stream start)."""
-    tails = [_tail(p, n, sample_axis) for p in parts]
-    recv = _shift_right(mesh, axis, tails)
+    """Prepend each shard of ``x`` with the last ``n`` samples of its
+    left neighbour along ``axis_name``; shard 0 gets zeros (cold stream
+    start)."""
+    tails = [_tail(p, n, sample_axis) for p in x]
+    recv = _shift_right(mesh, axis_name, tails)
     return [torch.cat([torch.zeros_like(t) if r is None else r, p],
                       dim=sample_axis)
-            for p, t, r in zip(parts, tails, recv)]
+            for p, t, r in zip(x, tails, recv)]
 
 
-def halo_exchange_left_carry(mesh: Mesh, parts: Parts, n: int, axis,
+def halo_exchange_left_carry(mesh: Mesh, x: Parts, n: int, axis_name,
                              carry: Union[torch.Tensor, Sequence],
                              sample_axis: int = 0) -> Parts:
     """Streaming halo: as ``halo_exchange_left``, but shard 0 of each
     group gets ``carry`` (the previous block's tail; one tensor for every
     worker, or a list of one per worker) instead of zeros, so successive
     blocks form one continuous stream."""
-    tails = [_tail(p, n, sample_axis) for p in parts]
-    recv = _shift_right(mesh, axis, tails)
+    tails = [_tail(p, n, sample_axis) for p in x]
+    recv = _shift_right(mesh, axis_name, tails)
     return [torch.cat([_per_worker(mesh, carry, i, p) if r is None else r, p],
                       dim=sample_axis)
-            for i, (p, r) in enumerate(zip(parts, recv))]
+            for i, (p, r) in enumerate(zip(x, recv))]
 
 
 def _add_head(x: torch.Tensor, head: torch.Tensor, dim: int) -> torch.Tensor:
@@ -117,27 +119,28 @@ def _add_head(x: torch.Tensor, head: torch.Tensor, dim: int) -> torch.Tensor:
                       x.narrow(dim, n, x.shape[dim] - n)], dim=dim)
 
 
-def overlap_add_with_carry(mesh: Mesh, parts: Parts, tails: Parts, axis,
+def overlap_add_with_carry(mesh: Mesh, x: Parts, tail: Parts, axis_name,
                            carry: Union[torch.Tensor, Sequence],
                            sample_axis: int = 0) -> Parts:
     """Streaming overlap-add: each shard's ``tail`` is added onto the
-    head of its right neighbour's block; shard 0 adds ``carry`` (the
-    previous block's last tail).  The last shard's tail is dropped: the
-    caller keeps it as the next block's carry."""
-    recv = _shift_right(mesh, axis, tails)
+    head of its right neighbour's block of ``x``; shard 0 adds ``carry``
+    (the previous block's last tail).  The last shard's tail is dropped:
+    the caller keeps it as the next block's carry."""
+    recv = _shift_right(mesh, axis_name, tail)
     return [_add_head(p, _per_worker(mesh, carry, i, p) if r is None else r,
                       sample_axis)
-            for i, (p, r) in enumerate(zip(parts, recv))]
+            for i, (p, r) in enumerate(zip(x, recv))]
 
 
-def add_tail_to_right(mesh: Mesh, parts: Parts, tails: Parts, axis,
+def add_tail_to_right(mesh: Mesh, x: Parts, tail: Parts, axis_name,
                       sample_axis: int = 0) -> Parts:
     """Overlap-add across shards: each shard's ``tail`` is added onto the
-    head of its right neighbour's block; shard 0 receives nothing and the
-    last shard's tail is dropped (the stream ends there)."""
-    recv = _shift_right(mesh, axis, tails)
+    head of its right neighbour's block of ``x``; shard 0 receives
+    nothing and the last shard's tail is dropped (the stream ends
+    there)."""
+    recv = _shift_right(mesh, axis_name, tail)
     return [p if r is None else _add_head(p, r, sample_axis)
-            for p, r in zip(parts, recv)]
+            for p, r in zip(x, recv)]
 
 
 def _row_start(mesh: Mesh, i: int) -> int:

@@ -10,6 +10,7 @@ hash of the source and the flags, written through a temporary file and
 ``os.replace``, so concurrent processes never load a half-written file.
 No ``-march=native``: a tree built on one host may run on another.  A
 missing g++ or a failed build raises; there is no fallback.
+``available()`` says whether the library can be had, without raising.
 """
 
 from __future__ import annotations
@@ -89,6 +90,17 @@ def load() -> ctypes.CDLL:
     lib.amps_ring_write_available.argtypes = [ctypes.c_void_p]
     lib.amps_ring_write_available.restype = ctypes.c_size_t
     return lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads here: False when g++ is
+    missing or the build fails.  A caller that loads the library
+    (``load()`` and every binding below) still gets the error raised."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _u8(a, size: int | None = None) -> np.ndarray:

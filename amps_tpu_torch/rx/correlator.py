@@ -254,6 +254,24 @@ def apply_trigger_gate_soft(valid, trig_soft, max_err: int,
     return valid & (trigger_errors_soft(trig_soft, starts, sps) <= max_err)
 
 
+def trigger_errors(phases, starts, sps: int):
+    """Trigger mismatch counts (..., K) int32 of the 74 symbols preceding
+    each start (SAMPLE units) on phase streams (..., sps, nsym), sliced
+    against their own mean; symbols before the stream head are not
+    counted (``extract_from_phases``' lead, then
+    ``trigger_errors_soft``)."""
+    lead = extract_from_phases(phases, starts, sps, lead=TRIGGER_SYMBOLS)[2]
+    return trigger_errors_soft(lead, starts, sps)
+
+
+def apply_trigger_gate(valid, phases, starts, sps: int, max_err: int):
+    """valid &= (trigger slices exactly, within max_err mismatches);
+    max_err < 0 disables the gate."""
+    if max_err < 0:
+        return valid
+    return valid & (trigger_errors(phases, starts, sps) <= max_err)
+
+
 def window_power_blocks(parts, B: int = RSSI_BLOCK):
     """Per-block means over the concatenation of per-sample power parts
     (last axis), zero-padded to whole blocks: (..., ceil(n / B))."""
@@ -287,6 +305,20 @@ def burst_rssi_blocks(blk, starts, sps: int):
                           .reshape(batch + (-1,))).reshape(tgt.shape)
     picked = torch.where(inside, picked, torch.zeros((), device=blk.device))
     return torch.sqrt(torch.mean(picked, dim=-1))
+
+
+def burst_rssi(pw_series, starts, sps: int):
+    """Per-candidate capture-extent band power (..., K) from a per-sample
+    power series (..., n)."""
+    return burst_rssi_blocks(window_power_blocks([pw_series]), starts, sps)
+
+
+def extract_bursts_batched(demod_p, starts, sps: int):
+    """Capture from a demod (..., n) padded so that every valid start's
+    capture fits: (hard (..., K, 3374) uint8, soft float32); a capture
+    past the end reads zeros."""
+    return extract_from_phases(symbol_phase_streams(demod_p, sps), starts,
+                               sps)
 
 
 @functools.cache

@@ -138,3 +138,9 @@ def decode_bursts(symbols, policy: str = "first_ok",
     word_bad = torch.sum(rep_bad, dim=-1, dtype=torch.int32)
     bad = torch.cat([dcc_bad[..., None], word_bad], dim=-1)
     return DecodedBurst(dcc_bits, words, wok, used, bad)
+
+
+def decode_burst(symbols, policy: str = "first_ok",
+                 repeat_gate: int | None = None) -> DecodedBurst:
+    """Single-capture form of ``decode_bursts``."""
+    return decode_bursts(symbols, policy, repeat_gate)

@@ -55,10 +55,11 @@ def deemphasis(audio, fs: float, tau: float = 75e-6, state=0.0):
     return out, float(y[-1]) if len(y) else float(state)
 
 
-def sat_levels(demod, fs: float):
+def sat_levels(demod, fs: float, block: Optional[int] = None):
     """SAT detection: projection of the FM-demodulated signal (..., n)
     onto the three SAT frequencies.  Returns dict scc -> amplitude
-    estimate (...,)."""
+    estimate (...,).  ``block`` is accepted as the JAX function accepts
+    it, and unused there too: the projection spans the whole signal."""
     x = as_tensor(demod)
     n = x.shape[-1]
     t = torch.arange(n, device=x.device) / fs

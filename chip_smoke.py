@@ -20,7 +20,11 @@ through a paged call, ``dryrun_multichip(4)`` and weak scaling; the
 station's certification -- every soak of ``eval/soak.py`` at its full
 size, each held to its bar, and the paced legs of ``eval/pacing.py``
 shortened (receive 20 s with no deadline miss, full duplex 10 s threaded
-and 10 s in one thread); and
+and 10 s in one thread); the cross-process station -- two processes of
+this script (``--xproc-worker``) joined by ``torch.distributed`` into
+the {time: 2, chan: 2} mesh on the one card, over gloo, running the
+sharded step and loop with reports equal to the one-process mesh's --;
+the flagship forward ``dryrun.entry()`` on the rx_phases kernel; and
 times kernels and paths against their plain versions,
 their bounds and a cuFFT yardstick, with profiler windows of one
 one-shot block, one receiver push, one transmitter superframe, one
@@ -41,8 +45,9 @@ the cuFFT time of its transform alone, its error at the small banks and
 its launches and times on the closed loop or the batched block, and for
 K1 and K4 their launches, errors and times at the sharded workers'
 shapes; ``launches_by_path`` counts each kernel's launches on every path
-it runs, the soaks' and the paced legs' among them.  Without a CUDA card
-it exits non-zero.
+it runs, the soaks', the paced legs' and the two processes' of the
+cross-process station among them.  Without a CUDA card it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -814,7 +819,7 @@ def phase_call(dev, M, T, analysis_block=None, label="kernel ear",
     def listen(blk):
         ear["blk"] = blk
         Y, ear["s"] = chz.analyze(blk, prod.chz_spec, ear["s"],
-                                  block=analysis_block)
+                                  block=analysis_block, chmajor=True)
         demod, _ = quadrature_demod(Y[[focc_slot, fvc_slot]])
         return demod.cpu().numpy()
 
@@ -1932,6 +1937,8 @@ def phase_entry_points(dev, card):
 
 MESH_ROW_HOPS = 12482      # 2x2 rows: each worker analyzes 6241 hops (odd)
 MESH_FRAMES = 2            # 5556 TX hops: each worker synthesizes 1389 (odd)
+MESH_STEP_BLOCKS = 3       # the step's blocks (phases 21, 27)
+MESH_LOOP_BLOCKS = 8       # the loop's blocks (phases 22, 27)
 
 
 def mesh_spec(M, T):
@@ -1940,25 +1947,77 @@ def mesh_spec(M, T):
     return pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank")
 
 
-def mesh_found(out, row0, row, hal, sps, found):
-    """Add each valid slot of a sharded step's output whose Word A
-    decoded (the receivers' gate) to ``found`` {(channel, abs): (quality,
-    words, word_ok)}, but not a re-find within half a capture of a burst
-    already there (the receivers' dedup)."""
+def mesh_candidates(out, row0, row, hal):
+    """(abs row, channel, slot, abs sample, quality, words, word_ok,
+    dcc_bits) of each valid slot of a sharded step's output whose Word A
+    decoded (the receivers' gate), in (row, channel, slot) order; the
+    output's rows are the mesh rows from ``row0`` on."""
+    o = {k: out[k].cpu().numpy() for k in
+         ("valid", "starts", "quality", "words", "word_ok", "dcc_bits")}
+    return [(int(row0 + r), int(c), int(k),
+             int((row0 + r) * row - hal + o["starts"][r, c, k]),
+             float(o["quality"][r, c, k]), o["words"][r, c, k],
+             o["word_ok"][r, c, k], o["dcc_bits"][r, c, k])
+            for r, c, k in sorted(zip(*np.nonzero(o["valid"]
+                                                  & o["word_ok"][..., 0])))]
+
+
+def mesh_dedup(cands, sps, found):
+    """Add each candidate to ``found`` {(channel, abs): (quality, words,
+    word_ok, dcc_bits)}, but not a re-find within half a capture of a
+    burst already there (the receivers' dedup)."""
     from amps_tpu_torch.rx.correlator import CAPTURE_SYMBOLS
-    o = {k: out[k].cpu().numpy()
-         for k in ("valid", "starts", "quality", "words", "word_ok")}
-    for r, c, k in sorted(zip(*np.nonzero(o["valid"]
-                                          & o["word_ok"][..., 0]))):
-        a = (row0 + r) * row - hal + int(o["starts"][r, c, k])
+    for _, c, _, a, q, words, ok, dcc in cands:
         if any(ch == c and abs(a - pos) < CAPTURE_SYMBOLS * sps // 2
                for ch, pos in found):
             continue
-        found[(int(c), a)] = (float(o["quality"][r, c, k]),
-                              o["words"][r, c, k], o["word_ok"][r, c, k])
+        found[(c, a)] = (q, words, ok, dcc)
 
 
-def phase_mesh_step(dev, M, T, card, nblocks=3):
+def mesh_reports(found, sps):
+    """The sorted (channel, abs_symbol, words, word_ok) of ``found``, as
+    the receivers' reports are compared."""
+    return sorted((c, a // sps, v[1].tobytes(), v[2].tobytes())
+                  for (c, a), v in found.items())
+
+
+def mesh_step_traffic(M, spec, nblocks, dev):
+    """Phase 21's reverse-band events and blocks: bursts mid-row, across
+    the row boundary, across the block 1|2 boundary and in block 3."""
+    from amps_tpu_torch.eval.traffic import (MobileEvent,
+                                             synthesize_reverse_band)
+    row, P = MESH_ROW_HOPS, M // 2
+    block = 2 * row
+    events = [MobileEvent("origination", 1, 700, "5551234567", "7025551000",
+                          esn=777),
+              MobileEvent("registration", M // 2, row - 5000, "9165554321",
+                          esn=42),
+              MobileEvent("page_response", M - 1, block - 4000,
+                          "4155559876"),
+              MobileEvent("registration", 5, 2 * block + 3000, "2125550000",
+                          esn=5)]
+    x = synthesize_reverse_band(events, spec, nblocks * block,
+                                noise_sigma=1e-3, device=dev)
+    return events, x, [x[b * block * P:(b + 1) * block * P]
+                       for b in range(nblocks)]
+
+
+def mesh_loop_traffic(M, spec, nblocks, dev):
+    """Phase 22's reverse-band events and (nblocks, N_rx, 2) blocks."""
+    from amps_tpu_torch.eval.traffic import (MobileEvent,
+                                             synthesize_reverse_band)
+    block = 2 * MESH_ROW_HOPS
+    events = [MobileEvent("page_response", 2, 5000, "4155559876"),
+              MobileEvent("registration", M // 3, 3 * block + 9000,
+                          "9165554321", esn=9),
+              MobileEvent("origination", M - 4, 5 * block - 5000,
+                          "5551234567", "7025551000", esn=77)]
+    x = synthesize_reverse_band(events, spec, nblocks * block,
+                                noise_sigma=1e-3, device=dev)
+    return events, x.reshape(nblocks, block * (M // 2), 2)
+
+
+def phase_mesh_step(dev, M, T, card, nblocks=MESH_STEP_BLOCKS):
     """Phase 21: the sharded full-duplex step on a 2x2 mesh whose four
     workers share the card, at M, with rows of MESH_ROW_HOPS and
     MESH_FRAMES of FOCC a block: three blocks of reverse-band traffic with
@@ -1972,9 +2031,7 @@ def phase_mesh_step(dev, M, T, card, nblocks=3):
     step.  Returns a dict of the readings."""
     import os
     import tempfile
-    from amps_tpu_torch.eval.traffic import (MobileEvent,
-                                             synthesize_reverse_band,
-                                             unit_channel_band)
+    from amps_tpu_torch.eval.traffic import unit_channel_band
     from amps_tpu_torch.kernels import analysis as KA
     from amps_tpu_torch.kernels import synth as S
     from amps_tpu_torch.parallel import pipeline as pl
@@ -1990,17 +2047,7 @@ def phase_mesh_step(dev, M, T, card, nblocks=3):
         f"{nblocks} blocks of {block} RX hops (rows of {row}, {n_sub_rx} "
         f"hops a worker's analysis) and {MESH_FRAMES} FOCC frames "
         f"({n_sub_tx} hops a worker's synthesis), on {card}")
-    events = [MobileEvent("origination", 1, 700, "5551234567", "7025551000",
-                          esn=777),
-              MobileEvent("registration", M // 2, row - 5000, "9165554321",
-                          esn=42),
-              MobileEvent("page_response", M - 1, block - 4000,
-                          "4155559876"),
-              MobileEvent("registration", 5, 2 * block + 3000, "2125550000",
-                          esn=5)]
-    x = synthesize_reverse_band(events, spec, nblocks * block,
-                                noise_sigma=1e-3, device=dev)
-    blocks = [x[b * block * P:(b + 1) * block * P] for b in range(nblocks)]
+    events, x, blocks = mesh_step_traffic(M, spec, nblocks, dev)
     wp = torch.as_tensor(loop_pairs(M, MESH_FRAMES), device=dev)
     step = pl.make_sharded_bs_stream_step(mesh, spec, hal, max_bursts=2,
                                           rx_external=True)
@@ -2021,7 +2068,7 @@ def phase_mesh_step(dev, M, T, card, nblocks=3):
                     st = pl.sharded_state_from_arrays(z, dev)
         out, st = step(wp, st, blocks[b])
         assert torch.isfinite(out["tx_wideband"]).all()
-        mesh_found(out, 2 * b, row, hal, sps, found)
+        mesh_dedup(mesh_candidates(out, 2 * b, row, hal), sps, found)
     sync(dev)
     launches = (KA.LAUNCHES, S.LAUNCHES)
     assert launches == (4 * nblocks, 4 * nblocks), launches
@@ -2030,9 +2077,10 @@ def phase_mesh_step(dev, M, T, card, nblocks=3):
         hits = [(a, v) for (c, a), v in found.items() if c == ev.channel]
         assert len(hits) == 1, (ev.channel, hits)
         want = np.stack(ev.words())
-        _, words, ok = hits[0][1]
+        _, words, ok, dcc = hits[0][1]
         assert ok[: len(want)].all() and np.array_equal(words[: len(want)],
                                                         want), ev.channel
+        assert not dcc.any(), ev.channel
     for ev, boundary in ((events[1], row), (events[2], block)):
         a = next(a for (c, a) in found if c == ev.channel)
         assert a < boundary < a + 3374 * sps, (ev.channel, a, boundary)
@@ -2046,8 +2094,7 @@ def phase_mesh_step(dev, M, T, card, nblocks=3):
     for i in range(2 * nblocks):
         reps += mr.push(x[i * row * P:(i + 1) * row * P])
     reps += mr.flush()
-    mine = sorted((c, a // sps, v[1].tobytes(), v[2].tobytes())
-                  for (c, a), v in found.items())
+    mine = mesh_reports(found, sps)
     theirs = sorted((r.channel, r.abs_symbol, r.words.tobytes(),
                      r.word_ok.tobytes()) for r in reps)
     assert mine == theirs, ([m[:2] for m in mine], [t[:2] for t in theirs])
@@ -2055,7 +2102,7 @@ def phase_mesh_step(dev, M, T, card, nblocks=3):
         f"(channel, abs_symbol, words, word_ok) on the same stream in "
         f"row-sized pushes")
     # the kernels alone at the workers' shapes, against their plain versions
-    res = {"launches": launches}
+    res = {"launches": launches, "reports": mine}
     xa = unit_channel_band(M, T, n_sub_rx, 21, dev)
     err = 0.0
     for parity in (0, 1):
@@ -2112,15 +2159,13 @@ def phase_mesh_step(dev, M, T, card, nblocks=3):
     return res
 
 
-def phase_mesh_loop(dev, M, T, card, nblocks=8, n_runs=3):
+def phase_mesh_loop(dev, M, T, card, nblocks=MESH_LOOP_BLOCKS, n_runs=3):
     """Phase 22: ``make_sharded_closed_loop_stream`` on the 2x2 mesh,
     ``nblocks`` blocks of MESH_FRAMES frames with external traffic (rows
     of MESH_ROW_HOPS; bursts in several blocks, one across a block
     boundary): its per-block counts equal the manual steps', the bursts
     decode; then its ms a block beside the single-device closed loop
     (phase 14's function, same spec and frames) in this process."""
-    from amps_tpu_torch.eval.traffic import (MobileEvent,
-                                             synthesize_reverse_band)
     from amps_tpu_torch.kernels import analysis as KA
     from amps_tpu_torch.kernels import synth as S
     from amps_tpu_torch.parallel import pipeline as pl
@@ -2132,14 +2177,7 @@ def phase_mesh_loop(dev, M, T, card, nblocks=8, n_runs=3):
     log(f"phase 22: the sharded closed loop, 2x2 mesh on {mesh.device}, M={M},"
         f" {nblocks} blocks of {MESH_FRAMES} frames TX and {block} hops RX "
         f"traffic, on {card}")
-    events = [MobileEvent("page_response", 2, 5000, "4155559876"),
-              MobileEvent("registration", M // 3, 3 * block + 9000,
-                          "9165554321", esn=9),
-              MobileEvent("origination", M - 4, 5 * block - 5000,
-                          "5551234567", "7025551000", esn=77)]
-    x = synthesize_reverse_band(events, spec, nblocks * block,
-                                noise_sigma=1e-3, device=dev)
-    x_rx = x.reshape(nblocks, block * P, 2)
+    events, x_rx = mesh_loop_traffic(M, spec, nblocks, dev)
     wp = torch.as_tensor(loop_pairs(M, MESH_FRAMES), device=dev)
     run, block_samples = pl.make_sharded_closed_loop_stream(
         mesh, spec, nblocks, frames=MESH_FRAMES, max_bursts=2,
@@ -2171,6 +2209,7 @@ def phase_mesh_loop(dev, M, T, card, nblocks=8, n_runs=3):
                "single_eager": lambda: eager(wp_np)}, n_runs)
     out = {k: v / nblocks for k, v in t.items()}
     out["launches"] = launches
+    out["sums"] = (n_valid, q_max, n_ok)
     log(f"  ms a block (median of {n_runs} runs, CUDA events): sharded "
         f"{out['sharded']:.3f} ({block * P / out['sharded'] / 1e3:.1f} "
         f"Msamples/s RX + {block_samples / out['sharded'] / 1e3:.1f} TX); "
@@ -2354,6 +2393,243 @@ def phase_pacing(dev, card, seconds=None, **kw):
             launched({"synth": launches[leg]["synth"]}, f"pacing {leg} TX")
             assert r["tx_blocks"] == r["rx_blocks"] == r["blocks"], r
     return launches, res
+
+
+XPROC_TIMEOUT_S = 420      # each child process of phase 27
+
+
+def xproc_worker(pid, port, device="cuda:0", M=1024, T=8, n_timed=10,
+                 n_runs=3) -> int:
+    """Process ``pid`` of phase 27's two-process job: join the job over
+    ``initialize`` (the backend it picks), take one time row of the
+    global {time: 2, chan: 2} mesh (two workers on ``device``), run
+    phase 21's step traffic and phase 22's loop, then both timed in step
+    with the other process
+    and a profiler window; print one ``XPROC`` JSON line of what the
+    parent checks."""
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import synth as S
+    from amps_tpu_torch.parallel import distributed as D
+    from amps_tpu_torch.parallel import pipeline as pl
+    from amps_tpu_torch.runtime.streamer import MultichannelTransmitter
+    dev = torch.device(device)
+    D.initialize(f"127.0.0.1:{port}", 2, pid)
+    mesh = D.global_mesh(devices=[dev, dev])
+    assert mesh.shape == {"time": 2, "chan": 2} and mesh.rows == 1
+    spec = mesh_spec(M, T)
+    sps, P, row = spec.chan_sps, M // 2, MESH_ROW_HOPS
+    hal = pl.full_demod_halo(spec)
+    res = {"pid": pid, "backend": D.backend(), "device": str(dev)}
+    log(f"process {pid} of 2: backend {res['backend']}, time row {mesh.row0}"
+        f" of the {mesh.shape} mesh, workers on {mesh.devices}")
+    _, _, blocks = mesh_step_traffic(M, spec, MESH_STEP_BLOCKS, dev)
+    wp = torch.as_tensor(loop_pairs(M, MESH_FRAMES), device=dev)
+    step = pl.make_sharded_bs_stream_step(mesh, spec, hal, max_bursts=2,
+                                          rx_external=True)
+    st = pl.sharded_stream_state(spec, hal, dev)
+    cands = []
+    sync(dev)
+    KA.LAUNCHES = S.LAUNCHES = 0
+    for b in range(MESH_STEP_BLOCKS):
+        out, st = step(wp, st, blocks[b])
+        assert torch.isfinite(out["tx_wideband"]).all()
+        if b == 0:
+            tx0 = out["tx_wideband"]
+        cands += mesh_candidates(out, 2 * b + mesh.row0, row, hal)
+    sync(dev)
+    res["step_launches"] = (KA.LAUNCHES, S.LAUNCHES)
+    res["candidates"] = [(r, c, k, a, q, w.tolist(), ok.tolist(),
+                          dcc.tolist())
+                         for r, c, k, a, q, w, ok, dcc in cands]
+    # this process's share of the first block's TX against the
+    # single-device transmitter's first MESH_FRAMES frames
+    single = MultichannelTransmitter(spec, device=dev).next_block()
+    share = tx0.shape[0]
+    want = single[pid * share:(pid + 1) * share]
+    err = (tx0 - want).abs().max().item()
+    res["tx_rel_err"] = err / want.pow(2).mean().sqrt().item()
+    res["tx_peak_rel_err"] = err / want.abs().max().item()
+    _, x_rx = mesh_loop_traffic(M, spec, MESH_LOOP_BLOCKS, dev)
+    run, _ = pl.make_sharded_closed_loop_stream(
+        mesh, spec, MESH_LOOP_BLOCKS, frames=MESH_FRAMES, max_bursts=2,
+        rx_external=True)
+    sync(dev)
+    KA.LAUNCHES = S.LAUNCHES = 0
+    sums = run(wp, x_rx)
+    sync(dev)
+    res["loop_launches"] = (KA.LAUNCHES, S.LAUNCHES)
+    res["loop_sums"] = [v.cpu().tolist() for v in sums]
+    # both processes make the same calls in the same order: every step
+    # exchanges with the other process
+    st0 = pl.sharded_stream_state(spec, hal, dev)
+    res["step_ms"] = timed({"step": lambda: step(wp, st0, blocks[1])},
+                           n_timed)["step"]
+    res["loop_ms"] = timed({"loop": lambda: run(wp, x_rx)},
+                           n_runs)["loop"] / MESH_LOOP_BLOCKS
+    res["block_samples"] = (2 * row * P, MESH_FRAMES * 2778 * P)
+    busy, wall, _ = profile_window(
+        f"one cross-process step, process {pid}",
+        lambda: step(wp, st0, blocks[1]), dev, top=8)
+    res["busy_ms"], res["wall_ms"] = busy, wall
+    res["idle"] = 1 - busy / wall
+    torch.distributed.destroy_process_group()
+    print("XPROC " + json.dumps(res), flush=True)
+    return 0
+
+
+def phase_xproc(card, step_reports, loop_sums, device="cuda:0", M=1024,
+                T=8, timeout=XPROC_TIMEOUT_S):
+    """Phase 27: the cross-process station on one card.  Two processes
+    (this script in ``--xproc-worker`` mode, each with a timeout of its
+    own) join through ``distributed.initialize`` into the global
+    {time: 2, chan: 2} mesh, a time row and two workers each, all four
+    on ``device``.  Their step's union of reports equals phase 21's
+    (``step_reports``), every planted burst decoded bit-exact with DCC
+    0 exactly once (across the process and the block boundary included);
+    each process's TX share equals the single-device transmitter's; the
+    loop's per-block sums equal phase 22's (``loop_sums``).  Returns the
+    analysis and synth launches of both processes together, in the step
+    and in the loop."""
+    import os
+    import socket
+    from amps_tpu_torch.parallel import pipeline as pl
+    log(f"phase 27: the cross-process station, 2 processes x 2 workers on "
+        f"{device}, M={M}: the step ({MESH_STEP_BLOCKS} blocks) and the "
+        f"loop ({MESH_LOOP_BLOCKS} blocks) of phases 21-22, on {card}")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    cmd = [sys.executable, os.path.abspath(__file__), "--xproc-worker"]
+    procs = [subprocess.Popen(cmd + [str(pid), str(port), device, str(M)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for pid in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if not line.startswith("XPROC "):
+                log(f"  [process {pid}] {line}")
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 27: process {pid} exited "
+                               f"{p.returncode}")
+        res.append(json.loads(next(line[6:] for line in out.splitlines()
+                                   if line.startswith("XPROC "))))
+    spec = mesh_spec(M, T)
+    sps = spec.chan_sps
+    for r in res:
+        # both processes hold one card (or the CPU): never NCCL
+        assert r["backend"] == "gloo", r["backend"]
+        for k, n in (("step_launches", MESH_STEP_BLOCKS),
+                     ("loop_launches", MESH_LOOP_BLOCKS)):
+            assert tuple(r[k]) == (2 * n, 2 * n), (k, r[k])
+        assert r["tx_rel_err"] <= SYNTH_RTOL, r["tx_rel_err"]
+    cands = sorted(
+        (row, c, k, a, q, np.asarray(w, np.uint8), np.asarray(ok, bool),
+         np.asarray(dcc, np.uint8))
+        for r in res for row, c, k, a, q, w, ok, dcc in r["candidates"])
+    found = {}
+    mesh_dedup(cands, sps, found)
+    assert mesh_reports(found, sps) == step_reports, (
+        sorted(found), [m[:2] for m in step_reports])
+    for (c, a), (_, _, ok, dcc) in found.items():
+        assert ok[0] and not dcc.any(), (c, a)
+    row, block = MESH_ROW_HOPS, 2 * MESH_ROW_HOPS
+    spans = {b: [c for (c, a) in found if a < b < a + 3374 * sps]
+             for b in (row, block)}
+    assert spans[row] and spans[block], spans
+    n_valid = np.sum([r["loop_sums"][0] for r in res], axis=0)
+    q_max = np.max([r["loop_sums"][1] for r in res], axis=0)
+    n_ok = np.sum([r["loop_sums"][2] for r in res], axis=0)
+    assert np.array_equal(n_valid, loop_sums[0]), (n_valid, loop_sums[0])
+    assert np.array_equal(q_max, loop_sums[1]), (q_max, loop_sums[1])
+    assert np.array_equal(n_ok, loop_sums[2]), (n_ok, loop_sums[2])
+    rx_n, tx_n = res[0]["block_samples"]
+    log(f"  backend {res[0]['backend']} in both processes (two processes "
+        f"on one card); {len(found)} bursts decoded bit-exact with DCC 0, "
+        f"once each, the union of both processes' reports = phase 21's "
+        f"single-process reports (bursts across the process boundary on "
+        f"channels {spans[row]} and across the block boundary on "
+        f"{spans[block]}); the loop's per-block n_valid "
+        f"{n_valid.tolist()}, n_word_ok {n_ok.tolist()} and quality max = "
+        f"phase 22's")
+    for r in res:
+        log(f"  process {r['pid']}: TX share max|err| {r['tx_rel_err']:.2e} "
+            f"of RMS ({r['tx_peak_rel_err']:.2e} of peak) <= {SYNTH_RTOL}; "
+            f"launches step analysis/synth {r['step_launches']}, loop "
+            f"{r['loop_launches']}; step {r['step_ms']:.3f} ms a block (RX "
+            f"{rx_n / r['step_ms'] / 1e3:.1f} Msamples/s of the whole band), "
+            f"loop {r['loop_ms']:.3f} ms a block; profiler window: busy "
+            f"{r['busy_ms']:.3f} ms of {r['wall_ms']:.3f}, idle share "
+            f"{r['idle']:.1%}; on {card}")
+    log(json.dumps({"xproc": [{k: r[k] for k in (
+        "pid", "backend", "step_ms", "loop_ms", "busy_ms", "wall_ms", "idle",
+        "tx_rel_err", "step_launches", "loop_launches")} for r in res],
+        "card": card}))
+    return {k: tuple(int(sum(r[k][i] for r in res)) for i in (0, 1))
+            for k in ("step_launches", "loop_launches")}
+
+
+def phase_entry(dev, card):
+    """Phase 28: ``dryrun.entry()``, the counterpart of
+    ``__graft_entry__.entry``, on the card: its input lands on the current
+    CUDA device, its forward (``rx_multichannel_block`` at M=16) launches
+    the rx_phases kernel once, and it agrees with the plain path on the
+    same input: valid identical, quality within LOOP_QUALITY_ATOL and
+    words, word_ok and bad symbols identical on every slot whose start
+    agrees, chan_power within POWER_RTOL."""
+    from amps_tpu_torch.dryrun import entry
+    from amps_tpu_torch.kernels import rx_phases as K
+    from amps_tpu_torch.parallel import pipeline as pl
+    fn, (x,) = entry()
+    assert x.device == dev and tuple(x.shape) == (8192, 2), x.device
+    log(f"phase 28: entry() on {x.device}: rx_multichannel_block, M=16, "
+        f"T=8, {x.shape[0]} samples of N(0, 0.1) IQ, on {card}")
+    sync(dev)
+    K.LAUNCHES = 0
+    got = fn(x)
+    sync(dev)
+    launches = K.LAUNCHES
+    assert launches == 1, launches
+    spec = pl.MultichannelSpec(num_channels=16, taps_per_phase=8)
+    ref = pl._rx_block(x, spec, 2, 0.55, "first_ok",
+                       K.analyze_phases_reference)
+    g = {k: v.cpu().numpy() for k, v in got.items()}
+    r = {k: v.cpu().numpy() for k, v in ref.items()}
+    assert g["words"].shape == (16, 2, 7, 36)
+    assert np.array_equal(g["valid"], r["valid"])
+    same = g["starts"] == r["starts"]
+    for key in ("words", "word_ok", "bad_symbols", "dcc_bits"):
+        assert np.array_equal(g[key][same], r[key][same]), key
+    q_err = np.abs(np.where(np.isfinite(g["quality"]), g["quality"], 0)
+                   - np.where(np.isfinite(r["quality"]), r["quality"], 0))
+    assert np.array_equal(np.isfinite(g["quality"]),
+                          np.isfinite(r["quality"]))
+    assert q_err[same].max() <= LOOP_QUALITY_ATOL, q_err[same].max()
+    p_rel = np.abs(g["chan_power"] / r["chan_power"] - 1).max()
+    assert p_rel <= POWER_RTOL, p_rel
+    t = timed({"kernel": lambda: fn(x),
+               "plain": lambda: pl._rx_block(x, spec, 2, 0.55, "first_ok",
+                                             K.analyze_phases_reference)},
+              10)
+    log(f"  rx_phases launches {launches}; kernel path vs plain path: valid "
+        f"identical ({int(g['valid'].sum())} valid on noise), starts equal "
+        f"on {int(same.sum())} of {same.size} slots, words / word_ok / bad "
+        f"symbols / DCC identical there, quality max|err| "
+        f"{q_err[same].max():.2e} <= {LOOP_QUALITY_ATOL}, chan_power max "
+        f"rel {p_rel:.2e}; {t['kernel']:.3f} ms (plain {t['plain']:.3f}), "
+        f"median of 10, CUDA events, on {card}")
+    return launches, t
 
 
 def main() -> int:
@@ -2567,6 +2843,10 @@ def main() -> int:
     soak_launches = phase_soaks(dev, card)
     pace_launches, _ = phase_pacing(dev, card)
 
+    # -- phases 27-28: the cross-process station, the entry forward ---------
+    xl = phase_xproc(card, mesh["reports"], mesh_loop["sums"])
+    entry_launches, entry_t = phase_entry(dev, card)
+
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
@@ -2596,6 +2876,8 @@ def main() -> int:
                                 "sharded_step": mesh["launches"][0],
                                 "sharded_loop": mesh_loop["launches"][0],
                                 "mesh_app": mesh_app[0],
+                                "xproc_step": xl["step_launches"][0],
+                                "xproc_loop": xl["loop_launches"][0],
                                 **{f"soak_{k}": n["analysis"]
                                    for k, n in soak_launches.items()
                                    if n["analysis"]}},
@@ -2609,7 +2891,9 @@ def main() -> int:
         entry("rx_phases", "amps_tpu/pallas/rx_phases_kernel.py:223",
               launches, max_err, kernel_ms[1024],
               launches_by_path={"block": launches,
-                                "batched_block": batched["launches"]},
+                                "batched_block": batched["launches"],
+                                "entry": entry_launches},
+              entry_ms=entry_t["kernel"], entry_plain_ms=entry_t["plain"],
               batched_max_abs_err=batched["err"],
               batched_ms=batched["one_launch"],
               batched_g_launches_ms=batched["g_launches"],
@@ -2642,6 +2926,8 @@ def main() -> int:
                                 "sharded_step": mesh["launches"][1],
                                 "sharded_loop": mesh_loop["launches"][1],
                                 "mesh_app": mesh_app[1],
+                                "xproc_step": xl["step_launches"][1],
+                                "xproc_loop": xl["loop_launches"][1],
                                 "pacing_fdx": pace_launches["fdx"]["synth"],
                                 "pacing_fdx1": pace_launches["fdx1"]["synth"]},
               sharded_max_abs_err=mesh["synth_err"],
@@ -2661,4 +2947,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--xproc-worker"]:
+        sys.exit(xproc_worker(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], int(sys.argv[5])))
     sys.exit(main())

@@ -83,7 +83,7 @@ def test_analyze_matches_jax(parity, planar_in, planar):
     tst = convert.analyzer_state_from_numpy(np.asarray(jst.history),
                                             jst.hop_idx, device="cpu")
     got, tst2 = tchz.analyze(torch.as_tensor(x), tspec, tst, planar=planar,
-                             planar_in=planar_in)
+                             planar_in=planar_in, chmajor=True)
     want = np.asarray(want)
     assert got.shape == want.shape
     assert np.abs(got.numpy() - want).max() < ATOL
@@ -100,10 +100,12 @@ def test_two_chained_calls_equal_one():
     spec = tchz.ChannelizerSpec(M, T)
     x = torch.as_tensor(_x(700 * M // 2, seed=3))
     n1 = 301 * M // 2
-    y, st = tchz.analyze(x, spec, tchz.analyzer_init(spec, device="cpu"))
+    y, st = tchz.analyze(x, spec, tchz.analyzer_init(spec, device="cpu"),
+                         chmajor=True)
     ya, sa = tchz.analyze(x[:n1], spec, tchz.analyzer_init(spec,
-                                                           device="cpu"))
-    yb, sb = tchz.analyze(x[n1:], spec, sa)
+                                                           device="cpu"),
+                         chmajor=True)
+    yb, sb = tchz.analyze(x[n1:], spec, sa, chmajor=True)
     assert sa.hop_idx % 2 == 1
     assert (torch.cat([ya, yb], 1) - y).abs().max().item() < 1e-6
     assert sb.hop_idx == st.hop_idx and torch.equal(sb.history, st.history)
@@ -117,9 +119,10 @@ def test_analyze_on_cpu_launches_no_kernel():
     spec = tchz.ChannelizerSpec(M, T)
     x = torch.as_tensor(_x(40 * M // 2, seed=4))
     before = KA.LAUNCHES
-    y, _ = tchz.analyze(x, spec, tchz.analyzer_init(spec, device="cpu"))
+    y, _ = tchz.analyze(x, spec, tchz.analyzer_init(spec, device="cpu"),
+                        chmajor=True)
     yr, _ = tchz.analyze(x, spec, tchz.analyzer_init(spec, device="cpu"),
-                         block=KA.analyze_reference)
+                         block=KA.analyze_reference, chmajor=True)
     assert y.shape == (M, 40, 2) and KA.LAUNCHES == before
     assert torch.equal(y, yr)
     assert torch.equal(y, KA.analyze_reference(

@@ -37,7 +37,7 @@ def test_analyze_matches_jax(M, Nh, planar_in):
     got, st = tchz.analyze(torch.as_tensor(x), tspec,
                            tchz.analyzer_init(tspec, planar_in=planar_in,
                                               device="cpu"),
-                           planar=True, planar_in=planar_in)
+                           planar=True, planar_in=planar_in, chmajor=True)
     assert got.shape == want.shape == (2, M, Nh)
     assert np.abs(got.numpy() - want).max() < ATOL
     assert st.hop_idx == Nh
@@ -45,7 +45,7 @@ def test_analyze_matches_jax(M, Nh, planar_in):
     got_i, _ = tchz.analyze(torch.as_tensor(x), tspec,
                             tchz.analyzer_init(tspec, planar_in=planar_in,
                                               device="cpu"),
-                            planar=False, planar_in=planar_in)
+                            planar=False, planar_in=planar_in, chmajor=True)
     assert torch.equal(got_i, torch.stack([got[0], got[1]], dim=-1))
 
 
@@ -70,7 +70,8 @@ def test_analyze_continues_jax_state(planar_in):
                                               device="cpu")
     assert state.hop_idx % 2 == 1
     got, st2 = tchz.analyze(torch.as_tensor(x2), tchz.ChannelizerSpec(M, T),
-                            state, planar=True, planar_in=planar_in)
+                            state, chmajor=True, planar=True,
+                            planar_in=planar_in)
     assert np.abs(got.numpy() - want).max() < ATOL
     assert st2.hop_idx == 87
 
@@ -102,7 +103,7 @@ def test_analyze_every_fold_matches_jax(fold):
         want, jst = jchz.analyze(jnp.asarray(x), jspec, jst, chmajor=True,
                                  fold=fold, planar=True)
         got, tst = tchz.analyze(torch.as_tensor(x), tspec, tst, fold=fold,
-                                planar=True)
+                                planar=True, chmajor=True)
         assert np.abs(got.numpy() - np.asarray(want)).max() < ATOL
     assert tst.hop_idx == jst.hop_idx == 115
 

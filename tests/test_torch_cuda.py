@@ -195,9 +195,9 @@ def test_analyze_on_card_runs_kernel_and_chains(cuda_device):
     x = unit_channel_band(M, T, 3001, 9, cuda_device)[M * T - M // 2:]
     n1 = 1001 * M // 2
     before = KA.LAUNCHES
-    y, st = chz.analyze(x, spec, chz.analyzer_init(spec))
-    ya, sa = chz.analyze(x[:n1], spec, chz.analyzer_init(spec))
-    yb, sb = chz.analyze(x[n1:], spec, sa)
+    y, st = chz.analyze(x, spec, chz.analyzer_init(spec), chmajor=True)
+    ya, sa = chz.analyze(x[:n1], spec, chz.analyzer_init(spec), chmajor=True)
+    yb, sb = chz.analyze(x[n1:], spec, sa, chmajor=True)
     torch.cuda.synchronize()
     assert KA.LAUNCHES == before + 3
     assert torch.equal(torch.cat([ya, yb], 1), y)
@@ -217,8 +217,8 @@ def test_analysis_kernel_rejects_what_it_cannot_run(cuda_device):
     with pytest.raises(ValueError):            # M not a power of two
         KA.analyze_block(torch.zeros(((Nh + 15) * 48, 2), device=cuda_device),
                          96, T)
-    with pytest.raises(ValueError):            # not one (n, 2) block
-        KA.analyze_block(torch.zeros((2, n, 2), device=cuda_device), M, T)
+    with pytest.raises(ValueError):            # rows that are no (n, 2) block
+        KA.analyze_block(torch.zeros((2, n, 3), device=cuda_device), M, T)
     with pytest.raises(ValueError):
         KA.analyze_block(torch.zeros((n, 2), device=cuda_device).double(),
                          M, T)
@@ -852,3 +852,48 @@ def test_sharded_receiver_on_card_matches_cpu(cuda_device):
         assert (a.channel, a.abs_symbol) == (b.channel, b.abs_symbol)
         assert np.array_equal(a.words, b.words)
         assert np.array_equal(a.word_ok, b.word_ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chmajor,planar,planar_in", [
+    (False, False, False), (True, True, False), (True, False, True)])
+def test_analyze_with_batch_dims_on_card(cuda_device, chmajor, planar,
+                                         planar_in):
+    """analyze on a (2, 3) batch of streams launches K1 once a row, and
+    equals its plain version (``block=analyze_reference``) in each
+    layout."""
+    M, T, Nh = 64, 8, 501
+    spec = chz.ChannelizerSpec(M, T)
+    g = torch.Generator(cuda_device).manual_seed(5)
+    x = torch.randn((2, 3, Nh * M // 2, 2), device=cuda_device, generator=g)
+    if planar_in:
+        x = x.transpose(-1, -2).contiguous()
+    kw = dict(chmajor=chmajor, planar=planar, planar_in=planar_in)
+    st = chz.analyzer_init(spec, (2, 3), planar_in)
+    before = KA.LAUNCHES
+    y, st2 = chz.analyze(x, spec, st, **kw)
+    torch.cuda.synchronize()
+    assert KA.LAUNCHES == before + 6
+    ry, _ = chz.analyze(x, spec, st, block=KA.analyze_reference, **kw)
+    assert y.shape == ry.shape and y.shape[:2] == (2, 3)
+    assert (y - ry).abs().max().item() <= 2e-4
+    assert st2.hop_idx == Nh
+
+
+@pytest.mark.cuda
+def test_two_process_step_on_one_card(cuda_device, tmp_path):
+    """tests/test_torch_distributed.py's two-process job with both
+    processes' workers on cuda:0 at M=64: ``initialize`` picks gloo (two
+    processes on one card), the halo and psum cross the processes through
+    host copies, the burst across the process boundary decodes and each
+    process's TX share equals the single-device transmitter's."""
+    import importlib.util
+    import pathlib
+    here = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "two_process_case", here / "test_torch_distributed.py")
+    case = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(case)
+    outs = case.run_two_processes(case.step_worker(
+        tmp_path, device="cuda:0", M=64, T=8), timeout=300)
+    case.check_step_outputs(outs, backend="gloo")

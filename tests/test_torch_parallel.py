@@ -121,7 +121,8 @@ def test_sharded_analysis_matches_unsharded(t, c):
         np.float32)
     spec = chz.ChannelizerSpec(M, T)
     want, _ = chz.analyze(torch.as_tensor(x), spec,
-                          chz.analyzer_init(spec, device="cpu"), planar=True)
+                          chz.analyzer_init(spec, device="cpu"),
+                          chmajor=True, planar=True)
     jwant, _ = jchz.analyze(x, jchz.ChannelizerSpec(M, T),
                             jchz.analyzer_init(jchz.ChannelizerSpec(M, T)),
                             chmajor=True, planar=True)
@@ -680,7 +681,7 @@ def test_full_call_over_sharded_rf():
 
     def forward(x_rx=None):
         tx, _ = trx.push(silence if x_rx is None else x_rx)
-        Y, ear["s"] = chz.analyze(tx, ts.chz_spec, ear["s"])
+        Y, ear["s"] = chz.analyze(tx, ts.chz_spec, ear["s"], chmajor=True)
         mob.hear_focc(quadrature_demod(Y[1])[0].numpy(), sps=sps)
         mob.hear_fvc(quadrature_demod(Y[4])[0].numpy(), sps=sps)
 

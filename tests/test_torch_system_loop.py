@@ -84,7 +84,8 @@ def _port_ear(spec):
     state = {"s": tchz.analyzer_init(spec.chz_spec, device="cpu")}
 
     def ear(blk):
-        Y, state["s"] = tchz.analyze(blk, spec.chz_spec, state["s"])
+        Y, state["s"] = tchz.analyze(blk, spec.chz_spec, state["s"],
+                                     chmajor=True)
         return [tfm.quadrature_demod(Y[k])[0].numpy()       # (M, hops, 2)
                 for k in (FOCC_SLOT, FVC_SLOT)]
     return ear
@@ -244,7 +245,8 @@ def test_fvc_alert_over_rf_matches_jax():
     assert np.abs(trf - jrf).max() <= TX_PEAK_RTOL * np.abs(jrf).max()
     spec = PORT.spec.chz_spec
     y_port, _ = tchz.analyze(torch.as_tensor(trf), spec,
-                             tchz.analyzer_init(spec, device="cpu"))
+                             tchz.analyzer_init(spec, device="cpu"),
+                             chmajor=True)
     d_port = tfm.quadrature_demod(y_port[2][None])[0][0].numpy()
     ych, _ = jchz.analyze(jrf, JAX.spec.chz_spec,
                           jchz.analyzer_init(JAX.spec.chz_spec), chmajor=True)
@@ -276,7 +278,7 @@ def test_port_ear_continues_a_jax_ear():
                                             jst.hop_idx, device="cpu")
     before = KA.LAUNCHES
     got, tst2 = tchz.analyze(torch.as_tensor(blocks[1]), PORT.spec.chz_spec,
-                             tst)
+                             tst, chmajor=True)
     assert KA.LAUNCHES == before
     assert tst2.hop_idx == 2 * 50004
     want = np.asarray(want)
