@@ -151,8 +151,9 @@ def _run_mesh(args, result: dict | None = None):
     analysis bank, answers on the RECC (slot 3), transponds SAT + ST on
     its assigned voice channel, answers one block after ringing and hangs
     up after three conversation blocks.  ``result`` (optional dict)
-    receives the station, the mobiles, the timeline, the host time of
-    each block (seconds) and the RX samples a block."""
+    receives the command server's bound port (``"port"``) once it
+    serves, and at the end the station, the mobiles, the timeline, the
+    host time of each block (seconds) and the RX samples a block."""
     import dataclasses
 
     import numpy as np
@@ -326,6 +327,8 @@ def _run_mesh(args, result: dict | None = None):
             await server.start()
             print(f"[ctl] command server on 127.0.0.1:{server.port} "
                   f"(mesh {T}x{C})")
+            if result is not None:
+                result["port"] = server.port
         tx_meter = meter("tx_wideband")
         loop = asyncio.get_running_loop()
         had_call = False
@@ -359,9 +362,11 @@ def _run_mesh(args, result: dict | None = None):
 
 def main(argv=None, _result: dict | None = None):
     """Run the station.  ``_result`` (optional dict) receives the
-    station, the executor's stats, the receiver's reports, the two
-    RateMeters and the per-block host times of the TX and RX threads
-    (seconds), for tests and measurement scripts."""
+    command server's bound port (``"port"``, the free one of ``--port
+    0``) once it serves, and at the end the station, the executor's
+    stats, the receiver's reports, the two RateMeters and the per-block
+    host times of the TX and RX threads (seconds), for tests and
+    measurement scripts."""
     args = build_parser().parse_args(argv)
     if args.mesh:
         _run_mesh(args, _result)
@@ -426,6 +431,8 @@ def main(argv=None, _result: dict | None = None):
             server = CommandServer(station, port=args.port)
             await server.start()
             print(f"[ctl] command server on 127.0.0.1:{server.port}")
+            if _result is not None:
+                _result["port"] = server.port
 
         tx_meter = meter("tx_wideband")
         rx_meter = meter("rx_wideband")

@@ -19,14 +19,24 @@ directions.
 Nothing tells a program of its cluster: ``initialize`` takes the
 coordinator's address, the process count and this process's index, or
 reads them from ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` /
-``PROCESS_ID``.
+``PROCESS_ID``.  Process 0 serves the job's store; given port 0 it binds
+a free one and prints it (``COORDINATOR_LINE``) before it waits for the
+others, and ``launch`` starts a job that way.  ``shutdown``, registered
+at exit by ``initialize``, ends the job as ``jax.distributed.shutdown``
+does: no process leaves while another still needs it.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
-from typing import List, Optional, Sequence
+import re
+import select
+import subprocess
+import sys
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
 from urllib.parse import urlsplit
 
 import torch
@@ -37,7 +47,10 @@ from amps_tpu_torch.parallel.mesh import Mesh, MeshSpec, visible_cuda_devices
 
 BACKENDS = ("nccl", "gloo")
 STORE_TIMEOUT_S = 300
-_CARD_KEY = "amps_tpu_torch/card/"
+# process 0's line, given port 0, naming the address it bound
+COORDINATOR_LINE = "COORDINATOR_ADDRESS="
+_KEY = "amps_tpu_torch/"
+_job = None     # (store, process count, process index) until shutdown
 
 
 def choose_backend(cards: Sequence[Optional[str]],
@@ -76,6 +89,19 @@ def _card() -> str:
     return f"{props.name} {props.uuid}"
 
 
+def _rendezvous(store, name: str, n: int, pid: int) -> None:
+    """Every one of the ``n`` ranks checks in under ``name`` and waits
+    until all have.  Process 0, the store's server, returns last: only
+    after every other rank has seen all check in and has checked out, so
+    it never takes the store away from a rank that still waits on it."""
+    store.set(f"{_KEY}{name}/in/{pid}", b"1")
+    store.wait([f"{_KEY}{name}/in/{r}" for r in range(n)])
+    if pid:
+        store.set(f"{_KEY}{name}/out/{pid}", b"1")
+    else:
+        store.wait([f"{_KEY}{name}/out/{r}" for r in range(1, n)])
+
+
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
@@ -83,21 +109,116 @@ def initialize(coordinator_address: Optional[str] = None,
     """``init_process_group`` over a TCP store at ``coordinator_address``
     (host:port, a ``tcp://`` prefix allowed; process 0 serves it) with
     ``num_processes`` ranks, this one ``process_id``; each None is read
-    from the environment variable of the JAX package.  ``backend``: see
-    ``choose_backend``; the processes' cards are gathered over the store
-    first, so every rank makes the same choice."""
+    from the environment variable of the JAX package.  Port 0 is for
+    process 0 alone: it binds a free port and prints
+    ``COORDINATOR_LINE`` + host:port before it waits for the others.
+    ``backend``: see ``choose_backend``; the processes' cards are
+    gathered over the store first and every rank checks in before any
+    chooses, so all make the same choice, or all raise.  Registers
+    ``shutdown`` at exit."""
+    global _job
     addr = coordinator_address or os.environ["COORDINATOR_ADDRESS"]
     n = int(num_processes if num_processes is not None
             else os.environ["NUM_PROCESSES"])
     pid = int(process_id if process_id is not None
               else os.environ["PROCESS_ID"])
     url = urlsplit(addr if "://" in addr else "tcp://" + addr)
+    if url.port is None or (url.port == 0 and pid != 0):
+        raise ValueError(f"coordinator address {addr!r}: process {pid} "
+                         f"needs the port process 0 serves (port 0, a "
+                         f"free one, is for process 0 alone)")
     store = dist.TCPStore(url.hostname, url.port, n, is_master=pid == 0,
-                          timeout=datetime.timedelta(seconds=STORE_TIMEOUT_S))
-    store.set(f"{_CARD_KEY}{pid}", _card())
-    cards = [store.get(f"{_CARD_KEY}{r}").decode() or None for r in range(n)]
+                          timeout=datetime.timedelta(seconds=STORE_TIMEOUT_S),
+                          wait_for_workers=False)
+    if url.port == 0:
+        print(f"{COORDINATOR_LINE}{url.hostname}:{store.port}", flush=True)
+    store.set(f"{_KEY}card/{pid}", _card())
+    cards = [store.get(f"{_KEY}card/{r}").decode() or None
+             for r in range(n)]
+    _rendezvous(store, "initialize", n, pid)
     dist.init_process_group(choose_backend(cards, backend), store=store,
                             world_size=n, rank=pid)
+    _job = (store, n, pid)
+    atexit.unregister(_at_exit)
+    atexit.register(_at_exit)
+
+
+def shutdown() -> None:
+    """End the job, the counterpart of ``jax.distributed.shutdown``: a
+    barrier of every process, then ``destroy_process_group``; process 0
+    leaves last, its store up until every other rank has checked out.
+    Does nothing before ``initialize`` or a second time."""
+    global _job
+    if _job is None:
+        return
+    store, n, pid = _job
+    _job = None
+    dist.barrier()
+    dist.destroy_process_group()
+    _rendezvous(store, "shutdown", n, pid)
+
+
+def _at_exit() -> None:
+    """``shutdown`` at exit; after an uncaught exception the process
+    leaves at once, without a barrier its peers could not meet, and they
+    fail on the closed connection."""
+    if getattr(sys, "last_exc", None) is None:
+        shutdown()
+    elif dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def launch(command: Callable[[int, str], List[str]], num_processes: int = 2,
+           timeout: float = 180, host: str = "127.0.0.1"
+           ) -> List[Tuple[int, str]]:
+    """Run one job: ``command(pid, address)`` is the argv of process
+    ``pid``, which joins with ``initialize(address, num_processes,
+    pid)``.  Process 0 gets port 0, binds a free port and reports it;
+    the others start once it has, with that address, so no port number
+    passes through a closed probe socket.  Each process has ``timeout``
+    seconds of its own (``subprocess.TimeoutExpired`` past it; every
+    process is gone on return).  Returns each process's (exit code,
+    output with stderr merged), in process order."""
+    def start(pid, address):
+        return subprocess.Popen(command(pid, address),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+
+    procs = [start(0, f"{host}:0")]
+    heads = [b""]
+    try:
+        fd, deadline = procs[0].stdout.fileno(), time.monotonic() + timeout
+        while True:
+            found = re.search(rf"^{COORDINATOR_LINE}(\S+)\n".encode(),
+                              heads[0], re.M)
+            if found:
+                break
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise subprocess.TimeoutExpired(procs[0].args, timeout,
+                                                heads[0])
+            if select.select([fd], [], [], left)[0]:
+                chunk = os.read(fd, 65536)
+                if not chunk:
+                    procs[0].wait()
+                    raise RuntimeError(
+                        f"process 0 exited {procs[0].returncode} before it "
+                        f"reported the job's address:\n"
+                        f"{heads[0].decode(errors='replace')[-3000:]}")
+                heads[0] += chunk
+        address = found.group(1).decode()
+        for pid in range(1, num_processes):
+            procs.append(start(pid, address))
+            heads.append(b"")
+        outs = [head + p.communicate(timeout=timeout)[0]
+                for head, p in zip(heads, procs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out.decode(errors="replace"))
+            for p, out in zip(procs, outs)]
 
 
 def backend() -> Optional[str]:

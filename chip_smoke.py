@@ -2232,10 +2232,7 @@ def phase_mesh_app(dev, M, card, max_blocks=30):
     from amps_tpu_torch.__main__ import main as cli
     from amps_tpu_torch.kernels import analysis as KA
     from amps_tpu_torch.kernels import synth as S
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    argv = ["bs", "--mesh", "2x2", "--channels", str(M), "--port", str(port),
+    argv = ["bs", "--mesh", "2x2", "--channels", str(M), "--port", "0",
             "--simulate", "mobile:5551234567", "--voice-slot-map",
             "355:4,356:5", "--sup-timers", "3.0:0.8", "--blocks",
             str(max_blocks)]
@@ -2246,14 +2243,12 @@ def phase_mesh_app(dev, M, card, max_blocks=30):
     KA.LAUNCHES = S.LAUNCHES = 0
     th = threading.Thread(target=quiet(lambda: cli(argv, _result=result)))
     th.start()
+    # the app binds a free port and reports it once its server is up
     deadline = time.time() + 120
-    sock = None
-    while sock is None and time.time() < deadline and th.is_alive():
-        try:
-            sock = socket.create_connection(("127.0.0.1", port), timeout=1)
-        except OSError:
-            time.sleep(0.1)
-    assert sock is not None, "command server never came up"
+    while "port" not in result and time.time() < deadline and th.is_alive():
+        time.sleep(0.1)
+    assert "port" in result, "command server never came up"
+    sock = socket.create_connection(("127.0.0.1", result["port"]), timeout=5)
     sock.sendall(b"page 5551234567\n")
     sock.close()
     th.join(timeout=600)
@@ -2398,22 +2393,23 @@ def phase_pacing(dev, card, seconds=None, **kw):
 XPROC_TIMEOUT_S = 420      # each child process of phase 27
 
 
-def xproc_worker(pid, port, device="cuda:0", M=1024, T=8, n_timed=10,
+def xproc_worker(pid, address, device="cuda:0", M=1024, T=8, n_timed=10,
                  n_runs=3) -> int:
-    """Process ``pid`` of phase 27's two-process job: join the job over
+    """Process ``pid`` of phase 27's two-process job: join the job at
+    ``address`` (host:port; port 0 for process 0, which binds one) over
     ``initialize`` (the backend it picks), take one time row of the
     global {time: 2, chan: 2} mesh (two workers on ``device``), run
     phase 21's step traffic and phase 22's loop, then both timed in step
-    with the other process
-    and a profiler window; print one ``XPROC`` JSON line of what the
-    parent checks."""
+    with the other process and a profiler window, and leave through
+    ``shutdown``; print one ``XPROC`` JSON line of what the parent
+    checks."""
     from amps_tpu_torch.kernels import analysis as KA
     from amps_tpu_torch.kernels import synth as S
     from amps_tpu_torch.parallel import distributed as D
     from amps_tpu_torch.parallel import pipeline as pl
     from amps_tpu_torch.runtime.streamer import MultichannelTransmitter
     dev = torch.device(device)
-    D.initialize(f"127.0.0.1:{port}", 2, pid)
+    D.initialize(address, 2, pid)
     mesh = D.global_mesh(devices=[dev, dev])
     assert mesh.shape == {"time": 2, "chan": 2} and mesh.rows == 1
     spec = mesh_spec(M, T)
@@ -2472,7 +2468,7 @@ def xproc_worker(pid, port, device="cuda:0", M=1024, T=8, n_timed=10,
         lambda: step(wp, st0, blocks[1]), dev, top=8)
     res["busy_ms"], res["wall_ms"] = busy, wall
     res["idle"] = 1 - busy / wall
-    torch.distributed.destroy_process_group()
+    D.shutdown()
     print("XPROC " + json.dumps(res), flush=True)
     return 0
 
@@ -2480,8 +2476,9 @@ def xproc_worker(pid, port, device="cuda:0", M=1024, T=8, n_timed=10,
 def phase_xproc(card, step_reports, loop_sums, device="cuda:0", M=1024,
                 T=8, timeout=XPROC_TIMEOUT_S):
     """Phase 27: the cross-process station on one card.  Two processes
-    (this script in ``--xproc-worker`` mode, each with a timeout of its
-    own) join through ``distributed.initialize`` into the global
+    (this script in ``--xproc-worker`` mode, started by
+    ``distributed.launch``, each with a timeout of its own) join through
+    ``distributed.initialize`` into the global
     {time: 2, chan: 2} mesh, a time row and two workers each, all four
     on ``device``.  Their step's union of reports equals phase 21's
     (``step_reports``), every planted burst decoded bit-exact with DCC
@@ -2491,38 +2488,22 @@ def phase_xproc(card, step_reports, loop_sums, device="cuda:0", M=1024,
     analysis and synth launches of both processes together, in the step
     and in the loop."""
     import os
-    import socket
-    from amps_tpu_torch.parallel import pipeline as pl
+    from amps_tpu_torch.parallel import distributed as D
     log(f"phase 27: the cross-process station, 2 processes x 2 workers on "
         f"{device}, M={M}: the step ({MESH_STEP_BLOCKS} blocks) and the "
         f"loop ({MESH_LOOP_BLOCKS} blocks) of phases 21-22, on {card}")
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
     cmd = [sys.executable, os.path.abspath(__file__), "--xproc-worker"]
-    procs = [subprocess.Popen(cmd + [str(pid), str(port), device, str(M)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for pid in (0, 1)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    done = D.launch(lambda pid, address: cmd + [str(pid), address, device,
+                                                str(M)], timeout=timeout)
     res = []
-    for pid, (p, out) in enumerate(zip(procs, outs)):
+    for pid, (code, out) in enumerate(done):
         for line in out.splitlines():
             if not line.startswith("XPROC "):
                 log(f"  [process {pid}] {line}")
-        if p.returncode != 0:
-            raise RuntimeError(f"phase 27: process {pid} exited "
-                               f"{p.returncode}")
+        if code != 0:
+            raise RuntimeError(f"phase 27: process {pid} exited {code}")
         res.append(json.loads(next(line[6:] for line in out.splitlines()
                                    if line.startswith("XPROC "))))
     spec = mesh_spec(M, T)
@@ -2948,6 +2929,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--xproc-worker"]:
-        sys.exit(xproc_worker(int(sys.argv[2]), int(sys.argv[3]),
-                              sys.argv[4], int(sys.argv[5])))
+        sys.exit(xproc_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                              int(sys.argv[5])))
     sys.exit(main())

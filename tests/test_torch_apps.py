@@ -72,10 +72,11 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _mesh_app(package, args, page_port=None):
-    """One run of the mesh app of either package; with ``page_port`` the
-    app serves commands there and an operator pages 5551234567 through
-    the socket once the server is up."""
+def _mesh_app(package, args, page=False):
+    """One run of the mesh app of either package; with ``page`` the app
+    serves commands and an operator pages 5551234567 through the socket
+    once the server is up.  The port's app binds ``--port 0`` and
+    reports the port it bound; the JAX app is given a free port."""
     import socket
     import threading
     import time
@@ -88,20 +89,25 @@ def _mesh_app(package, args, page_port=None):
         argv = ["--mesh", "2x2", "--channels", "8", "--platform", "cpu",
                 *args]
         main = jbs_app.main
-    if page_port is None:
+    if not page:
         main(argv + ["--no-server"], result)
         return result
+    given = 0 if package == "port" else _free_port()
     th = threading.Thread(target=main,
-                          args=(argv + ["--port", str(page_port)], result),
+                          args=(argv + ["--port", str(given)], result),
                           daemon=True)
     th.start()
     deadline = time.time() + 300
     sock = None
-    while time.time() < deadline and sock is None:
+    while time.time() < deadline and sock is None and th.is_alive():
+        port = result.get("port", given)
         try:
-            sock = socket.create_connection(("127.0.0.1", page_port),
-                                            timeout=1)
+            if port:
+                sock = socket.create_connection(("127.0.0.1", port),
+                                                timeout=1)
         except OSError:
+            pass
+        if sock is None:
             time.sleep(0.2)
     assert sock is not None, "command server never came up"
     sock.sendall(b"page 5551234567\n")
@@ -157,8 +163,8 @@ def test_mesh_station_paged_through_the_socket_matches_jax():
     analysis drive the call to its ST release: the same supervision
     timeline and mobile log as the JAX app."""
     args = ["--simulate", "mobile:5551234567", *SUP_ARGS, "--blocks", "30"]
-    got = _mesh_app("port", args, _free_port())
-    want = _mesh_app("jax", args, _free_port())
+    got = _mesh_app("port", args, page=True)
+    want = _mesh_app("jax", args, page=True)
     assert got["mob"].log[:4] == ["paged", "assigned 355", "ringing",
                                   "answered"]
     assert got["mob"].log == want["mob"].log

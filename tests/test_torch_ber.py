@@ -10,9 +10,25 @@ import pytest
 import torch
 
 from amps_tpu.eval import ber as jber
+from amps_tpu.eval import channel as jchannel
 from amps_tpu_torch.eval import ber
+from amps_tpu_torch.eval import channel
 
 torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("shape,sigma", [((5000, 2), 0.1), ((3, 700, 2), 1.5),
+                                         ((64, 2), 0.0)])
+def test_awgn_matches_jax(shape, sigma):
+    """The same ``np.random.Generator`` state gives the same noisy array,
+    bit for bit, and leaves both generators in the same state."""
+    iq = np.random.default_rng(1).normal(0, 1, shape).astype(np.float32)
+    rng, jrng = np.random.default_rng(553), np.random.default_rng(553)
+    got = channel.awgn(iq, sigma, rng)
+    want = jchannel.awgn(iq, sigma, jrng)
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got, want)
+    assert rng.bit_generator.state == jrng.bit_generator.state
 
 
 @pytest.mark.parametrize("snr", [20.0, 6.0])

@@ -12,19 +12,30 @@ analysis halo go point-to-point, the carried tails are broadcast from the
 last process, and a burst that spans the process boundary decodes
 bit-exactly; each process's share of the TX wideband equals the
 single-device transmitter's.  Each subprocess has a timeout of its own.
+
+A job starts through ``distributed.launch``: process 0 binds the store's
+port and reports it, then process 1 starts.  It ends through
+``distributed.shutdown``.  The delayed cases hold the job's rendezvous
+and its shutdown with rank 1 late: the store's server, process 0, must
+stay up until rank 1 is done with it.
 """
 
 import pathlib
-import socket
-import subprocess
+import re
 import sys
 
 import pytest
+import torch
 
+from amps_tpu_torch.parallel import distributed as D
 from amps_tpu_torch.parallel.distributed import choose_backend
+
+# how long rank 1 is held back in the delayed cases, seconds
+DELAY_S = 2.0
 
 _WORKER = r'''
 import sys
+import time
 sys.path.insert(0, {repo!r})
 import numpy as np
 import torch
@@ -33,7 +44,8 @@ from amps_tpu_torch.parallel import distributed as dist
 from amps_tpu_torch.parallel import halo
 
 pid = int(sys.argv[1])
-dist.initialize("127.0.0.1:" + sys.argv[2], 2, pid, backend={backend!r})
+delay = {delay!r} if pid == 1 else 0
+dist.initialize(sys.argv[2], 2, pid, backend={backend!r})
 assert dist.process_count() == 2
 print("BACKEND", pid, dist.backend(), flush=True)
 dev = torch.device({device!r})
@@ -99,6 +111,7 @@ for c in range(M):
             found.append((c, a, o["words"][0, c, k].tolist(),
                           bool(o["word_ok"][0, c, k][:2].all())))
 every = [None, None]
+time.sleep(delay)      # rank 1 late for the step's last collective
 torch.distributed.all_gather_object(every, found)
 kept = {{}}
 for c, a, w, ok in sorted(every[0] + every[1]):
@@ -115,45 +128,42 @@ assert a2 < row_hops < a2 + correlator.CAPTURE_SYMBOLS * sps, a2
 # the carried tails came from the last process to both
 assert torch.equal(st["hist"], xr[xr.shape[0] - (M * T - P):])
 print("STEPOK", pid, st["parity"], st["tx_parity"], flush=True)
+
+if delay:
+    # rank 1 late to check out after its group is gone
+    destroy = torch.distributed.destroy_process_group
+
+    def late_destroy():
+        destroy()
+        print("DESTROYED", pid, time.monotonic(), flush=True)
+        time.sleep(delay)
+    torch.distributed.destroy_process_group = late_destroy
+dist.shutdown()
+print("LEFT", pid, time.monotonic(), flush=True)
 '''
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def run_two_processes(script, timeout=180):
     """Run ``script`` (a path) as processes 0 and 1 of one job, each with
-    a timeout of its own; returns their outputs, or fails with the
-    output of a process that failed."""
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, str(script), str(i),
-                               str(port)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT)
-             for i in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0].decode())
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
-    return outs
+    a timeout of its own (``distributed.launch``: process 0 binds the
+    job's port, then process 1 starts with it); returns their outputs,
+    or fails with the output of a process that failed."""
+    done = D.launch(lambda pid, address: [sys.executable, str(script),
+                                          str(pid), address],
+                    timeout=timeout)
+    for code, out in done:
+        assert code == 0, out[-3000:]
+    return [out for _, out in done]
 
 
-def step_worker(tmp_path, device="cpu", M=8, T=4, backend=None):
-    """The two-process halo, psum and sharded-step worker as a script."""
+def step_worker(tmp_path, device="cpu", M=8, T=4, backend=None, delay=0):
+    """The two-process halo, psum and sharded-step worker as a script;
+    ``delay`` seconds hold rank 1 back before the step's last collective
+    and again between its ``destroy_process_group`` and its check-out."""
     repo = str(pathlib.Path(__file__).resolve().parent.parent)
     script = tmp_path / "worker.py"
     script.write_text(_WORKER.format(repo=repo, device=device, M=M, T=T,
-                                     backend=backend))
+                                     backend=backend, delay=delay))
     return script
 
 
@@ -164,6 +174,7 @@ def check_step_outputs(outs, backend="gloo"):
         assert f"PSUM {pid} 2148.0" in out, out[-3000:]
         # 2 * 12480 RX hops and 50004 TX hops: both parities even
         assert f"STEPOK {pid} 0 0" in out, out[-3000:]
+        assert f"LEFT {pid} " in out, out[-3000:]
 
 
 @pytest.mark.parametrize("backend", [None, "gloo"])
@@ -174,33 +185,126 @@ def test_two_process_gloo_mesh_halo_psum_and_step(tmp_path, backend):
                                                      backend=backend)))
 
 
+def _stamp(out, word, pid):
+    return float(re.search(rf"^{word} {pid} (\S+)$", out, re.M).group(1))
+
+
+@pytest.mark.parametrize("backend", [None, "gloo"])
+def test_two_process_step_with_rank_1_delayed(tmp_path, backend):
+    """Rank 1 comes late to the step's last collective and, after its
+    process group is gone, late to check out: both processes exit 0 with
+    the step's results, and process 0, the store's server, leaves only
+    after rank 1 has checked out."""
+    outs = run_two_processes(step_worker(tmp_path, backend=backend,
+                                         delay=DELAY_S))
+    check_step_outputs(outs, backend=backend or "gloo")
+    assert _stamp(outs[0], "LEFT", 0) >= (_stamp(outs[1], "DESTROYED", 1)
+                                          + DELAY_S), outs
+
+
 _CHOICE = r'''
 import sys
+import time
 sys.path.insert(0, {repo!r})
+import torch.distributed
 from amps_tpu_torch.parallel import distributed as dist
 
 pid = int(sys.argv[1])
+delay = {delay!r} if pid == 1 else 0
+
+
+class LateReads(torch.distributed.Store):
+    """The job's store, with the first read after a write ``delay``
+    seconds late."""
+
+    def __init__(self, store):
+        super().__init__()
+        self._store, self._late = store, False
+
+    def set(self, key, value):
+        self._store.set(key, value)
+        self._late = True
+
+    def get(self, key):
+        if self._late:
+            time.sleep(delay)
+            self._late = False
+        return self._store.get(key)
+
+    def wait(self, keys, *timeout):
+        return self._store.wait(keys, *timeout)
+
+
+if delay:
+    tcp_store = torch.distributed.TCPStore
+    torch.distributed.TCPStore = lambda *a, **k: LateReads(
+        tcp_store(*a, **k))
 # both processes report the same card, as two processes on one H100 do
 dist._card = lambda: "NVIDIA H100 80GB HBM3 GPU-0a1b"
 try:
-    dist.initialize("127.0.0.1:" + sys.argv[2], 2, pid, backend="nccl")
+    dist.initialize(sys.argv[2], 2, pid, backend="nccl")
 except ValueError as e:
     print("REFUSED", pid, e, flush=True)
 else:
     raise SystemExit("NCCL was not refused")
+dist.shutdown()
 '''
+
+
+def check_refused(tmp_path, delay):
+    repo = str(pathlib.Path(__file__).resolve().parent.parent)
+    script = tmp_path / "choice.py"
+    script.write_text(_CHOICE.format(repo=repo, delay=delay))
+    for pid, out in enumerate(run_two_processes(script, timeout=60)):
+        assert (f"REFUSED {pid} NCCL takes one process a card: ranks [0, 1] "
+                f"share card NVIDIA H100 80GB HBM3 GPU-0a1b") in out, out
 
 
 def test_nccl_refused_when_two_processes_share_a_card(tmp_path):
     """Asked for NCCL while both processes of the job hold one card, both
     raise ValueError naming the card (decided from the cards gathered
     over the job's store, before NCCL is reached)."""
-    repo = str(pathlib.Path(__file__).resolve().parent.parent)
-    script = tmp_path / "choice.py"
-    script.write_text(_CHOICE.format(repo=repo))
-    for pid, out in enumerate(run_two_processes(script, timeout=60)):
-        assert (f"REFUSED {pid} NCCL takes one process a card: ranks [0, 1] "
-                f"share card NVIDIA H100 80GB HBM3 GPU-0a1b") in out, out
+    check_refused(tmp_path, 0)
+
+
+def test_nccl_refused_with_rank_1_late_to_read_the_cards(tmp_path):
+    """Rank 1 reads the cards ``DELAY_S`` after it wrote its own: process
+    0, which serves the store and has read both cards at once, waits for
+    rank 1 to check in before either refuses, so both print REFUSED and
+    exit 0 (without the rendezvous process 0 left first and rank 1 lost
+    the store)."""
+    check_refused(tmp_path, DELAY_S)
+
+
+def test_shutdown_without_a_job_and_twice(capsys):
+    """``shutdown`` does nothing before ``initialize`` and nothing the
+    second time; a one-process job on port 0 binds a free port, reports
+    it, runs gloo and is gone after ``shutdown``."""
+    assert not torch.distributed.is_initialized()
+    D.shutdown()
+    D.shutdown()
+    D.initialize("127.0.0.1:0", 1, 0, backend="gloo")
+    try:
+        assert D.backend() == "gloo" and D.process_count() == 1
+        port = int(re.search(rf"^{D.COORDINATOR_LINE}127\.0\.0\.1:(\d+)$",
+                             capsys.readouterr().out, re.M).group(1))
+        assert port > 0
+    finally:
+        D.shutdown()
+    assert not torch.distributed.is_initialized() and D.backend() is None
+    D.shutdown()
+
+
+@pytest.mark.parametrize("address,pid", [("127.0.0.1:0", 1),
+                                         ("tcp://127.0.0.1", 0)])
+def test_initialize_refuses_an_address_without_the_port(address, pid):
+    """Port 0, a free port, is for process 0 alone: process 1 must be
+    given the port process 0 bound; an address without a port is
+    refused."""
+    with pytest.raises(ValueError, match="port 0, a free one, is for "
+                                         "process 0 alone"):
+        D.initialize(address, 2, pid)
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("cards,asked,want", [

@@ -434,6 +434,30 @@ def _sharded_stream():
     return [x[i: i + block * P] for i in range(0, len(x), block * P)], events
 
 
+def test_snapshot_sharded_receiver_matches_jax():
+    """After the same two blocks, the port's sharded checkpoint has the
+    JAX package's layout: the same keys, dtypes and shapes; the counters,
+    dedup positions, parities and the raw input history equal; the
+    analysis IQ halo within 2e-4 (the f32 analysis tolerance)."""
+    blocks, _ = _sharded_stream()
+    snaps = []
+    for package, mod in (("port", tstate), ("jax", jstate)):
+        rx = _sharded(package)
+        rx.push(blocks[0])
+        rx.push(blocks[1])
+        snaps.append(mod.snapshot_sharded_receiver(rx))
+    got, want = snaps
+    assert sorted(got) == sorted(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), k
+        if k == "st_iq_carry":
+            assert np.abs(g - w).max() <= 2e-4
+        else:
+            assert np.array_equal(g, w), k
+    assert int(got["nh_done"]) > 0 and str(got["kind"]) == "sharded_receiver"
+
+
 def test_sharded_receiver_checkpoint_resume(tmp_path):
     """Mid-stream checkpoint -> a fresh ShardedReceiver -> restore: the
     resumed stream's reports are bit-identical to an uninterrupted

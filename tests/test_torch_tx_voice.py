@@ -129,6 +129,36 @@ def test_firdes_low_pass_matches_jax(args):
     assert got.dtype == np.float32 and np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("fs,transition", [(240_000, 720.0), (60_000, 3_000.0),
+                                           (48_000, 2_000.0), (16_000, 700.0),
+                                           (400_000, 25_000.0)])
+@pytest.mark.parametrize("window", ["hamming", "hann", "blackman",
+                                    "blackman_harris", "rectangular"])
+def test_compute_ntaps_matches_jax(fs, transition, window):
+    """GR's tap count for every window: the same odd integer."""
+    got = twin.compute_ntaps(fs, transition, window)
+    assert got == jwin.compute_ntaps(fs, transition, window) and got % 2
+
+
+@pytest.mark.parametrize("shape,up,down,fs_in", [
+    ((1600,), 15, 4, 16_000.0),      # the voice path: audio -> channel rate
+    ((2, 900), 15, 4, 16_000.0),
+    ((1000,), 3, 2, 40_000.0),
+    ((1200,), 2, 5, 60_000.0)])
+def test_rational_resample_matches_jax(shape, up, down, fs_in):
+    """Polyphase interpolation by ``up`` then every ``down``-th sample:
+    the same length, within polyphase_interpolate's 1e-5 on unit-scale
+    input."""
+    x = np.random.default_rng(up * down).normal(0, 1, shape).astype(
+        np.float32)
+    want = np.asarray(jvoice.rational_resample(jnp.asarray(x), up, down,
+                                               fs_in))
+    got = tvoice.rational_resample(torch.as_tensor(x), up, down, fs_in)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert want.shape[-1] == -(-shape[-1] * up // down)
+    assert np.abs(got.numpy() - want).max() < 1e-5
+
+
 @pytest.mark.parametrize("interp", [4, 15])
 def test_polyphase_interpolate_matches_jax(interp):
     """Two chained blocks with the carried history."""
