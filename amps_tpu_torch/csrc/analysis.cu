@@ -6,7 +6,7 @@
 // (analyze_chmajor_pallas, body _make_kernel) and computes what the
 // port's plain analysis, kernels/analysis.py::analyze_reference,
 // computes: riq or planar input with the history prepended, any hop
-// parity, any number of hops, M a power of two from 8 to 2048.  None of
+// parity, any number of hops, any even M from 8 to 2048.  None of
 // the TPU kernel's limits or workarounds is carried over: no even-parity
 // assert, no Nh % tile_h == 0, no odd bank pre-shifted by P samples, no
 // 128-lane M, no stack-and-transpose to planes.
@@ -76,9 +76,13 @@ analysis_kernel(const float* __restrict__ x, int planar_in, long long n_ext,
 extern "C" int analysis_tile_hops(int M) {
   return with_width(M, [](auto w) { return fft_tile_hops(decltype(w)::value); });
 }
-// the FFT's radices in pass order, two decimal digits each
-extern "C" int analysis_fft_radices(int M) {
-  return with_width(M, [](auto w) { return fft_radix_code(decltype(w)::value); });
+// the FFT's plan at width M: its number of passes and the radix of pass
+// p (-1: M not taken)
+extern "C" int analysis_fft_passes(int M) {
+  return with_width(M, [](auto w) { return fft_passes(decltype(w)::value); });
+}
+extern "C" int analysis_fft_radix(int M, int p) {
+  return with_width(M, [p](auto w) { return fft_radix(decltype(w)::value, p); });
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).

@@ -13,10 +13,11 @@
 // basebands (load_rows) and reads its inverse transform off it by index
 // (synth.cu).
 //
-// A block owns all M channels of H consecutive hops a0 .. a0+H-1 (M a
-// power of two, 8 .. 2048; H even, set by the kernel).  The small banks
-// (M = 8, 16, 32: one pass of radix 8 or 16, or 16 then 2) run the same
-// code with most of a block's threads idle in the fold and the passes:
+// A block owns all M channels of H consecutive hops a0 .. a0+H-1 (M any
+// even width from 8 to 2048; H even, set by the kernel).  The small banks
+// (M = 8 .. 32: one pass of radix 8 or 16, or 16 then 2, or a few short
+// passes) run the same code with most of a block's threads idle in the
+// fold and the passes:
 //   * fold: a thread folds one m for the H/2 hops of one parity, whose
 //     windows share H/2 + T - 1 input rows (hop a tap t reads row
 //     a + 2t, +1 for m >= P), loaded all at once straight from device
@@ -30,19 +31,31 @@
 //     threads on consecutive values; rows outside [0, Nh) load as zero.
 //   * transform: the block's (H x M) plane sits in shared memory, each
 //     hop's row padded by one float2 every 32 against bank conflicts.  An
-//     f32 Stockham autosort FFT runs in place on it: passes of radix 16
-//     (then one of 2, 4 or 8) over Ns = 1, 16, 256, ...; butterfly j of a
-//     hop reads R values at stride M/R, multiplies value r by the twiddle
-//     W_M^{(j mod Ns) r M/(Ns R)}, runs its R-point DFT in registers
-//     (radix 16 as 4 x 4) and writes them at (j/Ns)·Ns·R + j mod Ns +
-//     r·Ns.  A thread holds 16 complex values of a batch of whole hops
-//     between the batch's read and its write, with a barrier between, so
-//     no pass needs a second buffer.  Channel k ends at row position k:
-//     natural order, no index map.  The twiddles come from a table
-//     (fft_twiddle_offset) that the wrapper builds in float64 and casts
-//     to f32, laid out so that consecutive butterflies read consecutive
-//     entries; the butterflies' own constants W_16^1..3 head it (at M = 8
-//     only W_16^2 = W_8^1 is a power of W_M, and the only one read).
+//     f32 Stockham autosort FFT runs in place on it, over the plan of
+//     M = 2^a · r, r odd: passes of radix 16 while four bits of 2^a
+//     remain, then one of 2, 4 or 8, then one pass per odd prime factor
+//     of r in ascending order (a power of two keeps the radix-16 plan
+//     alone).  Pass p has Ns = the product of the radices before it;
+//     butterfly j of a hop reads R values at stride M/R, multiplies value
+//     r by the twiddle W_M^{(j mod Ns) r M/(Ns R)}, runs its R-point DFT
+//     in registers (radix 16 as 4 x 4; 3, 5 and 7 by the pair symmetry
+//     of their real and imaginary parts) and writes them at
+//     (j/Ns)·Ns·R + j mod Ns + r·Ns.  A thread holds up to 16 complex
+//     values of a batch of whole hops between the batch's read and its
+//     write, with a barrier between, so no pass needs a second buffer;
+//     where a thread's butterflies do not divide into whole hops, the
+//     last lanes of a batch sit idle.  A prime q >= 11 runs the generic
+//     pass (gpass): each of the q outputs of a butterfly is a q-term sum
+//     X[g·Ns·q + o] = sum_r x[j + r·M/q] W_{Ns·q}^{r·o}, twiddle
+//     included, with W_{Ns·q}^e read from a whole W_M table; a thread
+//     holds 8 outputs of its batch between read and write.  Channel k
+//     ends at row position k: natural order, no index map.  The twiddles
+//     come from a table (fft_twiddle_offset) that the wrapper builds in
+//     float64 and casts to f32, laid out so that consecutive butterflies
+//     read consecutive entries; the butterflies' own constants head it:
+//     W_16^1..3 (at M = 8 only W_16^2 = W_8^1 is a power of W_M, and the
+//     only one read), then, where M is not a power of two, W_3, W_5^1..2
+//     and W_7^1..3 (each a power of W_M wherever its radix is in the plan).
 //   * every hop runs the same instruction sequence wherever it sits in
 //     the run: multiplies are __fmul_rn or explicit fmaf, adds __fadd_rn,
 //     so nvcc contracts nothing differently from hop to hop and chained
@@ -65,9 +78,28 @@ constexpr int kFftThreads = 256;
 constexpr int kFftMaxT = 16;     // taps per phase held in registers
 constexpr int kFftValues = 16;   // complex values a thread holds in a pass
 
+constexpr int kFftMaxWidth = 2048;
+constexpr int kFftMaxSmem = 232448;   // shared memory a block may opt in to
+// plane bytes a block of the analysis kernel may hold at a width that is
+// not a power of two: ~100 KB, the plane of M = 1024's 12 hops
+constexpr int kFftPlaneBudget = 102400;
+
+__host__ __device__ constexpr bool fft_pow2(int M) {
+  return (M & (M - 1)) == 0;
+}
+// hop stride of the plane: one float2 of padding every 32
+__host__ __device__ constexpr int fft_hop_stride(int M) {
+  return M + M / 32 + 1;
+}
 // analysis hops a block of the analysis kernel computes at width M: ~100
-// KB of plane at M=1024, so two blocks share an SM
+// KB of plane at M=1024, so two blocks share an SM; at a width that is
+// not a power of two the most even hops (2 .. 16) whose plane fits in
+// kFftPlaneBudget
 __host__ __device__ constexpr int fft_tile_hops(int M) {
+  if (!fft_pow2(M)) {
+    const int h = kFftPlaneBudget / (8 * fft_hop_stride(M));
+    return h >= 16 ? 16 : (h < 2 ? 2 : h & ~1);
+  }
   return M <= 512 ? 16 : (M == 1024 ? 12 : 4);
 }
 // hops a block of the kernels with a heavier epilogue computes (rx_front,
@@ -76,43 +108,89 @@ __host__ __device__ constexpr int fft_tile_hops(int M) {
 __host__ __device__ constexpr int fft_wide_hops(int M) {
   return 2 * fft_tile_hops(M);
 }
-__host__ __device__ constexpr int fft_log2(int M) {
-  return M <= 1 ? 0 : 1 + fft_log2(M / 2);
+// a = the exponent of 2 in M, r = M / 2^a
+__host__ __device__ constexpr int fft_twos(int M) {
+  return M % 2 ? 0 : 1 + fft_twos(M / 2);
 }
-// radix 16 while four bits remain, then one pass of 2, 4 or 8
-__host__ __device__ constexpr int fft_passes(int M) {
-  return (fft_log2(M) + 3) / 4;
+__host__ __device__ constexpr int fft_pow2_passes(int M) {
+  return fft_twos(M) / 4 + (fft_twos(M) % 4 ? 1 : 0);
 }
+// radix of pass p, 0 past the plan: 16 while four bits of 2^a remain,
+// then one pass of 2, 4 or 8, then the odd prime factors of r ascending
 __host__ __device__ constexpr int fft_radix(int M, int p) {
-  return p < fft_log2(M) / 4 ? 16 : 1 << (fft_log2(M) % 4);
+  const int a = fft_twos(M);
+  if (p < a / 4) return 16;
+  if (a % 4 && p == a / 4) return 1 << (a % 4);
+  p -= fft_pow2_passes(M);
+  int r = M >> a, q = 3;
+  while (r > 1) {
+    if (r % q) {
+      q += 2;
+    } else {
+      if (p-- == 0) return q;
+      r /= q;
+    }
+  }
+  return 0;
+}
+__host__ __device__ constexpr int fft_passes(int M) {
+  int p = 0;
+  while (fft_radix(M, p)) ++p;
+  return p;
+}
+// a prime radix with no register butterfly: the generic pass
+__host__ __device__ constexpr bool fft_generic(int R) {
+  return R % 2 == 1 && R > 7;
 }
 // Ns of pass p: the product of the radices before it
 __host__ __device__ constexpr int fft_ns(int M, int p) {
   return p == 0 ? 1 : fft_ns(M, p - 1) * fft_radix(M, p - 1);
 }
-// The twiddle table: W_16^1, W_16^2, W_16^3 (the radix-8 and radix-16
-// butterflies' constants), then for each pass p > 0 the (R-1) x Ns block
-// tw[off_p + (r-1)·Ns + jm] = W_M^{jm·r·M/(Ns·R)}, so that consecutive
-// butterflies read consecutive entries.
+// the butterflies' constants at the head of the table: W_16^1..3, and
+// where M is not a power of two W_3, W_5^1..2, W_7^1..3
+__host__ __device__ constexpr int fft_head_size(int M) {
+  return fft_pow2(M) ? 3 : 9;
+}
+__host__ __device__ constexpr int fft_head_offset(int R) {
+  return R == 3 ? 3 : (R == 5 ? 4 : 6);
+}
+// The twiddle table: the head, then for each pass p > 0 with a register
+// butterfly the (R-1) x Ns block tw[off_p + (r-1)·Ns + jm] =
+// W_M^{jm·r·M/(Ns·R)}, so that consecutive butterflies read consecutive
+// entries; a generic pass has no block.  Where the plan has a generic
+// pass, the whole W_M^e, e < M, follows at fft_twiddle_offset(M,
+// fft_passes(M)).
 __host__ __device__ constexpr int fft_twiddle_offset(int M, int p) {
-  return p <= 1 ? 3
+  return p <= 1 ? fft_head_size(M)
                 : fft_twiddle_offset(M, p - 1) +
-                      (fft_radix(M, p - 1) - 1) * fft_ns(M, p - 1);
+                      (fft_generic(fft_radix(M, p - 1))
+                           ? 0
+                           : (fft_radix(M, p - 1) - 1) * fft_ns(M, p - 1));
+}
+__host__ __device__ constexpr bool fft_has_generic(int M) {
+  for (int p = 0; fft_radix(M, p); ++p)
+    if (fft_generic(fft_radix(M, p))) return true;
+  return false;
 }
 __host__ __device__ constexpr int fft_twiddle_size(int M) {
-  return fft_twiddle_offset(M, fft_passes(M));
+  return fft_twiddle_offset(M, fft_passes(M)) + (fft_has_generic(M) ? M : 0);
 }
-// the radices in pass order, two decimal digits each (1024 -> 161604)
-__host__ __device__ constexpr int fft_radix_code(int M) {
-  int code = 0;
-  for (int p = 0; p < fft_passes(M); ++p) code = 100 * code + fft_radix(M, p);
-  return code;
+// shared memory of a block of H hops at width M: the plane and the table
+__host__ __device__ constexpr int fft_smem_bytes(int M, int H) {
+  return 8 * (H * fft_hop_stride(M) + fft_twiddle_size(M));
 }
 
-// Calls f(std::integral_constant<int, M>) for the widths the tile takes;
-// returns -1 for any other M.
+// Calls f(std::integral_constant<int, M>) for the widths this library
+// instantiates -- every power of two from 8 to 2048, or, in a library
+// built with -DAMPS_FFT_WIDTH=M, that one width --; returns -1 for any
+// other M.
 template <class F>
 int with_width(int M, F f) {
+#ifdef AMPS_FFT_WIDTH
+  return M == AMPS_FFT_WIDTH
+             ? f(std::integral_constant<int, AMPS_FFT_WIDTH>{})
+             : -1;
+#else
   switch (M) {
     case 8: return f(std::integral_constant<int, 8>{});
     case 16: return f(std::integral_constant<int, 16>{});
@@ -125,6 +203,7 @@ int with_width(int M, F f) {
     case 2048: return f(std::integral_constant<int, 2048>{});
     default: return -1;
   }
+#endif
 }
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -211,16 +290,52 @@ __device__ __forceinline__ void dft(float2 (&v)[R], const float2 (&c)[3]) {
   }
 }
 
+// In-register forward R-point DFT, R = 3, 5 or 7, natural order in and
+// out; c = W_R^1 .. W_R^{(R-1)/2}, read from the twiddle table.  With
+// a_k = v_k + v_{R-k}, b_k = v_k - v_{R-k} and W_R^e = (C_e, S_e):
+//   X_m, X_{R-m} = v_0 + sum_k C_{km} a_k  ±  i sum_k S_{km} b_k
+template <int R>
+__device__ __forceinline__ void dft_odd(float2 (&v)[R],
+                                        const float2 (&c)[(R - 1) / 2]) {
+  constexpr int HR = (R - 1) / 2;
+  float2 a[HR], b[HR];
+  float2 x0 = v[0];
+#pragma unroll
+  for (int k = 1; k <= HR; ++k) {
+    a[k - 1] = cadd(v[k], v[R - k]);
+    b[k - 1] = csub(v[k], v[R - k]);
+    x0 = cadd(x0, a[k - 1]);
+  }
+#pragma unroll
+  for (int m = 1; m <= HR; ++m) {
+    float re = v[0].x, ri = v[0].y, tr = 0.f, ti = 0.f;
+#pragma unroll
+    for (int k = 1; k <= HR; ++k) {
+      const int e = k * m % R;   // W_R^e = conj(W_R^{R-e}) past R/2
+      const float2 w = c[(e <= HR ? e : R - e) - 1];
+      const float s = e <= HR ? w.y : -w.y;
+      re = fmaf(w.x, a[k - 1].x, re);
+      ri = fmaf(w.x, a[k - 1].y, ri);
+      tr = fmaf(s, b[k - 1].x, tr);
+      ti = fmaf(s, b[k - 1].y, ti);
+    }
+    v[m] = make_float2(__fsub_rn(re, ti), __fadd_rn(ri, tr));
+    v[R - m] = make_float2(__fadd_rn(re, ti), __fsub_rn(ri, tr));
+  }
+  v[0] = x0;
+}
+
 template <int M, int H_>
 struct FftTile {
   static constexpr int P = M / 2;
   static constexpr int H = H_;                 // analysis hops of a block
   static constexpr int FH = H / 2;             // hops a thread folds
-  static constexpr int HS = M + M / 32 + 1;    // hop stride of the plane
+  static constexpr int HS = fft_hop_stride(M);  // hop stride of the plane
   static constexpr int TWN = fft_twiddle_size(M);
-  static constexpr int kSmemBytes = 8 * (H * HS + TWN);
-  static_assert(H % 2 == 0 && M >= 8 && M <= 2048 && (M & (M - 1)) == 0,
-                "widths 8 .. 2048, powers of two");
+  static constexpr int kSmemBytes = fft_smem_bytes(M, H);
+  static_assert(H % 2 == 0 && M >= 8 && M <= kFftMaxWidth && M % 2 == 0,
+                "even widths 8 .. 2048");
+  static_assert(kSmemBytes <= kFftMaxSmem, "the plane fits a block");
 
   float2* S;   // [H][HS] the plane
   float2* W;   // [TWN] the twiddle table
@@ -316,8 +431,15 @@ struct FftTile {
     constexpr int IH = M / R;                    // butterflies per hop
     constexpr int IPT = kFftValues / R;          // butterflies a thread holds
     constexpr int HB = kFftThreads * IPT / IH;   // hops per batch
-    static_assert(kFftThreads * IPT % IH == 0, "a batch holds whole hops");
+    // lanes e >= HB·IH of a batch sit idle where the hops do not fill it
+    constexpr bool kFull = kFftThreads * IPT == HB * IH;
+    static_assert(HB >= 1, "a batch holds a whole hop");
     const float2 c[3] = {W[0], W[1], W[2]};
+    float2 co[R % 2 ? (R - 1) / 2 : 1];
+    if constexpr (R % 2) {
+#pragma unroll
+      for (int i = 0; i < (R - 1) / 2; ++i) co[i] = W[fft_head_offset(R) + i];
+    }
 #pragma unroll 1
     for (int b = 0; b < (H + HB - 1) / HB; ++b) {
       float2 v[IPT][R];
@@ -325,7 +447,7 @@ struct FftTile {
       for (int q = 0; q < IPT; ++q) {
         const int e = threadIdx.x + q * kFftThreads;
         const int hop = b * HB + e / IH, j = e % IH;
-        if (hop < H) {
+        if ((kFull || e < HB * IH) && hop < H) {
           const float2* h = S + hop * HS;
 #pragma unroll
           for (int r = 0; r < R; ++r) v[q][r] = h[pad(j + r * IH)];
@@ -334,7 +456,8 @@ struct FftTile {
 #pragma unroll
             for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], w[(r - 1) * Ns]);
           }
-          dft<R>(v[q], c);
+          if constexpr (R % 2) dft_odd<R>(v[q], co);
+          else dft<R>(v[q], c);
         }
       }
       __syncthreads();
@@ -342,7 +465,7 @@ struct FftTile {
       for (int q = 0; q < IPT; ++q) {
         const int e = threadIdx.x + q * kFftThreads;
         const int hop = b * HB + e / IH, j = e % IH;
-        if (hop < H) {
+        if ((kFull || e < HB * IH) && hop < H) {
           float2* h = S + hop * HS;
           const int d = (j / Ns) * Ns * R + j % Ns;
 #pragma unroll
@@ -353,11 +476,79 @@ struct FftTile {
     }
   }
 
+  // The generic pass of an odd prime Q >= 11 after passes whose radices
+  // multiply to Ns: output t = g·N + o of a hop (N = Ns·Q) is
+  //   sum_r x[j + r·M/Q] W_N^{r·o},  j = g·Ns + o mod Ns,
+  // the butterfly's twiddle and Q-point DFT in one sum, W_N^e read as
+  // W_M^{e·M/N} from the table's whole W_M.  A thread holds kGenOut
+  // outputs of a batch of whole hops (lanes past the hops sit idle); the
+  // terms add in order r = 0, 1, ... (fmaf), in runs of kGenRun whose
+  // sums then add in order, which keeps a long sum's f32 error near that
+  // of the short radices.  Ends with a barrier.
+  template <int Q, int Ns>
+  __device__ __forceinline__ void gpass() {
+    constexpr int kGenOut = kFftValues / 2;      // outputs a thread holds
+    constexpr int kGenRun = 32;    // terms summed apart before they join
+    constexpr int N = Ns * Q, IH = M / Q, STEP = M / N;
+    constexpr int HB = kFftThreads * kGenOut / M;   // hops per batch
+    static_assert(HB >= 1, "a batch holds a whole hop");
+    const float2* wm = W + fft_twiddle_offset(M, fft_passes(M));
+#pragma unroll 1
+    for (int b = 0; b < (H + HB - 1) / HB; ++b) {
+      float2 acc[kGenOut];
+      const float2* x[kGenOut];
+      int idx[kGenOut], step[kGenOut];
+#pragma unroll
+      for (int i = 0; i < kGenOut; ++i) {
+        const int e = threadIdx.x + i * kFftThreads;
+        const int hop = b * HB + e / M, t = e % M;
+        const bool live = e < HB * M && hop < H;
+        const int o = t % N, j = (t / N) * Ns + o % Ns;
+        x[i] = S + (live ? hop : 0) * HS;
+        idx[i] = live ? j : 0;             // x index of term r: j + r·IH
+        step[i] = live ? o * STEP : 0;     // W_M exponent step, < M
+        acc[i] = make_float2(0.f, 0.f);
+      }
+      int ex[kGenOut];                     // W_M exponent of term r
+#pragma unroll
+      for (int i = 0; i < kGenOut; ++i) ex[i] = 0;
+#pragma unroll 1
+      for (int r0 = 0; r0 < Q; r0 += kGenRun) {
+        float2 part[kGenOut];
+#pragma unroll
+        for (int i = 0; i < kGenOut; ++i) part[i] = make_float2(0.f, 0.f);
+#pragma unroll 1
+        for (int r = r0; r < min(r0 + kGenRun, Q); ++r) {
+#pragma unroll
+          for (int i = 0; i < kGenOut; ++i) {
+            const float2 v = x[i][pad(idx[i] + r * IH)];
+            const float2 w = wm[ex[i]];
+            part[i].x = fmaf(v.x, w.x, fmaf(-v.y, w.y, part[i].x));
+            part[i].y = fmaf(v.x, w.y, fmaf(v.y, w.x, part[i].y));
+            ex[i] += step[i];
+            if (ex[i] >= M) ex[i] -= M;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kGenOut; ++i) acc[i] = cadd(acc[i], part[i]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kGenOut; ++i) {
+        const int e = threadIdx.x + i * kFftThreads;
+        const int hop = b * HB + e / M, t = e % M;
+        if (e < HB * M && hop < H) S[hop * HS + pad(t)] = acc[i];
+      }
+      __syncthreads();
+    }
+  }
+
   template <int p = 0, int Ns = 1>
   __device__ __forceinline__ void fft() {
     if constexpr (p < fft_passes(M)) {
       constexpr int R = fft_radix(M, p);
-      pass<R, Ns, fft_twiddle_offset(M, p)>();
+      if constexpr (fft_generic(R)) gpass<R, Ns>();
+      else pass<R, Ns, fft_twiddle_offset(M, p)>();
       fft<p + 1, Ns * R>();
     }
   }

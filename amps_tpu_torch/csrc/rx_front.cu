@@ -84,9 +84,13 @@ rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
 extern "C" int rx_front_tile_hops(int M) {
   return with_width(M, [](auto w) { return fft_wide_hops(decltype(w)::value) - 1; });
 }
-// the FFT's radices in pass order, two decimal digits each
-extern "C" int rx_front_fft_radices(int M) {
-  return with_width(M, [](auto w) { return fft_radix_code(decltype(w)::value); });
+// the FFT's plan at width M: its number of passes and the radix of pass
+// p (-1: M not taken)
+extern "C" int rx_front_fft_passes(int M) {
+  return with_width(M, [](auto w) { return fft_passes(decltype(w)::value); });
+}
+extern "C" int rx_front_fft_radix(int M, int p) {
+  return with_width(M, [p](auto w) { return fft_radix(decltype(w)::value, p); });
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).

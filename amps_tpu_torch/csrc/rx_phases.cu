@@ -28,9 +28,9 @@
 // recomputed instead of carried (K2's rule, rx_front.cu).  The stream's
 // hop -1 is zero, chosen as data; hops >= Nh fold from zero rows and
 // reach no output.
-//   * Discriminator in place: a thread owns M/256 channels and walks
-//     their hops downwards as independent chains, so the demod of hop l
-//     overwrites y(l) once y(l+1) has used it; the products and
+//   * Discriminator in place: a thread owns M/256 channels (rounded up)
+//     and walks their hops downwards as independent chains, so the demod
+//     of hop l overwrites y(l) once y(l+1) has used it; the products and
 //     fast_atan2 are K2's, bit for bit.
 //   * Dump: symbol j of phase p averages the plane's demod hops in order
 //     (the plain version's weights and order); consecutive threads take
@@ -87,7 +87,9 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 
   // discriminator and power, tile hops L-1 down to 1; a thread's CPT
   // channels run as independent chains
-  constexpr int CPT = M >= kFftThreads ? M / kFftThreads : 1;
+  constexpr int CPT = (M + kFftThreads - 1) / kFftThreads;
+  // a thread's last chain is past the channels only where M > 256 is ragged
+  constexpr bool kRagged = M > kFftThreads && M % kFftThreads != 0;
   const int L = R + sps;
   const int b0 = h0 / kRssiBlock;
   if (CPT > 1 || threadIdx.x < M) {
@@ -95,8 +97,9 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
     float pw0[CPT], pw1[CPT];
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
-      c[i] = tile.y(L - 1, threadIdx.x + i * kFftThreads, h0 + L - 2,
-                    hop0_parity);
+      const int k = threadIdx.x + i * kFftThreads;
+      c[i] = (!kRagged || k < M) ? tile.y(L - 1, k, h0 + L - 2, hop0_parity)
+                                 : make_float2(0.f, 0.f);
       pw0[i] = pw1[i] = 0.f;
     }
     for (int l = L - 1; l >= 1; --l) {
@@ -106,6 +109,7 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 #pragma unroll
       for (int i = 0; i < CPT; ++i) {
         const int k = threadIdx.x + i * kFftThreads;
+        if (kRagged && k >= M) continue;
         const float2 b = tile.y(l - 1, k, n - 1, hop0_parity);
         const float2 q = n ? b : make_float2(0.f, 0.f);
         const float re =
@@ -122,7 +126,8 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int k = threadIdx.x + i * kFftThreads;
-      pw_part[static_cast<size_t>(k) * nrun + run] = make_float2(pw0[i], pw1[i]);
+      if (!kRagged || k < M)
+        pw_part[static_cast<size_t>(k) * nrun + run] = make_float2(pw0[i], pw1[i]);
     }
   }
   __syncthreads();
@@ -190,9 +195,13 @@ rx_phases_power_kernel(const float2* __restrict__ pw_part,
 extern "C" int rx_phases_tile_hops(int M) {
   return with_width(M, [](auto w) { return fft_wide_hops(decltype(w)::value); });
 }
-// the FFT's radices in pass order, two decimal digits each
-extern "C" int rx_phases_fft_radices(int M) {
-  return with_width(M, [](auto w) { return fft_radix_code(decltype(w)::value); });
+// the FFT's plan at width M: its number of passes and the radix of pass
+// p (-1: M not taken)
+extern "C" int rx_phases_fft_passes(int M) {
+  return with_width(M, [](auto w) { return fft_passes(decltype(w)::value); });
+}
+extern "C" int rx_phases_fft_radix(int M, int p) {
+  return with_width(M, [p](auto w) { return fft_radix(decltype(w)::value, p); });
 }
 
 // Launches both kernels on `stream`; returns cudaGetLastError() (0 =

@@ -28,15 +28,15 @@
 //     column p's two reads, F[(M - p) mod M] and F[P - p], swap roles on
 //     odd hops.  The rows load by cp.async (FftTile::load_rows).
 //   * The overlap-add runs in registers.  A thread owns columns p < P
-//     (P / 256 of them at M >= 512) and holds, for each, the running sums
-//     of the next RING = 2·MT output hops and the gains gP[jP + p], j <
-//     RING (zero for j >= 2T).  After the FFT of a pass, it walks the
-//     pass's hops in order: hop h adds its terms into the sums of hops
-//     h .. h+RING-1, then output hop h is complete and leaves, the
-//     carry-in added for h < 2T - 1, and the ring shifts by one (the
-//     hop loop is unrolled, so the shift is register renaming).  The
-//     terms of an output hop add in order j = 2T-1 down to 0 (fmaf), the
-//     reverse of the plain version's order.
+//     (P / 256 of them at M >= 512, rounded up) and holds, for each, the
+//     running sums of the next RING = 2·MT output hops and the gains
+//     gP[jP + p], j < RING (zero for j >= 2T).  After the FFT of a pass,
+//     it walks the pass's hops in order: hop h adds its terms into the
+//     sums of hops h .. h+RING-1, then output hop h is complete and
+//     leaves, the carry-in added for h < 2T - 1, and the ring shifts by
+//     one (the hop loop is unrolled, so the shift is register renaming).
+//     The terms of an output hop add in order j = 2T-1 down to 0 (fmaf),
+//     the reverse of the plain version's order.
 //   * A persistent sweep: block i owns output hops [iR, iR + R) of the
 //     Nh + 2T - 1 (carry included), R sized so the grid fills the card
 //     once, and walks input hops from iR - (2T-1) in passes of H: the
@@ -65,7 +65,9 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
   using Tile = FftTile<M, fft_wide_hops(M)>;
   constexpr int H = Tile::H, P = M / 2;
   constexpr int RING = 2 * MT;
-  constexpr int CPT = P >= kFftThreads ? P / kFftThreads : 1;   // columns a thread
+  constexpr int CPT = (P + kFftThreads - 1) / kFftThreads;   // columns a thread
+  // every column of every thread is one of the P unless P is ragged
+  constexpr bool kWhole = CPT > 1 && P % kFftThreads == 0;
   Tile tile(smem);
   tile.load_twiddles(tw);
   const int keep = 2 * T - 1;               // carry hops
@@ -98,8 +100,8 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int p = threadIdx.x + c * kFftThreads;
-        if (CPT > 1 || p < P) {
-          const float2 a = row[Tile::pad((M - p) & (M - 1))];
+        if (kWhole || p < P) {
+          const float2 a = row[Tile::pad(p == 0 ? 0 : M - p)];
           const float2 b = row[Tile::pad(P - p)];
           const float2 ue = odd ? b : a;   // u_h[p]
           const float2 uo = odd ? a : b;   // u_h[P + p]
@@ -169,9 +171,13 @@ int launch_width(const void* Y, const void* tw, const void* gm,
 extern "C" int synth_tile_hops(int M) {
   return with_width(M, [](auto w) { return fft_wide_hops(decltype(w)::value); });
 }
-// the FFT's radices in pass order, two decimal digits each
-extern "C" int synth_fft_radices(int M) {
-  return with_width(M, [](auto w) { return fft_radix_code(decltype(w)::value); });
+// the FFT's plan at width M: its number of passes and the radix of pass
+// p (-1: M not taken)
+extern "C" int synth_fft_passes(int M) {
+  return with_width(M, [](auto w) { return fft_passes(decltype(w)::value); });
+}
+extern "C" int synth_fft_radix(int M, int p) {
+  return with_width(M, [p](auto w) { return fft_radix(decltype(w)::value, p); });
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).

@@ -14,11 +14,13 @@ All four kernels run one all-channel FFT tile (``csrc/analysis_fft.cuh``):
 a thread block folds each of its hops once (or, for the synthesis in
 ``kernels.synth``, loads hop-major rows of channel basebands) and
 transforms them with an f32 Stockham FFT whose radices are
-``fft_radices(M)`` and whose twiddles are the table of ``_tables``; M is
-a power of two in ``FFT_WIDTHS``.  The analysis kernel takes
-``FFT_TILE_HOPS[M]`` hops a block, the receive front ends
-(``kernels.rx_front``, ``kernels.rx_phases``) and the synthesis
-``FFT_WIDE_HOPS[M]``.  The front ends' plain versions start from
+``fft_radices(M)`` (mixed radix: 16, then 2, 4 or 8, then the odd prime
+factors of M) and whose twiddles are the table of ``_tables``; M is any
+even width in ``FFT_WIDTHS``.  The powers of two live in the main
+library; any other width builds a library of its own at first use
+(``kernels.build``).  The analysis kernel takes ``FFT_TILE_HOPS[M]``
+hops a block, the receive front ends (``kernels.rx_front``,
+``kernels.rx_phases``) and the synthesis ``FFT_WIDE_HOPS[M]``.  The front ends' plain versions start from
 ``analyze_reference``, and the wrappers share ``card_block`` (the checks
 of an input block on the card), ``bind`` and ``launch``.
 """
@@ -35,13 +37,36 @@ from amps_tpu_torch.dsp.polyphase import _analysis_consts, _hop_sign
 from amps_tpu_torch.kernels import build
 
 MAX_TAPS = 16              # taps per phase the tiles hold (csrc kMaxT)
-# M the FFT tile takes: every power of two from the 8-channel bank of the
+MAX_FFT_WIDTH = 2048       # csrc kFftMaxWidth
+# M the FFT tile takes: every even width from the 8-channel bank of the
 # station app's default to 2048
-FFT_WIDTHS = tuple(1 << b for b in range(3, 12))
-# analysis hops a block of the FFT tile computes (csrc fft_tile_hops):
-# ~100 KB of shared plane at M = 1024, so two blocks share an SM
-FFT_TILE_HOPS = {M: 16 if M <= 512 else 12 if M == 1024 else 4
-                 for M in FFT_WIDTHS}
+FFT_WIDTHS = tuple(range(8, MAX_FFT_WIDTH + 1, 2))
+# M the main library instantiates: the powers of two; every other width
+# builds a library of its own at first use
+LIBRARY_WIDTHS = tuple(1 << b for b in range(3, 12))
+# plane bytes a block of the analysis kernel may hold at a width that is
+# not a power of two (csrc kFftPlaneBudget): ~100 KB, M = 1024's plane
+PLANE_BUDGET = 102400
+
+
+def _tile_hops(M: int) -> int:
+    """csrc fft_tile_hops: ~100 KB of shared plane at M = 1024, so two
+    blocks share an SM; at a width that is not a power of two the most
+    even hops (2 .. 16) whose plane fits in PLANE_BUDGET."""
+    if M in LIBRARY_WIDTHS:
+        return 16 if M <= 512 else 12 if M == 1024 else 4
+    h = PLANE_BUDGET // (8 * fft_hop_stride(M))
+    return 16 if h >= 16 else max(2, h & ~1)
+
+
+def fft_hop_stride(M: int) -> int:
+    """Complex values a hop's row takes in the plane: one float2 of
+    padding every 32 (csrc fft_hop_stride)."""
+    return M + M // 32 + 1
+
+
+# analysis hops a block of the FFT tile computes (csrc fft_tile_hops)
+FFT_TILE_HOPS = {M: _tile_hops(M) for M in FFT_WIDTHS}
 # hops a block of the kernels with a heavier epilogue computes (csrc
 # fft_wide_hops): twice as many, to fill the sectors of 4-byte rows
 FFT_WIDE_HOPS = {M: 2 * h for M, h in FFT_TILE_HOPS.items()}
@@ -121,34 +146,54 @@ def analyze_reference(x_ext, M: int, T: int, hop0_parity: int = 0,
 
 
 def fft_radices(M: int):
-    """The radices of the FFT tile's Stockham passes, in pass order: 16
-    while four bits of M remain, then one pass of 2, 4 or 8 (csrc
-    fft_radix)."""
-    bits = M.bit_length() - 1
-    return (16,) * (bits // 4) + ((1 << bits % 4,) if bits % 4 else ())
+    """The radices of the FFT tile's Stockham passes, in pass order (csrc
+    fft_radix): for M = 2^a · r, r odd, 16 while four bits of 2^a remain,
+    then one pass of 2, 4 or 8, then the odd prime factors of r
+    ascending.  A power of two keeps the radix-16 plan alone."""
+    a = (M & -M).bit_length() - 1
+    out = [16] * (a // 4) + ([1 << a % 4] if a % 4 else [])
+    r, q = M >> a, 3
+    while r > 1:
+        if r % q:
+            q += 2
+        else:
+            out.append(q)
+            r //= q
+    return tuple(out)
 
 
-def _radix_code(M: int) -> int:
-    """fft_radices(M), two decimal digits each, as the built kernel
-    reports them."""
-    return int("".join(f"{r:02d}" for r in fft_radices(M)))
+def fft_generic(R: int) -> bool:
+    """A prime radix with no register butterfly, which the generic pass
+    runs (csrc fft_generic)."""
+    return R % 2 == 1 and R > 7
+
+
+# the register butterflies' constants at the head of the twiddle table,
+# as (R, powers): W_16^1..3 always, W_3, W_5^1..2 and W_7^1..3 where M is
+# not a power of two (csrc fft_head_size, fft_head_offset)
+FFT_HEAD = ((16, (1, 2, 3)), (3, (1,)), (5, (1, 2)), (7, (1, 2, 3)))
 
 
 def fft_twiddle_exponents(M: int) -> np.ndarray:
     """The exponents e of the FFT tile's twiddle table W_M^e (csrc
-    fft_twiddle_offset): M/16, M/8, 3M/16 (the butterflies' W_16^1..3;
-    at M = 8 only the middle one is whole, and the only one the radix-8
-    butterfly reads), then for each pass after the first, with Ns the product of the
-    earlier radices, the (R-1) x Ns block jm·r·M/(Ns·R) for r = 1 .. R-1,
-    jm < Ns."""
-    out = [M // 16, M // 8, 3 * M // 16]
+    fft_twiddle_offset): the head, j·M/R for the powers j of each radix R
+    of FFT_HEAD (only W_16's where M is a power of two; taken as ⌊j·M/R⌋,
+    whole wherever R is in the plan, the only place a butterfly reads
+    it: at M = 8 only W_16^2 = W_8^1), then for each register pass after
+    the first, with Ns the product of the earlier radices, the
+    (R-1) x Ns block jm·r·M/(Ns·R) for r = 1 .. R-1, jm < Ns; where the
+    plan has a generic pass, every e < M last."""
+    heads = FFT_HEAD[:1] if M & (M - 1) == 0 else FFT_HEAD
+    out = [j * M // R for R, js in heads for j in js]
     ns = 1
     for p, R in enumerate(fft_radices(M)):
-        if p:
+        if p and not fft_generic(R):
             r = np.arange(1, R)[:, None]
             jm = np.arange(ns)[None, :]
             out.extend((jm * r * (M // (ns * R))).ravel().tolist())
         ns *= R
+    if any(fft_generic(R) for R in fft_radices(M)):
+        out.extend(range(M))
     return np.asarray(out, dtype=np.int64)
 
 
@@ -170,10 +215,10 @@ def _tables(M: int, T: int, device: torch.device):
 
 
 def check_fft_width(M: int) -> None:
-    """The FFT tile takes M a power of two in FFT_WIDTHS."""
-    if M not in FFT_WIDTHS:
-        raise ValueError(f"kernel needs M a power of two from "
-                         f"{FFT_WIDTHS[0]} to {FFT_WIDTHS[-1]} (M={M})")
+    """The FFT tile takes any even M from 8 to MAX_FFT_WIDTH."""
+    if M % 2 or not FFT_WIDTHS[0] <= M <= MAX_FFT_WIDTH:
+        raise ValueError(f"kernel needs an even M from {FFT_WIDTHS[0]} to "
+                         f"{MAX_FFT_WIDTH} (M={M})")
 
 
 def card_block(x_ext: torch.Tensor, M: int, T: int):
@@ -195,26 +240,30 @@ def card_block(x_ext: torch.Tensor, M: int, T: int):
     return planar, n_ext, Nh
 
 
-def bind(symbol: str, argtypes, **tile_constants):
-    """The launcher ``symbol`` of the built library with its argument
-    types (it returns a cudaError_t), once the library's tile constants
-    (a C function each, named by the keyword) are the wrapper's.  A
-    constant given as a dict {M: value} is a function of the width M."""
-    lib = build.load()
-    fn = getattr(lib, symbol)
+def bind(prefix: str, argtypes, M: int, hops: int):
+    """The launcher ``{prefix}_launch`` of the library that holds width M
+    (the main library for a power of two, else M's own, built at first
+    use) with its argument types (it returns a cudaError_t), once the
+    library's tile constants at M are the wrapper's: its hops
+    (``{prefix}_tile_hops``) and its FFT plan, pass by pass
+    (``{prefix}_fft_passes``, ``{prefix}_fft_radix``)."""
+    lib = build.load(None if M in LIBRARY_WIDTHS else M)
+    fn = getattr(lib, f"{prefix}_launch")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    for name, want in tile_constants.items():
-        const = getattr(lib, name)
-        const.restype = ctypes.c_int
-        if isinstance(want, dict):
-            const.argtypes = [ctypes.c_int]
-            got = {M: const(M) for M in want}
-        else:
-            got = const()
-        if got != want:
-            raise RuntimeError(f"{name} of the built kernel is {got}, the "
-                               f"wrapper's {want}")
+    c_int = ctypes.c_int
+    consts = {"tile_hops": [c_int], "fft_passes": [c_int],
+              "fft_radix": [c_int, c_int]}
+    for name, types in consts.items():
+        const = getattr(lib, f"{prefix}_{name}")
+        const.argtypes, const.restype = types, c_int
+    plan = fft_radices(M)
+    got = (getattr(lib, f"{prefix}_tile_hops")(M),
+           tuple(getattr(lib, f"{prefix}_fft_radix")(M, p)
+                 for p in range(getattr(lib, f"{prefix}_fft_passes")(M))))
+    if got != (hops, plan):
+        raise RuntimeError(f"{prefix} kernel built for M={M} has (hops, "
+                           f"radices) {got}, the wrapper's {(hops, plan)}")
     return fn
 
 
@@ -228,12 +277,10 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
 
 
 @functools.cache
-def _launcher():
+def _launcher(M: int):
     p, i = ctypes.c_void_p, ctypes.c_int
-    return bind("analysis_launch",
-                [p, i, ctypes.c_longlong, p, p, p, i, i, i, i, i, p],
-                analysis_tile_hops=FFT_TILE_HOPS,
-                analysis_fft_radices={M: _radix_code(M) for M in FFT_WIDTHS})
+    return bind("analysis", [p, i, ctypes.c_longlong, p, p, p, i, i, i, i,
+                             i, p], M, FFT_TILE_HOPS[M])
 
 
 def analyze_block(x_ext, M: int, T: int, hop0_parity: int = 0,
@@ -267,7 +314,7 @@ def analyze_block(x_ext, M: int, T: int, hop0_parity: int = 0,
     coef, tw = _tables(M, T, dev)
     y = torch.empty((2, M, Nh) if planar else (M, Nh, 2),
                     dtype=torch.float32, device=dev)
-    launch("analysis", _launcher(), dev, x_ext.data_ptr(), int(planar_in),
+    launch("analysis", _launcher(M), dev, x_ext.data_ptr(), int(planar_in),
            n_ext, coef.data_ptr(), tw.data_ptr(), y.data_ptr(), int(planar),
            M, T, Nh, int(hop0_parity) % 2)
     LAUNCHES += 1

@@ -3,11 +3,15 @@
 Every ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 (``sm_90a``) into an object file, all sources at once in parallel
 processes; the objects link into one shared library with a plain C
-interface.  The library lands in ``amps_tpu_torch/build/`` (git-ignored)
-under a name that carries a hash of the sources, the shared headers and
-the flags, so an edited source rebuilds and concurrent processes never
-load a half-written file.  No fast-math: the discriminator's
-``fast_atan2`` relies on IEEE division.
+interface.  The main library instantiates the FFT tile at every power of
+two from 8 to 2048; any other width M the tile takes compiles into a
+small library of its own, from the same sources with ``-DAMPS_FFT_WIDTH=M``
+(``build(widths=...)`` builds several in one parallel run).  The libraries
+land in ``amps_tpu_torch/build/`` (git-ignored) under names that carry
+a hash of the sources, the shared headers, the flags and the width, so
+an edited source rebuilds and concurrent processes never load a
+half-written file.  No fast-math: the discriminator's ``fast_atan2``
+relies on IEEE division.
 
 A missing ``nvcc`` or a failed build raises; there is no fallback.
 """
@@ -50,13 +54,19 @@ def _sources():
     return srcs
 
 
-def library_path() -> pathlib.Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+def _flags(width):
+    return COMPILE_FLAGS + ((f"-DAMPS_FFT_WIDTH={width}",) if width else ())
+
+
+def library_path(width=None) -> pathlib.Path:
+    """Where the library for the current sources and flags lives: the
+    main one (``width`` None) or the one of a single width."""
+    h = hashlib.sha256(" ".join(_flags(width) + LINK_FLAGS).encode())
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libamps_kernels_{h.hexdigest()[:16]}.so"
+    stem = "libamps_kernels" + (f"_m{width}" if width else "")
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def _run(cmds):
@@ -83,26 +93,43 @@ def _run(cmds):
     return "".join(logs)
 
 
-def build(extra_flags=()):
-    """Compile the sources unless the library for them exists; returns
-    (library path, nvcc's output).  ``extra_flags`` (e.g.
-    ``("-Xptxas", "-v")``) force a rebuild and are passed to nvcc."""
-    out = library_path()
-    if out.exists() and not extra_flags:
-        return out, ""
+def _build(widths, extra_flags):
+    """Compile the libraries of ``widths`` (None: the main one) that do not
+    exist yet -- every source of every library at once, then every link
+    at once; ``extra_flags`` force a rebuild.  Returns ({width: path},
+    nvcc's output)."""
+    paths = {w: library_path(w) for w in widths}
+    todo = [w for w, path in paths.items()
+            if extra_flags or not path.exists()]
+    if not todo:
+        return paths, ""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs = [os.path.join(tmpdir, src.stem + ".o") for src in _sources()]
-        log = _run([[nvcc, *COMPILE_FLAGS, *extra_flags, "-c", "-o", obj,
-                     str(src)] for src, obj in zip(_sources(), objs)])
-        tmp = os.path.join(tmpdir, out.name)
-        log += _run([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
-        os.replace(tmp, out)
-    return out, log
+        objs = {w: [os.path.join(tmpdir, f"{w or 'main'}_{src.stem}.o")
+                    for src in _sources()] for w in todo}
+        log = _run([[nvcc, *_flags(w), *extra_flags, "-c", "-o", obj,
+                     str(src)]
+                    for w in todo for src, obj in zip(_sources(), objs[w])])
+        tmps = {w: os.path.join(tmpdir, paths[w].name) for w in todo}
+        log += _run([[nvcc, *LINK_FLAGS, "-o", tmps[w], *objs[w]]
+                     for w in todo])
+        for w in todo:
+            os.replace(tmps[w], paths[w])
+    return paths, log
+
+
+def build(extra_flags=(), widths=()):
+    """Compile the main library, and the single-width libraries of
+    ``widths``, unless they exist -- all in one parallel build; returns
+    (the main library's path, nvcc's output).  ``extra_flags`` (e.g.
+    ``("-Xptxas", "-v")``) force a rebuild and are passed to nvcc."""
+    paths, log = _build([None, *map(int, widths)], tuple(extra_flags))
+    return paths[None], log
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call."""
-    return ctypes.CDLL(str(build()[0]))
+def load(width=None) -> ctypes.CDLL:
+    """The kernels' shared library -- the main one, or that of one width
+    -- built on first call."""
+    return ctypes.CDLL(str(_build([width], ())[0][width]))

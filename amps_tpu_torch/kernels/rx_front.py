@@ -24,8 +24,7 @@ import functools
 import torch
 
 from amps_tpu_torch.dsp.fm import quadrature_demod_planar
-from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, FFT_WIDTHS,
-                                             _radix_code, _tables,
+from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, _tables,
                                              analyze_reference, bind,
                                              block_geometry, card_block,
                                              check_fft_width, launch)
@@ -58,13 +57,10 @@ def analyze_demod_reference(x_ext, M: int, T: int, hop0_parity: int,
 
 
 @functools.cache
-def _launcher():
+def _launcher(M: int):
     p, i = ctypes.c_void_p, ctypes.c_int
-    return bind("rx_front_launch",
-                [p, i, ctypes.c_longlong, p, p, p, p, p, p,
-                 i, i, i, i, p],
-                rx_front_tile_hops=TILE_HOPS,
-                rx_front_fft_radices={M: _radix_code(M) for M in FFT_WIDTHS})
+    return bind("rx_front", [p, i, ctypes.c_longlong, p, p, p, p, p, p, i,
+                             i, i, i, p], M, TILE_HOPS[M])
 
 
 def analyze_demod(x_ext, M: int, T: int, hop0_parity: int, prev_iq):
@@ -95,7 +91,7 @@ def analyze_demod(x_ext, M: int, T: int, hop0_parity: int, prev_iq):
     demod = torch.empty((M, Nh), dtype=torch.float32, device=dev)
     pw = torch.empty((M, Nh), dtype=torch.float32, device=dev)
     last = torch.empty((M, 2), dtype=torch.float32, device=dev)
-    launch("rx_front", _launcher(), dev, x_ext.data_ptr(), int(planar),
+    launch("rx_front", _launcher(M), dev, x_ext.data_ptr(), int(planar),
            n_ext, coef.data_ptr(), tw.data_ptr(), prev.data_ptr(),
            demod.data_ptr(), pw.data_ptr(), last.data_ptr(), M, T, Nh,
            int(hop0_parity) % 2)

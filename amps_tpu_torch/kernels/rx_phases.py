@@ -9,7 +9,7 @@ raises; a CPU tensor computes the kernel's plain version,
 quadrature_demod_planar -> symbol_phase_streams / window_power_blocks.
 There is no fallback from one to the other.  The kernel runs the
 all-channel FFT tile of ``kernels.analysis`` (``csrc/analysis_fft.cuh``,
-M a power of two in ``FFT_WIDTHS``): a block computes
+any even M in ``FFT_WIDTHS``): a block computes
 ``FFT_WIDE_HOPS[M]`` analysis hops and owns the ``run_hops(M, sps)``
 demod hops after the first, whole symbols whose look-ahead fits in the
 tile; the 384-hop power partials of the runs go through a scratch that a
@@ -26,8 +26,7 @@ import functools
 import torch
 
 from amps_tpu_torch.dsp.fm import quadrature_demod_planar
-from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, FFT_WIDTHS,
-                                             _radix_code, _tables,
+from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, _tables,
                                              analyze_reference, bind,
                                              block_geometry, card_block,
                                              check_fft_width, launch)
@@ -73,14 +72,11 @@ def analyze_phases_reference(x_ext, M: int, T: int, sps: int = 3,
 
 
 @functools.cache
-def _launcher():
+def _launcher(M: int):
     p, i = ctypes.c_void_p, ctypes.c_int
-    return bind("rx_phases_launch",
-                [p, i, ctypes.c_longlong, p, p, p, i, p, p,
-                 i, i, i, i, i, i, i, i, p],
-                rx_phases_tile_hops=FFT_WIDE_HOPS,
-                rx_phases_fft_radices={M: _radix_code(M)
-                                       for M in FFT_WIDTHS})
+    return bind("rx_phases", [p, i, ctypes.c_longlong, p, p, p, i, p, p,
+                              i, i, i, i, i, i, i, i, p], M,
+                FFT_WIDE_HOPS[M])
 
 
 def analyze_phases(x_ext, M: int, T: int, sps: int = 3,
@@ -125,7 +121,7 @@ def analyze_phases(x_ext, M: int, T: int, sps: int = 3,
                           device=dev)
     pw_blk = torch.empty(lead + (M, -(-Nh // RSSI_BLOCK)),
                          dtype=torch.float32, device=dev)
-    launch("rx_phases", _launcher(), dev, x_ext.data_ptr(), int(planar),
+    launch("rx_phases", _launcher(M), dev, x_ext.data_ptr(), int(planar),
            n_ext, coef.data_ptr(), tw.data_ptr(), phases.data_ptr(),
            int(out_dtype == torch.bfloat16), pw_part.data_ptr(),
            pw_blk.data_ptr(), M, T, sps, Nh, nsym, int(hop0_parity) % 2,

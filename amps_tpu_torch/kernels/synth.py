@@ -8,7 +8,7 @@ a CPU tensor computes the kernel's plain version,
 ``dsp.channelizer._synthesize_block``.  There is no fallback from one to
 the other.  The kernel runs the all-channel FFT tile of
 ``kernels.analysis`` on hop-major rows of Y (``FFT_WIDE_HOPS[M]`` a pass,
-M a power of two in ``FFT_WIDTHS``), reads the inverse transform off the
+any even M in ``FFT_WIDTHS``), reads the inverse transform off the
 forward FFT by index and overlap-adds in registers: its tables are the
 tile's twiddles and ``_gain_taps``.
 """
@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.dsp import channelizer as chz
-from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, FFT_WIDTHS,
-                                             MAX_TAPS, _radix_code, _tables,
-                                             bind, check_fft_width, launch)
+from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, MAX_TAPS,
+                                             _tables, bind, check_fft_width,
+                                             launch)
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -52,11 +52,10 @@ def synthesize_block_reference(Y, M: int, T: int, hop0_parity: int, carry,
 
 
 @functools.cache
-def _launcher():
+def _launcher(M: int):
     p, i = ctypes.c_void_p, ctypes.c_int
-    return bind("synth_launch", [p, p, p, p, p, p, i, i, i, i, p],
-                synth_tile_hops=FFT_WIDE_HOPS,
-                synth_fft_radices={M: _radix_code(M) for M in FFT_WIDTHS})
+    return bind("synth", [p, p, p, p, p, p, i, i, i, i, p], M,
+                FFT_WIDE_HOPS[M])
 
 
 @functools.cache
@@ -95,7 +94,7 @@ def synthesize_block(Y, M: int, T: int, hop0_parity: int, carry):
     gm = _gain_taps(M, T, dev)
     out = torch.empty((Nh * (M // 2), 2), dtype=torch.float32, device=dev)
     new_carry = torch.empty_like(carry)
-    launch("synth", _launcher(), dev, Y.data_ptr(), tw.data_ptr(),
+    launch("synth", _launcher(M), dev, Y.data_ptr(), tw.data_ptr(),
            gm.data_ptr(), carry.data_ptr(), out.data_ptr(),
            new_carry.data_ptr(), M, T, Nh, int(hop0_parity) % 2)
     LAUNCHES += 1

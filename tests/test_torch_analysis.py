@@ -149,29 +149,63 @@ def _w16_powers(c):
     return (quarter[:, None] * base[None, :]).reshape(16)
 
 
+# where the odd butterflies' constants W_R^1 .. W_R^{(R-1)/2} sit in the
+# table's head (csrc fft_head_offset)
+_HEAD_OFFSET = {3: 3, 5: 4, 7: 6}
+
+
+def _dft_matrix(w, R):
+    """The R-point DFT matrix W_R^{rk} a register butterfly computes, from
+    the table's head: radices 2-16 from W_16's powers, 3, 5 and 7 from
+    their W_R^1 .. W_R^{(R-1)/2} and the conjugates past R/2."""
+    r = torch.arange(R)
+    if R % 2 == 0:
+        return _w16_powers(w[:3])[(r[:, None] * r) % R * (16 // R)]
+    h = (R - 1) // 2
+    c = w[_HEAD_OFFSET[R]: _HEAD_OFFSET[R] + h]
+    powers = torch.cat([torch.ones(1, dtype=w.dtype), c, c.flip(0).conj()])
+    return powers[(r[:, None] * r) % R]
+
+
 def _fft_passes(z, M):
     """The tile's Stockham passes on rows z (n, M) complex: the radices of
-    ``KA.fft_radices(M)`` on the twiddle table of ``KA._tables``
-    (butterfly j of a pass reads R values at stride M/R, multiplies value
-    r by the table's block entry (r-1)·Ns + j mod Ns, runs its R-point
-    DFT and writes at (j/Ns)·Ns·R + j mod Ns + r·Ns); natural order out:
-    the forward DFT of each row."""
+    ``KA.fft_radices(M)`` on the twiddle table of ``KA._tables``.  A
+    register pass's butterfly j reads R values at stride M/R, multiplies
+    value r by the table's block entry (r-1)·Ns + j mod Ns, runs its
+    R-point DFT and writes at (j/Ns)·Ns·R + j mod Ns + r·Ns; a generic
+    pass (a prime >= 11) writes output t = g·N + o, N = Ns·R, as
+    sum_r x[g·Ns + o mod Ns + r·M/R] W_M^{(r·o·M/N) mod M}, from the
+    table's whole W_M at its end.  Natural order out: the forward DFT of
+    each row."""
     tw = KA._tables(M, 1, torch.device("cpu"))[1]
     w = torch.complex(tw[:, 0], tw[:, 1])
-    w16 = _w16_powers(w[:3])
-    ns, off = 1, 3
-    for p, R in enumerate(KA.fft_radices(M)):
-        j = torch.arange(M // R)[:, None]
-        r = torch.arange(R)[None, :]
-        v = z[:, j + r * (M // R)]                              # (n, M/R, R)
-        if p:
-            v[..., 1:] = v[..., 1:] * w[off + (r[:, 1:] - 1) * ns + j % ns]
-            off += (R - 1) * ns
-        dft = w16[(r.T * r) % R * (16 // R)]                    # W_R^{rk}
+    radices = KA.fft_radices(M)
+    generic = any(KA.fft_generic(R) for R in radices)
+    wm = w[-M:] if generic else None
+    ns, off = 1, 3 if M in KA.LIBRARY_WIDTHS else 9
+    for p, R in enumerate(radices):
+        IH, N = M // R, ns * R
         out = torch.empty_like(z)
-        out[:, (j // ns) * ns * R + j % ns + r * ns] = v @ dft
-        z, ns = out, ns * R
-    assert off == tw.shape[0]
+        if KA.fft_generic(R):
+            t = torch.arange(M)
+            o = t % N
+            j = (t // N) * ns + o % ns
+            r = torch.arange(R)
+            e = (r[None, :] * o[:, None] * (M // N)) % M        # (M, R)
+            for a in range(0, z.shape[0], 4):                   # rows by 4
+                v = z[a: a + 4][:, j[:, None] + r[None, :] * IH]
+                out[a: a + 4] = (v * wm[e]).sum(-1)
+        else:
+            j = torch.arange(IH)[:, None]
+            r = torch.arange(R)[None, :]
+            v = z[:, j + r * IH]                                # (n, M/R, R)
+            if p:
+                v[..., 1:] = v[..., 1:] * w[off + (r[:, 1:] - 1) * ns
+                                            + j % ns]
+                off += (R - 1) * ns
+            out[:, (j // ns) * N + j % ns + r * ns] = v @ _dft_matrix(w, R)
+        z, ns = out, N
+    assert off + (M if generic else 0) == tw.shape[0]
     return z
 
 
@@ -211,6 +245,33 @@ def test_fft_tile_model_matches_plain_version_and_jax(M, parity):
         jnp.asarray(x.numpy()), jnp.asarray(jchz.prototype_taps(M, T)), M, T,
         jnp.int32(parity), fold="bank"))
     assert np.abs(got.numpy() - jax_y).max() < ATOL
+
+
+MIXED_WIDTHS = [24, 96, 160, 210, 448, 682, 768, 1000, 1458, 1536, 2038]
+
+
+@pytest.mark.parametrize("M", MIXED_WIDTHS)
+def test_mixed_radix_model_matches_numpy_and_jax(M):
+    """The tile's passes at widths that are not powers of two -- radices
+    3, 5 and 7 in registers (24 = 8·3, 160 = 32·5, 448 = 64·7, 210 =
+    2·3·5·7), long plans (1000 = 8·5³, 1458 = 2·3⁶), the generic prime
+    pass (682 = 2·11·31, 2038 = 2·1019) and the station's widths (96,
+    768, 1536) -- on the wrapper's radices and twiddle table: random
+    rows against numpy.fft, and the whole tile model (fold, passes, hop
+    sign) against the JAX bank analysis on unit-amplitude channels, each
+    within 1e-5 of the largest output."""
+    rng = np.random.default_rng(M)
+    z = rng.normal(0, 1, (6, M)) + 1j * rng.normal(0, 1, (6, M))
+    got = _fft_passes(torch.as_tensor(z.astype(np.complex64)), M).numpy()
+    want = np.fft.fft(z, axis=-1)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    T, Nh = 8, 12
+    x = unit_channel_band(M, T, Nh, M, device="cpu")
+    y = _fft_tile_model(x, M, T, 1).numpy()
+    jax_y = np.asarray(jchz._analyze_block_chmajor(
+        jnp.asarray(x.numpy()), jnp.asarray(jchz.prototype_taps(M, T)), M, T,
+        jnp.int32(1), fold="bank"))
+    assert np.abs(y - jax_y).max() <= 1e-5 * np.abs(jax_y).max()
 
 
 def _synth_model(Y, M, T, parity, carry, blocks):

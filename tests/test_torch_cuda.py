@@ -79,7 +79,10 @@ def test_kernel_matches_plain_version_on_card(cuda_device, M, Nh, parity,
 def test_kernel_rejects_what_it_cannot_run(cuda_device):
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):
-        K.analyze_phases(x, 96, 8)          # M not a power of two
+        K.analyze_phases(x, 95, 8)          # odd M
+    with pytest.raises(ValueError):         # past the tile's 2048
+        K.analyze_phases(torch.zeros(((100 + 15) * 2048, 2),
+                                     device=cuda_device), 4096, 8)
     with pytest.raises(ValueError):
         K.analyze_phases(x.double(), 96, 8)
     with pytest.raises(ValueError):         # sps past the tile's hops
@@ -214,9 +217,12 @@ def test_analysis_kernel_rejects_what_it_cannot_run(cuda_device):
         KA.analyze_block(x, M, T)
     with pytest.raises(ValueError, match="device"):
         KA.analyze_block(torch.zeros((n, 2), device="meta"), M, T)
-    with pytest.raises(ValueError):            # M not a power of two
+    with pytest.raises(ValueError):            # odd M
         KA.analyze_block(torch.zeros(((Nh + 15) * 48, 2), device=cuda_device),
-                         96, T)
+                         97, T)
+    with pytest.raises(ValueError):            # below the tile's 8
+        KA.analyze_block(torch.zeros(((Nh + 15) * 3, 2), device=cuda_device),
+                         6, T)
     with pytest.raises(ValueError):            # rows that are no (n, 2) block
         KA.analyze_block(torch.zeros((2, n, 3), device=cuda_device), M, T)
     with pytest.raises(ValueError):
@@ -263,13 +269,13 @@ def test_synth_kernel_chained_calls_equal_one(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_cannot_run(cuda_device):
-    Y = torch.zeros((10, 96, 2), device=cuda_device)
-    with pytest.raises(ValueError):            # M not a power of two
-        K4.synthesize_block(Y, 96, 8, 0,
-                            torch.zeros((96 * 8 - 48, 2), device=cuda_device))
+    Y = torch.zeros((10, 4096, 2), device=cuda_device)
+    with pytest.raises(ValueError):            # past the tile's 2048
+        K4.synthesize_block(Y, 4096, 8, 0, torch.zeros(
+            (4096 * 8 - 2048, 2), device=cuda_device))
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
-    with pytest.raises(ValueError):
-        K2.analyze_demod(x, 96, 8, 0, torch.zeros((96, 2), device=cuda_device))
+    with pytest.raises(ValueError):            # odd M
+        K2.analyze_demod(x, 95, 8, 0, torch.zeros((95, 2), device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -564,13 +570,226 @@ def test_small_width_synth_kernel(cuda_device, M, T, parity):
 
 
 @pytest.mark.cuda
-def test_widths_not_a_power_of_two_still_raise(cuda_device):
-    for M in (12, 24, 48, 4096):
+def test_widths_the_tile_cannot_take_raise(cuda_device):
+    """Odd M, M < 8 and M past 2048 raise on the card, naming the rule;
+    no width reaches the plain version."""
+    for M in (13, 6, 2049, 2050, 4096):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
-        with pytest.raises(ValueError, match="power of two"):
+        with pytest.raises(ValueError):
             KA.analyze_block(x, M, 8)
-        with pytest.raises(ValueError, match="power of two"):
+        with pytest.raises(ValueError):
             K.analyze_phases(x, M, 8)
+    for M in (6, 2050, 4096):
+        x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
+        with pytest.raises(ValueError, match="even M from 8 to 2048"):
+            KA.analyze_block(x, M, 8)
+        with pytest.raises(ValueError, match="even M from 8 to 2048"):
+            K2.analyze_demod(x, M, 8, 0, torch.zeros((M, 2),
+                                                     device=cuda_device))
+
+
+# ---- widths that are not powers of two (mixed-radix FFT tile) ----------
+
+# (M, parity, planar): radices 5 and 7 at the small end, the generic
+# prime pass (22 = 2·11, 286 = 2·11·13, 682 = 2·11·31, 2046 = 2·3·11·31,
+# 2038 = 2·1019), long plans (1000 = 8·5³), the station's 96, 384, 768
+# and 1536; chip_smoke phase 29 covers 24, 160, 448, 768, 1458 and 2038
+MIXED = [(10, 0, False), (22, 1, True), (96, 1, False), (210, 0, True),
+         (286, 1, False), (384, 0, False), (682, 1, True), (768, 1, False),
+         (1000, 0, True), (1536, 1, False), (2038, 0, False),
+         (2046, 1, True)]
+
+
+@pytest.fixture(scope="module")
+def mixed_libraries():
+    """Every MIXED width's library, built at once (one nvcc a source and
+    width, all in parallel) before the first test needs one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the GPU machine)")
+    from amps_tpu_torch.kernels import build
+    build.build(widths=[M for M, _, _ in MIXED])
+
+
+def _fsk_band(M, T, Nh, seed, dev):
+    """History-prepended wideband whose M channels all carry random-data
+    FSK at 3 hops a symbol (no channel's phase sits near zero magnitude),
+    through the plain synthesis on the card."""
+    from amps_tpu_torch.dsp.fm import fm_modulate_symbols
+    rng = np.random.default_rng(seed)
+    syms = np.repeat(rng.choice(np.array([-1, 1], np.int8), (M, -(-Nh // 3))),
+                     3, axis=1)[:, :Nh]
+    bb, _ = fm_modulate_symbols(torch.as_tensor(syms, device=dev),
+                                2.0 * np.pi * 8000 / 60000)
+    carry = torch.zeros((M * T - M // 2, 2), device=dev)
+    x, _ = chz._synthesize_block(bb.transpose(0, 1).contiguous(), M, T, 0,
+                                 carry)
+    return torch.cat([carry, x]).contiguous()
+
+
+# fast_atan2 steps by 0.0417 at its octant seam (|im| = |re|), where two
+# f32 summation orders may land on either side: a demod sample there is
+# held to the step, and such samples to BRANCH_CUT_FRACTION of the plane
+ATAN_SEAM = 0.0417
+
+
+def _held_to_phase_atol(err, ref, atol):
+    a = ref.abs()
+    seam = ((a - np.pi / 4).abs() < 0.025) | ((a - 3 * np.pi / 4).abs() < 0.025)
+    on_seam = (err > atol) & seam
+    assert err.masked_fill(on_seam, 0.0).max().item() <= atol
+    assert on_seam.sum().item() <= BRANCH_CUT_FRACTION * err.numel() + 1
+    assert err.max().item() <= ATAN_SEAM + atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,parity,planar", MIXED)
+def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
+                                     parity, planar):
+    """K1 at a width that is not a power of two: atol 2e-4 on
+    unit-amplitude channels, riq or planar in and out; one launch."""
+    T, Nh = 8, 301
+    x = unit_channel_band(M, T, Nh, M, cuda_device)
+    if planar:
+        x = x.t().contiguous()
+    before = KA.LAUNCHES
+    y = KA.analyze_block(x, M, T, parity, planar, planar)
+    torch.cuda.synchronize()
+    assert KA.LAUNCHES == before + 1
+    ry = KA.analyze_reference(x, M, T, parity, planar, planar)
+    assert y.shape == ry.shape and torch.isfinite(y).all()
+    assert (y - ry).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,parity,planar", MIXED)
+def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
+                                     parity, planar):
+    """K2 on FSK in every channel: demod within 1e-3 (fast_atan2's seam
+    aside), the 384-hop power blocks within 1e-4, the last sample within
+    1e-4 of its RMS."""
+    T, Nh, skip = 8, 500, 18
+    x = _fsk_band(M, T, Nh, M + 1, cuda_device)
+    if planar:
+        x = x.t().contiguous()
+    prev = torch.randn((M, 2), device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(M))
+    before = K2.LAUNCHES
+    d, last, pw = K2.analyze_demod(x, M, T, parity, prev)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES == before + 1
+    rd, rlast, rpw = K2.analyze_demod_reference(x, M, T, parity, prev)
+    _held_to_phase_atol((d - rd)[:, skip:].abs(), rd[:, skip:], 1e-3)
+    blk, rblk = (window_power_blocks([p[:, skip:]]) for p in (pw, rpw))
+    assert ((blk - rblk).abs() / rblk).max().item() <= 1e-4
+    assert ((last - rlast).abs().max() / rlast.pow(2).mean().sqrt()).item() \
+        <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,parity,planar", MIXED)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
+                                      parity, planar, bf16):
+    """K3 on FSK in every channel: phases within 1e-3 (f32) or 0.02 (bf16)
+    past the bank's ramp-up, a ragged hop count; the power within 1e-4.
+    A demod sample on fast_atan2's seam moves each of the sps = 3 symbols
+    it enters by a third of the step: in f32 such samples are held to
+    BRANCH_CUT_FRACTION of the demod samples, as K2's are."""
+    T, Nh = 8, 27 * 20 + 1
+    x = _fsk_band(M, T, Nh, M + 2, cuda_device)
+    if planar:
+        x = x.t().contiguous()
+    dt = torch.bfloat16 if bf16 else torch.float32
+    before = K.LAUNCHES
+    ph, cp, pw = K.analyze_phases(x, M, T, 3, parity, dt)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    rph, rcp, rpw = K.analyze_phases_reference(x, M, T, 3, parity)
+    assert ph.shape == rph.shape and ph.dtype == dt
+    err = (ph.float() - rph)[..., 6:].abs()
+    if bf16:
+        assert err.max().item() <= 0.02
+    else:
+        assert err.max().item() <= ATAN_SEAM / 3 + 1e-3
+        assert (err > 1e-3).sum().item() \
+            <= 3 * BRANCH_CUT_FRACTION * err.numel()
+    rel = ((pw - rpw).abs() / rpw)[:, 1:]
+    assert rel.max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,parity", [(M, p) for M, p, _ in MIXED])
+def test_mixed_width_synth_kernel(cuda_device, mixed_libraries, M, parity):
+    """K4 with a carry in: 1e-4 of the output RMS."""
+    T, Nh = 8, 333
+    g = torch.Generator(cuda_device).manual_seed(M)
+    Y = torch.randn((Nh, M, 2), device=cuda_device, generator=g)
+    carry = torch.randn((M * T - M // 2, 2), device=cuda_device, generator=g)
+    before = K4.LAUNCHES
+    x, c = K4.synthesize_block(Y, M, T, parity, carry)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == before + 1
+    rx, rc = K4.synthesize_block_reference(Y, M, T, parity, carry)
+    rms = rx.pow(2).mean().sqrt()
+    assert ((x - rx).abs().max() / rms).item() <= 1e-4
+    assert ((c - rc).abs().max() / rms).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_chained_calls_equal_one_at_768(cuda_device, mixed_libraries):
+    """At M=768 two chained calls (an odd first block: the parity flips)
+    equal one call: K1 and K2 bit for bit; K4 within 1e-4 of the output
+    RMS (the carry's partial sums group an output hop's terms
+    otherwise)."""
+    M, T, N1, N2 = 768, 8, 1001, 700
+    P = M // 2
+    x = unit_channel_band(M, T, N1 + N2, 768, cuda_device)
+    y = KA.analyze_block(x, M, T, 0)
+    ya = KA.analyze_block(x[: (N1 + 2 * T - 1) * P].contiguous(), M, T, 0)
+    yb = KA.analyze_block(x[N1 * P:].contiguous(), M, T, N1 % 2)
+    assert torch.equal(torch.cat([ya, yb], 1), y)
+    zero = torch.zeros((M, 2), device=cuda_device)
+    d, last, pw = K2.analyze_demod(x, M, T, 0, zero)
+    da, la, pa = K2.analyze_demod(x[: (N1 + 2 * T - 1) * P].contiguous(), M,
+                                  T, 0, zero)
+    db, lb, pb = K2.analyze_demod(x[N1 * P:].contiguous(), M, T, N1 % 2, la)
+    assert torch.equal(torch.cat([da, db], 1), d)
+    assert torch.equal(torch.cat([pa, pb], 1), pw)
+    assert torch.equal(lb, last)
+    g = torch.Generator(cuda_device).manual_seed(7)
+    Y = torch.randn((N1 + N2, M, 2), device=cuda_device, generator=g)
+    carry = torch.randn((M * T - P, 2), device=cuda_device, generator=g)
+    xs, c = K4.synthesize_block(Y, M, T, 0, carry)
+    xa, ca = K4.synthesize_block(Y[:N1].contiguous(), M, T, 0, carry)
+    xb, cb = K4.synthesize_block(Y[N1:].contiguous(), M, T, N1 % 2, ca)
+    rms = xs.pow(2).mean().sqrt()
+    assert ((torch.cat([xa, xb]) - xs).abs().max() / rms).item() <= 1e-4
+    assert ((cb - c).abs().max() / rms).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_rx_block_on_card_matches_cpu_at_768(cuda_device, mixed_libraries):
+    """f32 spec at M=768: the kernel path on the card (K3 from the width's
+    own library) and the plain path on the CPU find the same bursts and
+    decode the same words."""
+    M, total_hops = 768, 12500
+    spec = pl.MultichannelSpec(num_channels=M, taps_per_phase=8, fold="bank")
+    rng = np.random.default_rng(768)
+    events = [BurstEvent(c, h, rng.integers(0, 2, (3, 36)).astype(np.uint8))
+              for c, h in ((0, 300), (M - 1, 900), (M // 2 + 1, 1500))]
+    x = synthesize_reverse_band(events, spec, total_hops, noise_sigma=0.001,
+                                device="cpu")
+    want = pl.rx_multichannel_block(x, spec, max_bursts=2)
+    before = K.LAUNCHES
+    got = pl.rx_multichannel_block(x.to(cuda_device), spec, max_bursts=2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    got = {k: v.cpu() for k, v in got.items()}
+    valid = want["valid"]
+    assert torch.equal(got["valid"], valid)
+    assert int(valid.sum()) == len(events)
+    for k in ("starts", "words", "word_ok", "dcc_bits", "bad_symbols"):
+        assert torch.equal(got[k][valid], want[k][valid]), k
 
 
 # ---- the batched block, the closed loop, supervision -------------------

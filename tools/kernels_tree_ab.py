@@ -1,0 +1,144 @@
+"""Two source trees of the port, kernel against kernel, on one CUDA card.
+
+Builds each tree's main kernel library (the powers of two), compares the
+SASS of every kernel instantiation in the two (``cuobjdump -sass``,
+instruction text without addresses and encodings, the first 4096
+instructions of each function), then times each kernel's device time at
+M=1024, Nh=8192 under torch.profiler, the trees alternated six times,
+one process a turn.  Use it to show that a change to the FFT tile leaves
+the power-of-two kernels as they were.  Run from the repository root with
+a second tree unpacked beside it (``git archive <commit> | tar -x -C
+DIR``):
+
+    python3 tools/kernels_tree_ab.py OLD_TREE NEW_TREE
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
+TURNS = 6
+
+# one turn: every kernel 40 times at M=1024 under the profiler; prints
+# {kernel: (mean device ms a launch, launches)}
+_PROFILE = r'''
+import sys, json
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.profiler import profile, ProfilerActivity
+from amps_tpu_torch.eval.traffic import unit_channel_band
+from amps_tpu_torch.kernels import analysis as KA, rx_front as R
+from amps_tpu_torch.kernels import rx_phases as K, synth as S
+dev = torch.device("cuda", 0)
+M, T, Nh = 1024, 8, 8192
+x = unit_channel_band(M, T, Nh, 1, dev)
+prev = torch.zeros((M, 2), device=dev)
+Y = torch.randn((Nh, M, 2), device=dev,
+                generator=torch.Generator(dev).manual_seed(1))
+carry = torch.zeros((M * T - M // 2, 2), device=dev)
+fns = [lambda: KA.analyze_block(x, M, T, 0),
+       lambda: R.analyze_demod(x, M, T, 0, prev),
+       lambda: K.analyze_phases(x, M, T, 3, 0, torch.bfloat16),
+       lambda: S.synthesize_block(Y, M, T, 0, carry)]
+for f in fns:
+    f()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(40):
+        for f in fns:
+            f()
+    torch.cuda.synchronize()
+out = {}
+for e in prof.key_averages():
+    for k in ("analysis_kernel", "rx_front_kernel", "rx_phases_kernel",
+              "synth_kernel"):
+        if k in e.key and "power" not in e.key:
+            out[k] = (e.device_time_total / e.count / 1e3, e.count)
+print("PROF " + json.dumps(out))
+'''
+
+
+def library(tree):
+    """The tree's main library, built by the tree's own kernels.build."""
+    r = subprocess.run([sys.executable, "-c",
+                        "import sys; sys.path.insert(0, sys.argv[1]);"
+                        "from amps_tpu_torch.kernels import build;"
+                        "print(build.build()[0])", tree],
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode:
+        raise RuntimeError(r.stderr[-3000:])
+    return r.stdout.strip().splitlines()[-1]
+
+
+def demangle(names):
+    for tool in ("/usr/local/cuda/bin/cu++filt", "c++filt"):
+        try:
+            r = subprocess.run([tool], input="\n".join(names),
+                               capture_output=True, text=True, timeout=60)
+        except OSError:
+            continue
+        if r.returncode == 0:
+            return r.stdout.splitlines()
+    # the anonymous namespace's name carries a per-build hash
+    return [re.sub(r"_GLOBAL__N__\w+?_\d+", "", n) for n in names]
+
+
+def sass(lib):
+    """{demangled function: [instruction text]} of a library."""
+    out = subprocess.run([CUOBJDUMP, "-sass", lib], capture_output=True,
+                         text=True, timeout=600).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name and re.search(r"/\*[0-9a-f]{4}\*/", line):
+            ins = re.sub(r"/\*[0-9a-f]+\*/", "", line).split(";")[0].strip()
+            funcs[name].append(ins)
+    return dict(zip(demangle(list(funcs)), funcs.values()))
+
+
+def profile(tree):
+    r = subprocess.run([sys.executable, "-c", _PROFILE, tree],
+                       capture_output=True, text=True, timeout=600)
+    line = [x for x in r.stdout.splitlines() if x.startswith("PROF ")]
+    if r.returncode or not line:
+        raise RuntimeError(r.stderr[-3000:])
+    return json.loads(line[0][5:])
+
+
+def main(old, new):
+    code = {side: sass(library(tree))
+            for side, tree in (("old", old), ("new", new))}
+    same = 0
+    for name in sorted(code["old"]):
+        a, b = code["old"][name], code["new"].get(name)
+        if a == b:
+            same += 1
+        elif b is None:
+            print(f"  {name[:80]}: missing in the new tree")
+        else:
+            diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+            print(f"  {name[:80]}: {len(a)} vs {len(b)} instructions, "
+                  f"{diff} differ")
+    print(f"SASS identical: {same} of {len(code['old'])} functions")
+    runs = []
+    for i in range(TURNS):
+        order = (("old", old), ("new", new))
+        for side, tree in order[:: 1 if i % 2 == 0 else -1]:
+            runs.append((side, profile(tree)))
+    for k in runs[0][1]:
+        for side in ("old", "new"):
+            v = sorted(r[k][0] for s, r in runs if s == side)
+            print(f"{k:18s} {side}: " + " ".join(f"{t:.4f}" for t in v)
+                  + f"  median {v[len(v) // 2]:.4f} ms")
+
+
+if __name__ == "__main__":
+    main(*map(os.path.abspath, sys.argv[1:3]))
