@@ -6,7 +6,7 @@
 // (analyze_chmajor_pallas, body _make_kernel) and computes what the
 // port's plain analysis, kernels/analysis.py::analyze_reference,
 // computes: riq or planar input with the history prepended, any hop
-// parity, any number of hops, any even M from 8 to 2048.  None of
+// parity, any number of hops, any even M from 8 to 4096.  None of
 // the TPU kernel's limits or workarounds is carried over: no even-parity
 // assert, no Nh % tile_h == 0, no odd bank pre-shifted by P samples, no
 // 128-lane M, no stack-and-transpose to planes.
@@ -36,7 +36,7 @@
 namespace {
 
 template <int M>
-__global__ void __launch_bounds__(kFftThreads, 2)
+__global__ void __launch_bounds__(kFftThreads, fft_min_blocks(M))
 analysis_kernel(const float* __restrict__ x, int planar_in, long long n_ext,
                 const float* __restrict__ coef,   // (T, M) fold coefficients
                 const float2* __restrict__ tw,    // twiddle table (analysis_fft.cuh)
@@ -75,6 +75,13 @@ analysis_kernel(const float* __restrict__ x, int planar_in, long long n_ext,
 // hops a thread block owns at width M (-1: M not taken)
 extern "C" int analysis_tile_hops(int M) {
   return with_width(M, [](auto w) { return fft_tile_hops(decltype(w)::value); });
+}
+// a block's shared memory at width M, in bytes (-1: M not taken)
+extern "C" int analysis_smem_bytes(int M) {
+  return with_width(M, [](auto w) {
+    constexpr int Mw = decltype(w)::value;
+    return fft_smem_bytes(Mw, fft_tile_hops(Mw));
+  });
 }
 // the FFT's plan at width M: its number of passes and the radix of pass
 // p (-1: M not taken)

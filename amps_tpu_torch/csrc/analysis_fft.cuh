@@ -14,7 +14,7 @@
 // (synth.cu).
 //
 // A block owns all M channels of H consecutive hops a0 .. a0+H-1 (M any
-// even width from 8 to 2048; H even, set by the kernel).  The small banks
+// even width from 8 to 4096; H even, set by the kernel).  The small banks
 // (M = 8 .. 32: one pass of radix 8 or 16, or 16 then 2, or a few short
 // passes) run the same code with most of a block's threads idle in the
 // fold and the passes:
@@ -44,18 +44,28 @@
 //     values of a batch of whole hops between the batch's read and its
 //     write, with a barrier between, so no pass needs a second buffer;
 //     where a thread's butterflies do not divide into whole hops, the
-//     last lanes of a batch sit idle.  A prime q >= 11 runs the generic
-//     pass (gpass): each of the q outputs of a butterfly is a q-term sum
+//     last lanes of a batch sit idle.  Past M = 3584 a radix 3, 5 or 7
+//     pass may have more butterflies a hop than 256 threads hold at 16
+//     values; there a thread holds ceil(M/R/256) butterflies (up to 21
+//     values), so a batch always holds a whole hop.  A prime q >= 11
+//     runs the generic pass (gpass): each of the q outputs of a
+//     butterfly is a q-term sum
 //     X[g·Ns·q + o] = sum_r x[j + r·M/q] W_{Ns·q}^{r·o}, twiddle
 //     included, with W_{Ns·q}^e read from a whole W_M table; a thread
-//     holds 8 outputs of its batch between read and write.  Channel k
-//     ends at row position k: natural order, no index map.  The twiddles
+//     holds 8 outputs of its batch between read and write (16 past M =
+//     2048, so that a batch holds a whole hop), summing 8 at a time.
+//     Channel k ends at row position k: natural order, no index map.  The twiddles
 //     come from a table (fft_twiddle_offset) that the wrapper builds in
 //     float64 and casts to f32, laid out so that consecutive butterflies
 //     read consecutive entries; the butterflies' own constants head it:
 //     W_16^1..3 (at M = 8 only W_16^2 = W_8^1 is a power of W_M, and the
 //     only one read), then, where M is not a power of two, W_3, W_5^1..2
 //     and W_7^1..3 (each a power of W_M wherever its radix is in the plan).
+//     Up to M = 2048 the block copies the table into shared memory beside
+//     the plane; past 2048 the plane alone takes a block's shared memory
+//     (six hops at M = 4096: 202,800 bytes of the 232,448), so the passes
+//     read the table (32.7 KB at 4096) from device memory through the
+//     read-only cache, where it stays.
 //   * every hop runs the same instruction sequence wherever it sits in
 //     the run: multiplies are __fmul_rn or explicit fmaf, adds __fadd_rn,
 //     so nvcc contracts nothing differently from hop to hop and chained
@@ -78,8 +88,11 @@ constexpr int kFftThreads = 256;
 constexpr int kFftMaxT = 16;     // taps per phase held in registers
 constexpr int kFftValues = 16;   // complex values a thread holds in a pass
 
-constexpr int kFftMaxWidth = 2048;
+constexpr int kFftMaxWidth = 4096;
 constexpr int kFftMaxSmem = 232448;   // shared memory a block may opt in to
+// the widest M whose twiddle table sits in shared memory beside the plane;
+// past it the passes read the table from device memory
+constexpr int kFftSharedTwiddleWidth = 2048;
 // plane bytes a block of the analysis kernel may hold at a width that is
 // not a power of two: ~100 KB, the plane of M = 1024's 12 hops
 constexpr int kFftPlaneBudget = 102400;
@@ -91,11 +104,23 @@ __host__ __device__ constexpr bool fft_pow2(int M) {
 __host__ __device__ constexpr int fft_hop_stride(int M) {
   return M + M / 32 + 1;
 }
+__host__ __device__ constexpr bool fft_shared_twiddles(int M) {
+  return M <= kFftSharedTwiddleWidth;
+}
+// past kFftSharedTwiddleWidth, the hops a block of any of the four kernels
+// computes: the most even hops (up to 16) whose plane fits in a block's
+// shared memory -- 12 at M = 2050, 8 at 3072, 6 at 4096, so that K3 at
+// sps = 3 (one hop behind, two ahead, whole symbols) owns 3 of them
+__host__ __device__ constexpr int fft_fit_hops(int M) {
+  const int h = kFftMaxSmem / (8 * fft_hop_stride(M));
+  return h >= 16 ? 16 : h & ~1;
+}
 // analysis hops a block of the analysis kernel computes at width M: ~100
-// KB of plane at M=1024, so two blocks share an SM; at a width that is
-// not a power of two the most even hops (2 .. 16) whose plane fits in
-// kFftPlaneBudget
+// KB of plane at M=1024, so two blocks share an SM; at a width up to 2048
+// that is not a power of two the most even hops (2 .. 16) whose plane
+// fits in kFftPlaneBudget; past 2048 fft_fit_hops
 __host__ __device__ constexpr int fft_tile_hops(int M) {
+  if (!fft_shared_twiddles(M)) return fft_fit_hops(M);
   if (!fft_pow2(M)) {
     const int h = kFftPlaneBudget / (8 * fft_hop_stride(M));
     return h >= 16 ? 16 : (h < 2 ? 2 : h & ~1);
@@ -104,9 +129,16 @@ __host__ __device__ constexpr int fft_tile_hops(int M) {
 }
 // hops a block of the kernels with a heavier epilogue computes (rx_front,
 // rx_phases, synth): twice the analysis kernel's, since their 4-byte rows
-// need twice the hops to fill the same sectors; one block an SM at M=1024
+// need twice the hops to fill the same sectors; one block an SM at M=1024;
+// past 2048 fft_fit_hops, as the analysis kernel
 __host__ __device__ constexpr int fft_wide_hops(int M) {
-  return 2 * fft_tile_hops(M);
+  return fft_shared_twiddles(M) ? 2 * fft_tile_hops(M) : fft_fit_hops(M);
+}
+// blocks of the analysis and receive kernels an SM is built for: two up
+// to 2048, one past it, where one block's plane takes the SM's shared
+// memory (and the passes may hold up to 21 values a thread)
+__host__ __device__ constexpr int fft_min_blocks(int M) {
+  return fft_shared_twiddles(M) ? 2 : 1;
 }
 // a = the exponent of 2 in M, r = M / 2^a
 __host__ __device__ constexpr int fft_twos(int M) {
@@ -175,13 +207,15 @@ __host__ __device__ constexpr bool fft_has_generic(int M) {
 __host__ __device__ constexpr int fft_twiddle_size(int M) {
   return fft_twiddle_offset(M, fft_passes(M)) + (fft_has_generic(M) ? M : 0);
 }
-// shared memory of a block of H hops at width M: the plane and the table
+// shared memory of a block of H hops at width M: the plane, and the
+// table up to kFftSharedTwiddleWidth
 __host__ __device__ constexpr int fft_smem_bytes(int M, int H) {
-  return 8 * (H * fft_hop_stride(M) + fft_twiddle_size(M));
+  return 8 * (H * fft_hop_stride(M) +
+              (fft_shared_twiddles(M) ? fft_twiddle_size(M) : 0));
 }
 
 // Calls f(std::integral_constant<int, M>) for the widths this library
-// instantiates -- every power of two from 8 to 2048, or, in a library
+// instantiates -- every power of two from 8 to 4096, or, in a library
 // built with -DAMPS_FFT_WIDTH=M, that one width --; returns -1 for any
 // other M.
 template <class F>
@@ -201,6 +235,7 @@ int with_width(int M, F f) {
     case 512: return f(std::integral_constant<int, 512>{});
     case 1024: return f(std::integral_constant<int, 1024>{});
     case 2048: return f(std::integral_constant<int, 2048>{});
+    case 4096: return f(std::integral_constant<int, 4096>{});
     default: return -1;
   }
 #endif
@@ -325,7 +360,9 @@ __device__ __forceinline__ void dft_odd(float2 (&v)[R],
   v[0] = x0;
 }
 
-template <int M, int H_>
+// kLoop: the kernel runs the tile again and again in a loop (synth.cu's
+// passes), beside state it holds in registers across the loop
+template <int M, int H_, bool kLoop = false>
 struct FftTile {
   static constexpr int P = M / 2;
   static constexpr int H = H_;                 // analysis hops of a block
@@ -333,12 +370,15 @@ struct FftTile {
   static constexpr int HS = fft_hop_stride(M);  // hop stride of the plane
   static constexpr int TWN = fft_twiddle_size(M);
   static constexpr int kSmemBytes = fft_smem_bytes(M, H);
+  static constexpr bool kSharedTw = fft_shared_twiddles(M);
   static_assert(H % 2 == 0 && M >= 8 && M <= kFftMaxWidth && M % 2 == 0,
-                "even widths 8 .. 2048");
+                "even widths 8 .. 4096");
   static_assert(kSmemBytes <= kFftMaxSmem, "the plane fits a block");
 
   float2* S;   // [H][HS] the plane
-  float2* W;   // [TWN] the twiddle table
+  // [TWN] the twiddle table: in shared memory after the plane, or (past
+  // kFftSharedTwiddleWidth) the wrapper's table in device memory
+  const float2* W;
 
   __device__ __forceinline__ explicit FftTile(float* smem)
       : S(reinterpret_cast<float2*>(smem)), W(S + H * HS) {}
@@ -346,7 +386,33 @@ struct FftTile {
   __device__ __forceinline__ static int pad(int i) { return i + (i >> 5); }
 
   __device__ __forceinline__ void load_twiddles(const float2* __restrict__ tw) {
-    for (int i = threadIdx.x; i < TWN; i += kFftThreads) W[i] = __ldg(tw + i);
+    if constexpr (kSharedTw) {
+      float2* w = S + H * HS;
+      for (int i = threadIdx.x; i < TWN; i += kFftThreads) w[i] = __ldg(tw + i);
+    } else {
+      W = tw;
+    }
+  }
+  // a twiddle of the table, read where the table lies
+  __device__ __forceinline__ static float2 ld(const float2* w) {
+    if constexpr (kSharedTw) return *w;
+    else return __ldg(w);
+  }
+  // the thread's index in the row loader and the passes: in a kernel
+  // that loops over the tile, read afresh at each use, so that nvcc
+  // recomputes each pass's index arithmetic instead of hoisting all of it
+  // out of the loop into registers the loop's own state needs
+  // (threadIdx.x itself, unsigned, outside a loop; an int in a loop,
+  // whose signed index arithmetic ptxas fits beside K4's ring at every
+  // width, where the unsigned form spills at M = 4094)
+  __device__ __forceinline__ static auto tid() {
+    if constexpr (kLoop) {
+      int t;
+      asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+      return t;
+    } else {
+      return threadIdx.x;
+    }
   }
 
   // The folded windows of hops a0 .. a0+H-1 into the plane.  x is
@@ -371,7 +437,7 @@ struct FftTile {
   __device__ __forceinline__ void load_rows(const float2* __restrict__ Y,
                                             int n0, int Nh) {
 #pragma unroll 4
-    for (int e = threadIdx.x; e < H * M; e += kFftThreads) {
+    for (int e = tid(); e < H * M; e += kFftThreads) {
       const int l = e / M, k = e % M;
       const int n = n0 + l;
       const bool ok = n >= 0 && n < Nh;
@@ -429,23 +495,28 @@ struct FftTile {
   template <int R, int Ns, int OFF>
   __device__ __forceinline__ void pass() {
     constexpr int IH = M / R;                    // butterflies per hop
-    constexpr int IPT = kFftValues / R;          // butterflies a thread holds
+    // butterflies a thread holds: kFftValues / R, or as many as a whole
+    // hop needs (a radix 3, 5 or 7 past M = 3584)
+    constexpr int IPT = kFftValues / R * kFftThreads >= IH
+                            ? kFftValues / R
+                            : (IH + kFftThreads - 1) / kFftThreads;
     constexpr int HB = kFftThreads * IPT / IH;   // hops per batch
     // lanes e >= HB·IH of a batch sit idle where the hops do not fill it
     constexpr bool kFull = kFftThreads * IPT == HB * IH;
     static_assert(HB >= 1, "a batch holds a whole hop");
-    const float2 c[3] = {W[0], W[1], W[2]};
+    const float2 c[3] = {ld(W), ld(W + 1), ld(W + 2)};
     float2 co[R % 2 ? (R - 1) / 2 : 1];
     if constexpr (R % 2) {
 #pragma unroll
-      for (int i = 0; i < (R - 1) / 2; ++i) co[i] = W[fft_head_offset(R) + i];
+      for (int i = 0; i < (R - 1) / 2; ++i)
+        co[i] = ld(W + fft_head_offset(R) + i);
     }
 #pragma unroll 1
     for (int b = 0; b < (H + HB - 1) / HB; ++b) {
       float2 v[IPT][R];
 #pragma unroll
       for (int q = 0; q < IPT; ++q) {
-        const int e = threadIdx.x + q * kFftThreads;
+        const int e = tid() + q * kFftThreads;
         const int hop = b * HB + e / IH, j = e % IH;
         if ((kFull || e < HB * IH) && hop < H) {
           const float2* h = S + hop * HS;
@@ -454,7 +525,8 @@ struct FftTile {
           if (Ns > 1) {
             const float2* w = W + OFF + j % Ns;
 #pragma unroll
-            for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], w[(r - 1) * Ns]);
+            for (int r = 1; r < R; ++r)
+              v[q][r] = cmul(v[q][r], ld(w + (r - 1) * Ns));
           }
           if constexpr (R % 2) dft_odd<R>(v[q], co);
           else dft<R>(v[q], c);
@@ -463,7 +535,7 @@ struct FftTile {
       __syncthreads();
 #pragma unroll
       for (int q = 0; q < IPT; ++q) {
-        const int e = threadIdx.x + q * kFftThreads;
+        const int e = tid() + q * kFftThreads;
         const int hop = b * HB + e / IH, j = e % IH;
         if ((kFull || e < HB * IH) && hop < H) {
           float2* h = S + hop * HS;
@@ -481,13 +553,19 @@ struct FftTile {
   //   sum_r x[j + r·M/Q] W_N^{r·o},  j = g·Ns + o mod Ns,
   // the butterfly's twiddle and Q-point DFT in one sum, W_N^e read as
   // W_M^{e·M/N} from the table's whole W_M.  A thread holds kGenOut
-  // outputs of a batch of whole hops (lanes past the hops sit idle); the
-  // terms add in order r = 0, 1, ... (fmaf), in runs of kGenRun whose
-  // sums then add in order, which keeps a long sum's f32 error near that
-  // of the short radices.  Ends with a barrier.
+  // outputs of a batch of whole hops (8, or 16 past M = 2048; lanes past
+  // the hops sit idle) and sums them 8 at a time; the terms
+  // add in order r = 0, 1, ... (fmaf), in runs of kGenRun whose sums
+  // then add in order, which keeps a long sum's f32 error near that of
+  // the short radices.  Ends with a barrier.
   template <int Q, int Ns>
   __device__ __forceinline__ void gpass() {
-    constexpr int kGenOut = kFftValues / 2;      // outputs a thread holds
+    constexpr int kGenSum = kFftValues / 2;      // outputs summed at once
+    // outputs a thread holds
+    constexpr int kGenOut = kGenSum * kFftThreads >= M
+                                ? kGenSum
+                                : (M + kFftThreads * kGenSum - 1) /
+                                      (kFftThreads * kGenSum) * kGenSum;
     constexpr int kGenRun = 32;    // terms summed apart before they join
     constexpr int N = Ns * Q, IH = M / Q, STEP = M / N;
     constexpr int HB = kFftThreads * kGenOut / M;   // hops per batch
@@ -496,46 +574,51 @@ struct FftTile {
 #pragma unroll 1
     for (int b = 0; b < (H + HB - 1) / HB; ++b) {
       float2 acc[kGenOut];
-      const float2* x[kGenOut];
-      int idx[kGenOut], step[kGenOut];
 #pragma unroll
-      for (int i = 0; i < kGenOut; ++i) {
-        const int e = threadIdx.x + i * kFftThreads;
-        const int hop = b * HB + e / M, t = e % M;
-        const bool live = e < HB * M && hop < H;
-        const int o = t % N, j = (t / N) * Ns + o % Ns;
-        x[i] = S + (live ? hop : 0) * HS;
-        idx[i] = live ? j : 0;             // x index of term r: j + r·IH
-        step[i] = live ? o * STEP : 0;     // W_M exponent step, < M
-        acc[i] = make_float2(0.f, 0.f);
-      }
-      int ex[kGenOut];                     // W_M exponent of term r
+      for (int i0 = 0; i0 < kGenOut; i0 += kGenSum) {
+        // the row of output i's hop: one row where a batch is one hop
+        // (every output that is live sits in hop b)
+        const float2* x[HB == 1 ? 1 : kGenSum];
+        int idx[kGenSum], step[kGenSum], ex[kGenSum];
 #pragma unroll
-      for (int i = 0; i < kGenOut; ++i) ex[i] = 0;
-#pragma unroll 1
-      for (int r0 = 0; r0 < Q; r0 += kGenRun) {
-        float2 part[kGenOut];
-#pragma unroll
-        for (int i = 0; i < kGenOut; ++i) part[i] = make_float2(0.f, 0.f);
-#pragma unroll 1
-        for (int r = r0; r < min(r0 + kGenRun, Q); ++r) {
-#pragma unroll
-          for (int i = 0; i < kGenOut; ++i) {
-            const float2 v = x[i][pad(idx[i] + r * IH)];
-            const float2 w = wm[ex[i]];
-            part[i].x = fmaf(v.x, w.x, fmaf(-v.y, w.y, part[i].x));
-            part[i].y = fmaf(v.x, w.y, fmaf(v.y, w.x, part[i].y));
-            ex[i] += step[i];
-            if (ex[i] >= M) ex[i] -= M;
-          }
+        for (int i = 0; i < kGenSum; ++i) {
+          const int e = tid() + (i0 + i) * kFftThreads;
+          const int hop = b * HB + e / M, t = e % M;
+          const bool live = e < HB * M && hop < H;
+          const int o = t % N, j = (t / N) * Ns + o % Ns;
+          if constexpr (HB == 1) x[0] = S + b * HS;
+          else x[i] = S + (live ? hop : 0) * HS;
+          idx[i] = live ? j : 0;           // x index of term r: j + r·IH
+          step[i] = live ? o * STEP : 0;   // W_M exponent step, < M
+          ex[i] = 0;                       // W_M exponent of term r
+          acc[i0 + i] = make_float2(0.f, 0.f);
         }
+#pragma unroll 1
+        for (int r0 = 0; r0 < Q; r0 += kGenRun) {
+          float2 part[kGenSum];
 #pragma unroll
-        for (int i = 0; i < kGenOut; ++i) acc[i] = cadd(acc[i], part[i]);
+          for (int i = 0; i < kGenSum; ++i) part[i] = make_float2(0.f, 0.f);
+#pragma unroll 1
+          for (int r = r0; r < min(r0 + kGenRun, Q); ++r) {
+#pragma unroll
+            for (int i = 0; i < kGenSum; ++i) {
+              const float2 v = x[HB == 1 ? 0 : i][pad(idx[i] + r * IH)];
+              const float2 w = ld(wm + ex[i]);
+              part[i].x = fmaf(v.x, w.x, fmaf(-v.y, w.y, part[i].x));
+              part[i].y = fmaf(v.x, w.y, fmaf(v.y, w.x, part[i].y));
+              ex[i] += step[i];
+              if (ex[i] >= M) ex[i] -= M;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kGenSum; ++i)
+            acc[i0 + i] = cadd(acc[i0 + i], part[i]);
+        }
       }
       __syncthreads();
 #pragma unroll
       for (int i = 0; i < kGenOut; ++i) {
-        const int e = threadIdx.x + i * kFftThreads;
+        const int e = tid() + i * kFftThreads;
         const int hop = b * HB + e / M, t = e % M;
         if (e < HB * M && hop < H) S[hop * HS + pad(t)] = acc[i];
       }

@@ -40,7 +40,7 @@
 namespace {
 
 template <int M>
-__global__ void __launch_bounds__(kFftThreads, 2)
+__global__ void __launch_bounds__(kFftThreads, fft_min_blocks(M))
 rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
                 const float* __restrict__ coef,   // (T, M) fold coefficients
                 const float2* __restrict__ tw,    // twiddle table (analysis_fft.cuh)
@@ -83,6 +83,13 @@ rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
 // demod hops a thread block owns at width M (-1: M not taken)
 extern "C" int rx_front_tile_hops(int M) {
   return with_width(M, [](auto w) { return fft_wide_hops(decltype(w)::value) - 1; });
+}
+// a block's shared memory at width M, in bytes (-1: M not taken)
+extern "C" int rx_front_smem_bytes(int M) {
+  return with_width(M, [](auto w) {
+    constexpr int Mw = decltype(w)::value;
+    return fft_smem_bytes(Mw, fft_wide_hops(Mw));
+  });
 }
 // the FFT's plan at width M: its number of passes and the radix of pass
 // p (-1: M not taken)

@@ -16,11 +16,14 @@ a thread block folds each of its hops once (or, for the synthesis in
 transforms them with an f32 Stockham FFT whose radices are
 ``fft_radices(M)`` (mixed radix: 16, then 2, 4 or 8, then the odd prime
 factors of M) and whose twiddles are the table of ``_tables``; M is any
-even width in ``FFT_WIDTHS``.  The powers of two live in the main
-library; any other width builds a library of its own at first use
+even width in ``FFT_WIDTHS`` (8 to 4096).  The powers of two live in the
+main library; any other width builds a library of its own at first use
 (``kernels.build``).  The analysis kernel takes ``FFT_TILE_HOPS[M]``
 hops a block, the receive front ends (``kernels.rx_front``,
-``kernels.rx_phases``) and the synthesis ``FFT_WIDE_HOPS[M]``.  The front ends' plain versions start from
+``kernels.rx_phases``) and the synthesis ``FFT_WIDE_HOPS[M]``; a block's
+shared memory is ``fft_smem_bytes`` (the plane, and up to
+``SHARED_TWIDDLE_WIDTH`` the twiddle table; past it the passes read the
+table from device memory).  The front ends' plain versions start from
 ``analyze_reference``, and the wrappers share ``card_block`` (the checks
 of an input block on the card), ``bind`` and ``launch``.
 """
@@ -37,22 +40,38 @@ from amps_tpu_torch.dsp.polyphase import _analysis_consts, _hop_sign
 from amps_tpu_torch.kernels import build
 
 MAX_TAPS = 16              # taps per phase the tiles hold (csrc kMaxT)
-MAX_FFT_WIDTH = 2048       # csrc kFftMaxWidth
+MAX_FFT_WIDTH = 4096       # csrc kFftMaxWidth
 # M the FFT tile takes: every even width from the 8-channel bank of the
-# station app's default to 2048
+# station app's default to 4096 (122.88 Msps)
 FFT_WIDTHS = tuple(range(8, MAX_FFT_WIDTH + 1, 2))
 # M the main library instantiates: the powers of two; every other width
 # builds a library of its own at first use
-LIBRARY_WIDTHS = tuple(1 << b for b in range(3, 12))
-# plane bytes a block of the analysis kernel may hold at a width that is
-# not a power of two (csrc kFftPlaneBudget): ~100 KB, M = 1024's plane
+LIBRARY_WIDTHS = tuple(1 << b for b in range(3, 13))
+# plane bytes a block of the analysis kernel may hold at a width up to
+# 2048 that is not a power of two (csrc kFftPlaneBudget): ~100 KB, M =
+# 1024's plane
 PLANE_BUDGET = 102400
+# shared memory a Hopper block may opt in to (csrc kFftMaxSmem)
+SMEM_BYTES = 232448
+# the widest M whose twiddle table sits in a block's shared memory
+# (csrc kFftSharedTwiddleWidth); past it the passes read it from device
+# memory
+SHARED_TWIDDLE_WIDTH = 2048
+
+
+def _fit_hops(M: int) -> int:
+    """csrc fft_fit_hops: the most even hops (up to 16) whose plane fits
+    in a block's shared memory (6 at M = 4096)."""
+    return min(16, SMEM_BYTES // (8 * fft_hop_stride(M)) & ~1)
 
 
 def _tile_hops(M: int) -> int:
     """csrc fft_tile_hops: ~100 KB of shared plane at M = 1024, so two
-    blocks share an SM; at a width that is not a power of two the most
-    even hops (2 .. 16) whose plane fits in PLANE_BUDGET."""
+    blocks share an SM; at a width up to 2048 that is not a power of two
+    the most even hops (2 .. 16) whose plane fits in PLANE_BUDGET; past
+    2048 ``_fit_hops``."""
+    if M > SHARED_TWIDDLE_WIDTH:
+        return _fit_hops(M)
     if M in LIBRARY_WIDTHS:
         return 16 if M <= 512 else 12 if M == 1024 else 4
     h = PLANE_BUDGET // (8 * fft_hop_stride(M))
@@ -68,8 +87,10 @@ def fft_hop_stride(M: int) -> int:
 # analysis hops a block of the FFT tile computes (csrc fft_tile_hops)
 FFT_TILE_HOPS = {M: _tile_hops(M) for M in FFT_WIDTHS}
 # hops a block of the kernels with a heavier epilogue computes (csrc
-# fft_wide_hops): twice as many, to fill the sectors of 4-byte rows
-FFT_WIDE_HOPS = {M: 2 * h for M, h in FFT_TILE_HOPS.items()}
+# fft_wide_hops): twice as many up to 2048, to fill the sectors of 4-byte
+# rows; past it as many as the analysis kernel's
+FFT_WIDE_HOPS = {M: 2 * h if M <= SHARED_TWIDDLE_WIDTH else h
+                 for M, h in FFT_TILE_HOPS.items()}
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -197,6 +218,14 @@ def fft_twiddle_exponents(M: int) -> np.ndarray:
     return np.asarray(out, dtype=np.int64)
 
 
+def fft_smem_bytes(M: int, H: int) -> int:
+    """Shared memory of a block of H hops at width M (csrc
+    fft_smem_bytes): the plane, and up to SHARED_TWIDDLE_WIDTH the
+    twiddle table."""
+    table = len(fft_twiddle_exponents(M)) if M <= SHARED_TWIDDLE_WIDTH else 0
+    return 8 * (H * fft_hop_stride(M) + table)
+
+
 @functools.cache
 def _fft_twiddles(M: int) -> np.ndarray:
     """(n, 2) float32 twiddle table W_M^e = e^{-j2πe/M} at the exponents
@@ -240,30 +269,36 @@ def card_block(x_ext: torch.Tensor, M: int, T: int):
     return planar, n_ext, Nh
 
 
-def bind(prefix: str, argtypes, M: int, hops: int):
+def bind(prefix: str, argtypes, M: int, hops: int, smem: int, **consts):
     """The launcher ``{prefix}_launch`` of the library that holds width M
     (the main library for a power of two, else M's own, built at first
     use) with its argument types (it returns a cudaError_t), once the
     library's tile constants at M are the wrapper's: its hops
-    (``{prefix}_tile_hops``) and its FFT plan, pass by pass
-    (``{prefix}_fft_passes``, ``{prefix}_fft_radix``)."""
+    (``{prefix}_tile_hops``), a block's shared memory
+    (``{prefix}_smem_bytes``), its FFT plan, pass by pass
+    (``{prefix}_fft_passes``, ``{prefix}_fft_radix``), and each of
+    ``consts`` (name: {int arguments: value} of ``{prefix}_{name}``)."""
     lib = build.load(None if M in LIBRARY_WIDTHS else M)
     fn = getattr(lib, f"{prefix}_launch")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    c_int = ctypes.c_int
-    consts = {"tile_hops": [c_int], "fft_passes": [c_int],
-              "fft_radix": [c_int, c_int]}
-    for name, types in consts.items():
-        const = getattr(lib, f"{prefix}_{name}")
-        const.argtypes, const.restype = types, c_int
-    plan = fft_radices(M)
-    got = (getattr(lib, f"{prefix}_tile_hops")(M),
-           tuple(getattr(lib, f"{prefix}_fft_radix")(M, p)
-                 for p in range(getattr(lib, f"{prefix}_fft_passes")(M))))
-    if got != (hops, plan):
-        raise RuntimeError(f"{prefix} kernel built for M={M} has (hops, "
-                           f"radices) {got}, the wrapper's {(hops, plan)}")
+
+    def const(name, *args):
+        f = getattr(lib, f"{prefix}_{name}")
+        f.argtypes, f.restype = [ctypes.c_int] * len(args), ctypes.c_int
+        return f(*args)
+
+    want = {"tile_hops": hops, "smem_bytes": smem, "plan": fft_radices(M),
+            **consts}
+    got = {"tile_hops": const("tile_hops", M),
+           "smem_bytes": const("smem_bytes", M),
+           "plan": tuple(const("fft_radix", M, p)
+                         for p in range(const("fft_passes", M))),
+           **{name: {args: const(name, *args) for args in values}
+              for name, values in consts.items()}}
+    if got != want:
+        raise RuntimeError(f"{prefix} kernel built for M={M} has the tile "
+                           f"constants {got}, the wrapper's {want}")
     return fn
 
 
@@ -280,7 +315,8 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
 def _launcher(M: int):
     p, i = ctypes.c_void_p, ctypes.c_int
     return bind("analysis", [p, i, ctypes.c_longlong, p, p, p, i, i, i, i,
-                             i, p], M, FFT_TILE_HOPS[M])
+                             i, p], M, FFT_TILE_HOPS[M],
+                fft_smem_bytes(M, FFT_TILE_HOPS[M]))
 
 
 def analyze_block(x_ext, M: int, T: int, hop0_parity: int = 0,

@@ -27,7 +27,8 @@ from amps_tpu_torch.dsp.fm import quadrature_demod_planar
 from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, _tables,
                                              analyze_reference, bind,
                                              block_geometry, card_block,
-                                             check_fft_width, launch)
+                                             check_fft_width, fft_smem_bytes,
+                                             launch)
 
 # demod hops a thread block owns, by M (csrc fft_wide_hops - 1)
 TILE_HOPS = {M: h - 1 for M, h in FFT_WIDE_HOPS.items()}
@@ -60,7 +61,8 @@ def analyze_demod_reference(x_ext, M: int, T: int, hop0_parity: int,
 def _launcher(M: int):
     p, i = ctypes.c_void_p, ctypes.c_int
     return bind("rx_front", [p, i, ctypes.c_longlong, p, p, p, p, p, p, i,
-                             i, i, i, p], M, TILE_HOPS[M])
+                             i, i, i, p], M, TILE_HOPS[M],
+                fft_smem_bytes(M, FFT_WIDE_HOPS[M]))
 
 
 def analyze_demod(x_ext, M: int, T: int, hop0_parity: int, prev_iq):

@@ -29,7 +29,8 @@ from amps_tpu_torch.dsp.fm import quadrature_demod_planar
 from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, _tables,
                                              analyze_reference, bind,
                                              block_geometry, card_block,
-                                             check_fft_width, launch)
+                                             check_fft_width, fft_smem_bytes,
+                                             launch)
 from amps_tpu_torch.rx.correlator import (RSSI_BLOCK, power_from_blocks,
                                           symbol_phase_streams,
                                           window_power_blocks)
@@ -76,7 +77,7 @@ def _launcher(M: int):
     p, i = ctypes.c_void_p, ctypes.c_int
     return bind("rx_phases", [p, i, ctypes.c_longlong, p, p, p, i, p, p,
                               i, i, i, i, i, i, i, i, p], M,
-                FFT_WIDE_HOPS[M])
+                FFT_WIDE_HOPS[M], fft_smem_bytes(M, FFT_WIDE_HOPS[M]))
 
 
 def analyze_phases(x_ext, M: int, T: int, sps: int = 3,

@@ -10,7 +10,11 @@ the other.  The kernel runs the all-channel FFT tile of
 ``kernels.analysis`` on hop-major rows of Y (``FFT_WIDE_HOPS[M]`` a pass,
 any even M in ``FFT_WIDTHS``), reads the inverse transform off the
 forward FFT by index and overlap-adds in registers: its tables are the
-tile's twiddles and ``_gain_taps``.
+tile's twiddles and ``_gain_taps``.  Past M = 1024 (512 for T > 8) a
+thread's ring of running sums would outgrow its registers, so the P =
+M/2 columns split into ``column_groups(M, T)`` groups, a grid axis, each
+of which transforms the pass's hops itself (``thread_columns``: at most
+2 columns a thread).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from amps_tpu_torch.dsp import channelizer as chz
 from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, MAX_TAPS,
                                              _tables, bind, check_fft_width,
-                                             launch)
+                                             fft_smem_bytes, launch)
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -51,11 +55,28 @@ def synthesize_block_reference(Y, M: int, T: int, hop0_parity: int, carry,
     return chz._synthesize_block(Y, M, T, int(hop0_parity) % 2, carry, split)
 
 
+def thread_columns(M: int, T: int) -> int:
+    """Columns of the ring a thread may hold (csrc
+    synth_thread_columns): a block's ceil(P/256), but at most 2 with the
+    ring of T <= 8 (2·8 running sums) and 1 with that of T <= 16 (2·16)."""
+    return min(-(-(M // 2) // 256), 2 if T <= 8 else 1)
+
+
+def column_groups(M: int, T: int) -> int:
+    """Column groups of a pass, the grid's first axis (csrc
+    synth_groups): ceil(P / (256 · thread_columns)), 1 up to M = 1024 at
+    T <= 8 (512 at T <= 16), each group's block transforming the pass's
+    hops itself."""
+    return -(-(M // 2) // (256 * thread_columns(M, T)))
+
+
 @functools.cache
 def _launcher(M: int):
     p, i = ctypes.c_void_p, ctypes.c_int
     return bind("synth", [p, p, p, p, p, p, i, i, i, i, p], M,
-                FFT_WIDE_HOPS[M])
+                FFT_WIDE_HOPS[M], fft_smem_bytes(M, FFT_WIDE_HOPS[M]),
+                column_groups={(M, T): column_groups(M, T)
+                               for T in (8, MAX_TAPS)})
 
 
 @functools.cache

@@ -30,7 +30,12 @@ library built at first use, every kernel against its plain version at
 M = 24, 160, 448, 768, 1458 and 2038, their times at 768, 1536 and 2038
 beside 1024, and the station's main path at M=768 (a 23.04 Msps radio:
 the one-shot block, the receiver, the transmitter read back, the closed
-loop under its graph, the mobile's analysis) --; and
+loop under its graph, the mobile's analysis) --; banks past 2048
+channels -- every wrapper refusing M = 4098, 8192, an odd width and 6,
+every kernel against its plain version at M = 2304, 3072, 4000, 4094
+and 4096, their times at 2048, 3072 and 4096 beside 1024, the same main
+path at M=4096 (a 122.88 Msps radio) and a short call of the station
+app there --; and
 times kernels and paths against their plain versions,
 their bounds and a cuFFT yardstick, with profiler windows of one
 one-shot block, one receiver push, one transmitter superframe, one
@@ -51,10 +56,11 @@ the cuFFT time of its transform alone, its error at the small banks and
 its launches and times on the closed loop or the batched block, for
 K1 and K4 their launches, errors and times at the sharded workers'
 shapes, and each kernel's errors at phase 29's widths and its times,
-bounds and cuFFT yardsticks at 768, 1024, 1536 and 2038 (``widths_*``);
-``launches_by_path`` counts each kernel's launches on every path it
-runs, the soaks', the paced legs', the two processes' of the
-cross-process station and the M=768 paths' (``m768_*``) among them.  Without a CUDA card it exits
+bounds and cuFFT yardsticks at 768, 1024, 1536 and 2038 (``widths_*``),
+and the same at phase 30's (``wide_*``); ``launches_by_path`` counts
+each kernel's launches on every path it runs, the soaks', the paced
+legs', the two processes' of the cross-process station and the M=768
+and M=4096 paths' (``m768_*``, ``m4096_*``) among them.  Without a CUDA card it exits
 non-zero.
 """
 
@@ -1099,7 +1105,7 @@ def phase_small_widths(dev, Nh=4001, widths=(8, 16, 32), Ts=(4, 8),
         log(f"  M={M}, Nh={Nt}, kernel / plain ms: " + ", ".join(
             f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in
             ((k, ms[k][M]) for k in ms)))
-    for M in (13, 6, 4096):  # odd, below 8, past 2048: refused
+    for M in (13, 6, 4098, 8192):  # odd, below 8, past 4096: refused
         try:
             KA.analyze_block(torch.zeros(((100 + 15) * (M // 2), 2),
                                          device=dev), M, 8)
@@ -2669,12 +2675,26 @@ def phase_entry(dev, card):
 WIDTH_CHECKS = (24, 160, 448, 768, 1458, 2038)
 WIDTH_TIMES = (768, 1024, 1536, 2038)
 STATION_M = 768
+# phase 30: banks past 2048 channels, whose twiddles the passes read from
+# device memory and whose K4 splits its columns into groups.  WIDE_CHECKS
+# holds each kernel to its plain version (radix 3 at 2304 = 2^8·3² and
+# 3072 = 3·1024, radix 5 past 3840 at 4000 = 2^5·5³, the generic pass
+# past 2048 at 4094 = 2·23·89, the power of two 4096); WIDE_TIMES times
+# them beside M=1024; WIDE_M is a 122.88 Msps station (the master clock
+# of a USRP N310/N320), whose main path runs end to end
+WIDE_CHECKS = (2304, 3072, 4000, 4094, 4096)
+WIDE_TIMES = (1024, 2048, 3072, 4096)
+WIDE_M = 4096
+# the station app's short call at WIDE_M: one superframe, one mobile
+WIDE_APP_ARGS = ["--superframes", "1", "--no-server",
+                 "--simulate", "origination:5551234567:5551230000"]
 
 
 def width_libraries():
-    """The widths of phase 29 that build a library of their own."""
+    """The widths of phases 29 and 30 that build a library of their own."""
     from amps_tpu_torch.kernels import analysis as KA
-    return sorted(set(WIDTH_CHECKS + WIDTH_TIMES) - set(KA.LIBRARY_WIDTHS))
+    return sorted(set(WIDTH_CHECKS + WIDTH_TIMES + WIDE_CHECKS + WIDE_TIMES)
+                  - set(KA.LIBRARY_WIDTHS))
 
 
 def width_rows(dev, M, T, Nh, sps=3):
@@ -2721,56 +2741,38 @@ def width_rows(dev, M, T, Nh, sps=3):
     return rows
 
 
-def phase_widths(dev, card, T=8, sps=3):
-    """Phase 29: the FFT tile at widths that are not powers of two.  Builds
-    every width's own library at once; holds each kernel to its plain
-    version at WIDTH_CHECKS (phase 12's checks, T=8); times each kernel
-    at WIDTH_TIMES beside M=1024; then runs the station's main path at
-    STATION_M through the entry points -- the one-shot block (K3, n =
-    Nh·M/2 at Nh=8192, 8 planted bursts), the streaming receiver (K2,
-    phase 8's stream), the transmitter read back through K3 (K4, phase
-    7), the closed loop (K4 + K2 under the CUDA graph: phase 13's checks
-    at 4 blocks, phase 14's times at 32) and the mobile's analysis (K1,
+def width_times(dev, card, widths, T, base=1024):
+    """width_rows at each of ``widths`` (Nh=8192), each kernel's time also
+    as a multiple of its time at ``base`` once that has run."""
+    rows = {}
+    for M in widths:
+        r = rows[M] = width_rows(dev, M, T, 8192)
+        log(f"  M={M}, Nh=8192, kernel / plain / bound ms (x the M={base} "
+            f"kernel), cuFFT {r['fft']:.3f} ms, on {card}: " + "; ".join(
+                f"{k} {v['kernel']:.3f} / {v['plain']:.3f} / "
+                f"{v['bound']:.3f}"
+                + (f" ({v['kernel'] / rows[base][k]['kernel']:.2f}x)"
+                   if base in rows else "")
+                for k, v in r.items() if k != "fft"))
+    return rows
+
+
+def station_paths(dev, card, M, T=8, sps=3):
+    """The station's main path at width M through the entry points -- the
+    one-shot block (K3, n = Nh·M/2 at Nh=8192, 8 planted bursts), the
+    streaming receiver (K2, phase 8's stream in pushes of at least 8192
+    hops), the transmitter read back through K3 (K4, phase 7), the
+    closed loop (K4 + K2 under the CUDA graph: phase 13's checks at 4
+    blocks, phase 14's times at 32) and the mobile's analysis (K1,
     ``dsp.channelizer.analyze``) -- each path with its kernel's count set
     to 0 just before it and read just after.  Returns the readings."""
     from amps_tpu_torch.dsp import channelizer as chz
     from amps_tpu_torch.eval.traffic import (synthesize_reverse_band,
                                              unit_channel_band)
     from amps_tpu_torch.kernels import analysis as KA
-    from amps_tpu_torch.kernels import build
     from amps_tpu_torch.kernels import rx_phases as K
     from amps_tpu_torch.parallel import pipeline as pl
-    widths = width_libraries()
-    t0 = time.perf_counter()
-    build.build(widths=widths)        # built in phase 1: a lookup here
-    out = {"build_s": time.perf_counter() - t0}
-    log(f"phase 29: widths that are not powers of two, each in its own "
-        f"library (built in phase 1; {out['build_s']:.3f} s to find them)")
-    for M in widths:
-        log(f"  M={M}: radices {KA.fft_radices(M)}, hops a block "
-            f"{KA.FFT_TILE_HOPS[M]} (K1) / {KA.FFT_WIDE_HOPS[M]}")
-    # M=4096 is refused: K3 at sps=3 needs six hops a block
-    M = 4096
-    need = 8 * (6 * KA.fft_hop_stride(M) + len(KA.fft_twiddle_exponents(M)))
-    have = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    log(f"  M={M}: K3's plane and table at six hops a block take {need} "
-        f"bytes of shared memory, the card lets a block have {have}")
-    assert need > have
-    out["errs"], _ = phase_small_widths(
-        dev, Nh=2001, widths=WIDTH_CHECKS, Ts=(T,),
-        label="phase 29: each kernel vs plain", times=False, seam=True)
-    out["rows"] = {}
-    for M in WIDTH_TIMES:
-        rows = out["rows"][M] = width_rows(dev, M, T, 8192)
-        log(f"  M={M}, Nh=8192, kernel / plain / bound ms (x the M=1024 "
-            f"kernel), cuFFT {rows['fft']:.3f} ms, on {card}: " + "; ".join(
-                f"{k} {r['kernel']:.3f} / {r['plain']:.3f} / "
-                f"{r['bound']:.3f}"
-                + (f" ({r['kernel'] / out['rows'][1024][k]['kernel']:.2f}x)"
-                   if 1024 in out["rows"] else "")
-                for k, r in rows.items() if k != "fft"))
-    M = STATION_M
-    launches = {}
+    out, launches = {}, {}
 
     # the one-shot block (K3)
     Nh = 8192
@@ -2802,13 +2804,17 @@ def phase_widths(dev, card, T=8, sps=3):
     out["block"]["idle"] = 1 - busy / wall
     log(f"  the block at M={M}: {out['block']['kernel']:.3f} ms (plain path "
         f"{out['block']['plain']:.3f}), median of 10, CUDA events, on {card}")
+    del x, got
+    torch.cuda.empty_cache()
 
     # the streaming receiver (K2), the transmitter (K4), the closed loop
-    launches["receiver"], _ = phase_rx(dev, M, T)
+    launches["receiver"], _ = phase_rx(dev, M, T,
+                                       push=max(RX_PUSH, 8192 * (M // 2)))
     launches["transmitter"] = phase_tx(dev, M, T)
     launches["loop_checks"], out["loop_err"] = phase_loop_checks(dev, M, T)
     out["loop"] = phase_loop_times(dev, M, T, card, n_runs=3)
     launches["loop"] = out["loop"]["launches"]
+    torch.cuda.empty_cache()
 
     # the mobile's analysis (K1): dsp.channelizer.analyze on a CUDA state
     spec = chz.ChannelizerSpec(M, T)
@@ -2820,25 +2826,138 @@ def phase_widths(dev, card, T=8, sps=3):
     launches["analysis"] = KA.LAUNCHES
     yr, _ = chz.analyze(xs, spec, chz.analyzer_init(spec, device=dev),
                         chmajor=True, block=KA.analyze_reference)
+    sync(dev)
+    out["analysis_err"] = (y - yr).abs().max().item()
+    del yr
     n1 = 25001 * M // 2
     ya, sa = chz.analyze(xs[:n1], spec, chz.analyzer_init(spec, device=dev),
                          chmajor=True)
     yb, sb = chz.analyze(xs[n1:], spec, sa, chmajor=True)
     sync(dev)
-    out["analysis_err"] = (y - yr).abs().max().item()
     assert launches["analysis"] == 1 and out["analysis_err"] <= ANALYSIS_ATOL
     assert torch.equal(torch.cat([ya, yb], 1), y) and sb.hop_idx == st.hop_idx
     log(f"  M={M}: dsp.channelizer.analyze of a superframe (50004 hops) on "
         f"the card: analysis launches {launches['analysis']}, max|err| vs "
         f"the plain block analysis {out['analysis_err']:.3e}; two chained "
         f"calls (odd first block) equal one bit for bit")
-    del x, xs, y, yr, ya, yb
+    del xs, y, ya, yb
     torch.cuda.empty_cache()
     for k, n in launches.items():
         assert (n > 0) if isinstance(n, int) else all(n), (k, n)
     log(f"  launches on the M={M} paths (each count set to 0 just before "
         f"its path): {launches}")
     out["launches"] = launches
+    return out
+
+
+def phase_widths(dev, card, T=8, sps=3):
+    """Phase 29: the FFT tile at widths that are not powers of two.  Finds
+    every width's own library (built in phase 1); holds each kernel to
+    its plain version at WIDTH_CHECKS (phase 12's checks, T=8); times
+    each kernel at WIDTH_TIMES beside M=1024; then runs the station's
+    main path at STATION_M (``station_paths``).  Returns the readings."""
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import build
+    widths = width_libraries()
+    t0 = time.perf_counter()
+    build.build(widths=widths)        # built in phase 1: a lookup here
+    out = {"build_s": time.perf_counter() - t0}
+    log(f"phase 29: widths that are not powers of two, each in its own "
+        f"library (built in phase 1; {out['build_s']:.3f} s to find them)")
+    for M in widths:
+        log(f"  M={M}: radices {KA.fft_radices(M)}, hops a block "
+            f"{KA.FFT_TILE_HOPS[M]} (K1) / {KA.FFT_WIDE_HOPS[M]}")
+    # M=4096: K3 at sps=3 needs six hops a block; their plane fits the
+    # card's shared memory only with the twiddle table in device memory
+    M = 4096
+    plane = 8 * 6 * KA.fft_hop_stride(M)
+    table = 8 * len(KA.fft_twiddle_exponents(M))
+    have = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    log(f"  M={M}: K3's plane at six hops a block takes {plane} bytes of "
+        f"shared memory, {plane + table} with the twiddle table beside it; "
+        f"the card lets a block have {have}: the table stays in device "
+        f"memory past M=2048")
+    assert plane == KA.fft_smem_bytes(M, 6) <= have < plane + table
+    out["errs"], _ = phase_small_widths(
+        dev, Nh=2001, widths=WIDTH_CHECKS, Ts=(T,),
+        label="phase 29: each kernel vs plain", times=False, seam=True)
+    out["rows"] = width_times(dev, card, WIDTH_TIMES, T)
+    out.update(station_paths(dev, card, STATION_M, T, sps))
+    return out
+
+
+def phase_wide(dev, card, T=8, sps=3):
+    """Phase 30: banks past 2048 channels.  Every wrapper refuses M = 4098,
+    8192, an odd width and 6 on the card; each kernel is held to its
+    plain version at WIDE_CHECKS (phase 12's checks, T=8) and timed at
+    WIDE_TIMES beside M=1024; the station's main path runs at WIDE_M
+    (``station_paths``), then the station app's short call (``bs
+    --channels WIDE_M``, K4 on its TX thread, K2 on its RX thread).
+    Returns the readings."""
+    from amps_tpu_torch.__main__ import main as cli
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import rx_front as R
+    from amps_tpu_torch.kernels import rx_phases as K
+    from amps_tpu_torch.kernels import synth as S
+    from amps_tpu_torch.tx import recc_ms
+    log(f"phase 30: banks past 2048 channels (the twiddles read from device "
+        f"memory, K4's columns in groups), on {card}")
+    for M in sorted(set(WIDE_CHECKS + WIDE_TIMES)):
+        H = KA.FFT_WIDE_HOPS[M]
+        log(f"  M={M}: radices {KA.fft_radices(M)}, hops a block "
+            f"{KA.FFT_TILE_HOPS[M]} (K1) / {H}, {KA.fft_smem_bytes(M, H)} "
+            f"bytes of shared memory a K2-K4 block, K3 owns "
+            f"{K.run_hops(M, sps)} hops a block at sps={sps}, K4 in "
+            f"{S.column_groups(M, T)} column groups of at most "
+            f"{S.thread_columns(M, T)} columns a thread")
+    for M in (4098, 8192, 4095, 6):
+        x = torch.zeros(((100 + 2 * T - 1) * max(M // 2, 1), 2), device=dev)
+        Y = torch.zeros((4, M, 2), device=dev)
+        calls = (lambda: KA.analyze_block(x, M, T),
+                 lambda: R.analyze_demod(x, M, T, 0, torch.zeros(
+                     (M, 2), device=dev)),
+                 lambda: K.analyze_phases(x, M, T, sps),
+                 lambda: S.synthesize_block(Y, M, T, 0, torch.zeros(
+                     (M * T - M // 2, 2), device=dev)))
+        for call in calls:
+            try:
+                call()
+            except ValueError:
+                continue
+            raise AssertionError(f"M={M} was not refused")
+        del x, Y
+    log("  M = 4098, 8192, 4095 and 6 raise ValueError in all four wrappers")
+    out = {}
+    out["errs"], _ = phase_small_widths(
+        dev, Nh=2001, widths=WIDE_CHECKS, Ts=(T,),
+        label="phase 30: each kernel vs plain", times=False, seam=True)
+    out["rows"] = width_times(dev, card, WIDE_TIMES, T)
+    torch.cuda.empty_cache()
+    out.update(station_paths(dev, card, WIDE_M, T, sps))
+
+    # the station app at WIDE_M, one superframe in-process
+    argv = ["bs", "--channels", str(WIDE_M), *WIDE_APP_ARGS]
+    log(f"  the station app, python -m amps_tpu_torch {' '.join(argv)}")
+    result = {}
+    S.LAUNCHES = R.LAUNCHES = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    quiet(lambda: cli(argv, _result=result))()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    stats, reps = result["stats"], result["reports"]
+    out["app"] = {"launches": (S.LAUNCHES, R.LAUNCHES), "wall_s": wall}
+    want = recc_ms.origination_words("5551234567", "5551230000")
+    assert len(reps) == 1 and reps[0].channel == 3, reps
+    assert np.array_equal(np.asarray(reps[0].words[:2], np.uint8),
+                          np.asarray(want[:2], np.uint8))
+    assert stats.tx_samples == 18 * 463 * 2 * 3 * (WIDE_M // 2), stats
+    assert S.LAUNCHES >= 1 and R.LAUNCHES >= stats.rx_blocks >= 1
+    log(f"  the origination reported once on slot 3, words A and B right; "
+        f"launches synth {S.LAUNCHES}, rx_front {R.LAUNCHES} "
+        f"({stats.rx_blocks} RX blocks); {wall:.2f} s in-process, synced, "
+        f"on {card}")
+    out["launches"]["app"] = out["app"]["launches"]
     return out
 
 
@@ -3044,6 +3163,9 @@ def main() -> int:
     # -- phase 29: every even width, the station's main path at M=768 -----
     wd = phase_widths(dev, card)
 
+    # -- phase 30: banks past 2048 channels, the main path at M=4096 ------
+    wide = phase_wide(dev, card)
+
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
@@ -3066,6 +3188,13 @@ def main() -> int:
                 "widths_fft_ms": {
                     str(m): r["fft"] for m, r in wd["rows"].items()},
                 "widths_build_s": wd["build_s"],
+                "wide_max_abs_err": {
+                    str(m): e for m, e in wide["errs"][name].items()},
+                **{f"wide_{key}_ms": {
+                    str(m): r[name][key] for m, r in wide["rows"].items()}
+                   for key in ("kernel", "plain", "bound")},
+                "wide_fft_ms": {
+                    str(m): r["fft"] for m, r in wide["rows"].items()},
                 **more}
 
     assert loop_launches == (4, 4) and loop["launches"] == (32, 32)
@@ -3084,6 +3213,8 @@ def main() -> int:
                                 "xproc_step": xl["step_launches"][0],
                                 "xproc_loop": xl["loop_launches"][0],
                                 "m768_analyze": wd["launches"]["analysis"],
+                                "m4096_analyze":
+                                    wide["launches"]["analysis"],
                                 **{f"soak_{k}": n["analysis"]
                                    for k, n in soak_launches.items()
                                    if n["analysis"]}},
@@ -3099,7 +3230,8 @@ def main() -> int:
               launches_by_path={"block": launches,
                                 "batched_block": batched["launches"],
                                 "entry": entry_launches,
-                                "m768_block": wd["launches"]["block"]},
+                                "m768_block": wd["launches"]["block"],
+                                "m4096_block": wide["launches"]["block"]},
               entry_ms=entry_t["kernel"], entry_plain_ms=entry_t["plain"],
               batched_max_abs_err=batched["err"],
               batched_ms=batched["one_launch"],
@@ -3112,6 +3244,12 @@ def main() -> int:
                                 "closed_loop": loop["launches"][1],
                                 "m768_receiver": wd["launches"]["receiver"],
                                 "m768_closed_loop": wd["launches"]["loop"][1],
+                                "m4096_receiver":
+                                    wide["launches"]["receiver"],
+                                "m4096_closed_loop":
+                                    wide["launches"]["loop"][1],
+                                "m4096_station_app":
+                                    wide["launches"]["app"][1],
                                 "supervision": sup_launches,
                                 "station_app": app_launches[1],
                                 **{f"soak_{k}": n["rx_front"]
@@ -3134,6 +3272,12 @@ def main() -> int:
                                 "m768_transmitter":
                                     wd["launches"]["transmitter"],
                                 "m768_closed_loop": wd["launches"]["loop"][0],
+                                "m4096_transmitter":
+                                    wide["launches"]["transmitter"],
+                                "m4096_closed_loop":
+                                    wide["launches"]["loop"][0],
+                                "m4096_station_app":
+                                    wide["launches"]["app"][0],
                                 "station_app": app_launches[0],
                                 "sharded_step": mesh["launches"][1],
                                 "sharded_loop": mesh_loop["launches"][1],

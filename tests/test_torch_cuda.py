@@ -54,6 +54,7 @@ def _x_ext(M, T, Nh, seed, sigma=0.5):
     (64, 27 * 14 + 1, 1, False, False, 3),   # one hop past 14 runs of 27
     (1024, 1000, 0, False, False, 1),
     (2048, 200, 1, False, True, 3),
+    (4096, 200, 0, True, False, 3),
 ])
 def test_kernel_matches_plain_version_on_card(cuda_device, M, Nh, parity,
                                               planar, bf16, sps):
@@ -80,9 +81,9 @@ def test_kernel_rejects_what_it_cannot_run(cuda_device):
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):
         K.analyze_phases(x, 95, 8)          # odd M
-    with pytest.raises(ValueError):         # past the tile's 2048
-        K.analyze_phases(torch.zeros(((100 + 15) * 2048, 2),
-                                     device=cuda_device), 4096, 8)
+    with pytest.raises(ValueError):         # past the tile's 4096
+        K.analyze_phases(torch.zeros(((100 + 15) * 4096, 2),
+                                     device=cuda_device), 8192, 8)
     with pytest.raises(ValueError):
         K.analyze_phases(x.double(), 96, 8)
     with pytest.raises(ValueError):         # sps past the tile's hops
@@ -233,7 +234,7 @@ def test_analysis_kernel_rejects_what_it_cannot_run(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,Nh,parity", [
     (64, 300, 0), (256, 1000, 1), (1024, 257, 1), (128, 3, 0),
-    (2048, 100, 1)])
+    (2048, 100, 1), (4096, 100, 0)])
 def test_synth_kernel_matches_plain_version_on_card(cuda_device, M, Nh,
                                                     parity):
     T = 8
@@ -269,10 +270,10 @@ def test_synth_kernel_chained_calls_equal_one(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_cannot_run(cuda_device):
-    Y = torch.zeros((10, 4096, 2), device=cuda_device)
-    with pytest.raises(ValueError):            # past the tile's 2048
-        K4.synthesize_block(Y, 4096, 8, 0, torch.zeros(
-            (4096 * 8 - 2048, 2), device=cuda_device))
+    Y = torch.zeros((10, 8192, 2), device=cuda_device)
+    with pytest.raises(ValueError):            # past the tile's 4096
+        K4.synthesize_block(Y, 8192, 8, 0, torch.zeros(
+            (8192 * 8 - 4096, 2), device=cuda_device))
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):            # odd M
         K2.analyze_demod(x, 95, 8, 0, torch.zeros((95, 2), device=cuda_device))
@@ -571,19 +572,19 @@ def test_small_width_synth_kernel(cuda_device, M, T, parity):
 
 @pytest.mark.cuda
 def test_widths_the_tile_cannot_take_raise(cuda_device):
-    """Odd M, M < 8 and M past 2048 raise on the card, naming the rule;
+    """Odd M, M < 8 and M past 4096 raise on the card, naming the rule;
     no width reaches the plain version."""
-    for M in (13, 6, 2049, 2050, 4096):
+    for M in (13, 6, 4097, 4098, 8192):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
         with pytest.raises(ValueError):
             KA.analyze_block(x, M, 8)
         with pytest.raises(ValueError):
             K.analyze_phases(x, M, 8)
-    for M in (6, 2050, 4096):
+    for M in (6, 4098, 8192):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
-        with pytest.raises(ValueError, match="even M from 8 to 2048"):
+        with pytest.raises(ValueError, match="even M from 8 to 4096"):
             KA.analyze_block(x, M, 8)
-        with pytest.raises(ValueError, match="even M from 8 to 2048"):
+        with pytest.raises(ValueError, match="even M from 8 to 4096"):
             K2.analyze_demod(x, M, 8, 0, torch.zeros((M, 2),
                                                      device=cuda_device))
 
@@ -598,16 +599,21 @@ MIXED = [(10, 0, False), (22, 1, True), (96, 1, False), (210, 0, True),
          (286, 1, False), (384, 0, False), (682, 1, True), (768, 1, False),
          (1000, 0, True), (1536, 1, False), (2038, 0, False),
          (2046, 1, True)]
+# banks past 2048 channels (the twiddles read from device memory, K4's
+# column groups): 3·1024 and the 122.88 Msps bank, 4096 (main library)
+WIDE = [(3072, 1, True), (4096, 0, False)]
 
 
 @pytest.fixture(scope="module")
 def mixed_libraries():
-    """Every MIXED width's library, built at once (one nvcc a source and
-    width, all in parallel) before the first test needs one."""
+    """Every MIXED and WIDE width's own library, built at once (one nvcc
+    a source and width, all in parallel) before the first test needs
+    one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the GPU machine)")
     from amps_tpu_torch.kernels import build
-    build.build(widths=[M for M, _, _ in MIXED])
+    build.build(widths=[M for M, _, _ in MIXED + WIDE
+                        if M not in KA.LIBRARY_WIDTHS])
 
 
 def _fsk_band(M, T, Nh, seed, dev):
@@ -642,7 +648,7 @@ def _held_to_phase_atol(err, ref, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED)
+@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE)
 def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K1 at a width that is not a power of two: atol 2e-4 on
@@ -661,7 +667,7 @@ def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED)
+@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE)
 def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K2 on FSK in every channel: demod within 1e-3 (fast_atan2's seam
@@ -686,7 +692,7 @@ def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED)
+@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
                                       parity, planar, bf16):
@@ -718,7 +724,7 @@ def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity", [(M, p) for M, p, _ in MIXED])
+@pytest.mark.parametrize("M,parity", [(M, p) for M, p, _ in MIXED + WIDE])
 def test_mixed_width_synth_kernel(cuda_device, mixed_libraries, M, parity):
     """K4 with a carry in: 1e-4 of the output RMS."""
     T, Nh = 8, 333

@@ -550,3 +550,76 @@ def test_sharded_checkpoint_refuses_other_kinds(tmp_path):
     with pytest.raises(ValueError, match="not a sharded receiver"):
         tstate.restore_sharded_receiver(tstate.snapshot_receiver(
             TRx(TSPEC, device="cpu")), rx)
+
+
+# ---- the state of a 4096-channel bank (122.88 Msps) --------------------
+
+WIDE = dict(num_channels=4096, taps_per_phase=8, fold="bank")
+
+
+def test_receiver_state_from_jax_at_4096():
+    """At M=4096 a JAX receiver's block k continues as the port's block
+    k+1 through convert.receiver_state_from_jax.  Two page responses
+    (2 words) from hops 300 and 600 in 11264 hops of band; a report
+    waits for its 7-word capture window (10368 hops), so the JAX
+    receiver takes the first 10752 hops and the one whose window ends
+    past them (hop 600's) is completed from the carried state: the JAX
+    receiver and the port, each continuing from the same snapshot with
+    the last 512 hops and a padded flush, give the same reports, and the
+    two bursts are reported once each with their words."""
+    jspec, tspec = JSpec(**WIDE), TSpec(**WIDE)
+    Mw, hops, cut = 4096, 11264, 10752
+    events = [MobileEvent("page_response", 7, 600, "5551234567"),
+              MobileEvent("page_response", Mw - 3, 300, "2135551212")]
+    x = np.asarray(synthesize_reverse_band(events, jspec, hops,
+                                           noise_sigma=0.001))
+    n = cut * (Mw // 2)
+    jrx = JRx(jspec, threshold=0.5)
+    head = jrx.push(x[:n])
+    snap = jstate.snapshot_receiver(jrx)
+    want = _run(jrx, [x[n:]])
+    trx = TRx(tspec, device="cpu", threshold=0.5)
+    convert.receiver_state_from_jax(snap, trx)
+    got = _run(trx, [x[n:]])
+    assert _keys(got) == _keys(want) and 7 in [r.channel for r in got]
+    reps = head + got
+    assert sorted(r.channel for r in reps) == [7, Mw - 3]
+    for ev in events:
+        r = next(r for r in reps if r.channel == ev.channel)
+        w = np.stack(ev.words())
+        assert np.array_equal(r.words[:2], w) and r.word_ok[:2].all()
+
+
+def test_transmitter_state_from_jax_at_4096(tmp_path):
+    """At M=4096 a JAX transmitter's checkpoint (a synthesis carry made
+    random, an odd hop index, a page queued) crosses through
+    convert.transmitter_state_from_jax bit for bit, and the port's
+    synthesis from the carried state equals the JAX synthesis from it on
+    a 64-hop block, atol 2e-4 (a superframe at 4096 channels is a 1.64 GB
+    plane, beyond a CPU test)."""
+    import jax.numpy as jnp
+    from amps_tpu.dsp import channelizer as jchz
+    from amps_tpu_torch.dsp import channelizer as tchz
+    jspec, tspec = JSpec(**WIDE), TSpec(**WIDE)
+    jtx = JTx(jspec, control_channels=[0, 3])
+    rng = np.random.default_rng(4096)
+    carry = rng.normal(0, 1, np.asarray(jtx._state.carry).shape).astype(
+        np.float32)
+    jtx._state = jchz.SynthesizerState(jnp.asarray(carry), 50005)
+    jtx.focc[3].push_words(STREAM_BOTH, _page_words(), repeats=2)
+    path = str(tmp_path / "jtx4096.npz")
+    jstate.save_transmitter(path, jtx)
+    ttx = TTx(tspec, device="cpu", control_channels=[0, 3])
+    with np.load(path) as z:
+        convert.transmitter_state_from_jax(z, ttx)
+    assert ttx._state.hop_idx == 50005
+    assert np.array_equal(ttx._state.carry.numpy(), carry)
+    assert len(ttx.focc[3]._queue) == len(jtx.focc[3]._queue) > 0
+    Y = rng.normal(0, 1, (64, 4096, 2)).astype(np.float32)
+    want, wst = jchz.synthesize(jnp.asarray(Y), jspec.chz_spec, jtx._state)
+    got, tst = tchz.synthesize(torch.as_tensor(Y), tspec.chz_spec,
+                               ttx._state)
+    assert tst.hop_idx == wst.hop_idx == 50005 + 64
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+    np.testing.assert_allclose(tst.carry.numpy(), np.asarray(wst.carry),
+                               atol=2e-4)

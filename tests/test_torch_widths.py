@@ -1,9 +1,11 @@
-"""Bank widths that are not powers of two: the FFT tile's plan and
-twiddle table at every even M it takes, the port's plain K1-K4 at M=768
-(a 23.04 Msps station) against the TPU kernels in interpret mode, and
-the receive block, the streaming receiver and the transmitter at M=96
-and M=768 against the JAX package.  The CUDA kernels at these widths are
-held to their plain versions on the card (test_torch_cuda.py).
+"""Every bank width the FFT tile takes (any even M from 8 to 4096): its
+plan and twiddle table at every M, the kernels' geometry (shared memory,
+K3's run, K4's column groups) that the CUDA libraries are held to, the
+port's plain K1-K4 at M=768 (a 23.04 Msps station) and 4096 (122.88
+Msps) against the TPU kernels in interpret mode, the receive block at
+M=96, 768 and 4096 and the streaming receiver and the transmitter at
+M=96 against the JAX package.  The CUDA kernels at these widths are held
+to their plain versions on the card (test_torch_cuda.py).
 
 Tolerances are tests/test_pallas.py's: atol 2e-4 for the f32 analysis
 and synthesis, 5% for the power.  K2 and K3 on the TPU take bf16 DFT
@@ -57,12 +59,14 @@ def _legacy_plan(M):
 
 
 def test_fft_plan_and_twiddles_every_width():
-    """At every even M from 8 to 2048: the radices multiply to M, are 16,
+    """At every even M from 8 to 4096: the radices multiply to M, are 16,
     one of 2/4/8, then odd primes ascending; a power of two keeps its
     old plan; every twiddle the passes read is W_M^e from float64 to f32
     rounding; the table's length is the head, the register passes'
-    blocks and the generic pass's whole W_M; and the widest block (the
-    front ends' hops) fits Hopper's shared memory."""
+    blocks and the generic pass's whole W_M; the front ends take twice
+    the analysis kernel's hops up to 2048 and as many past it; and the
+    widest block fits Hopper's shared memory, its table beside the plane
+    up to 2048 and in device memory past it."""
     for M in KA.FFT_WIDTHS:
         plan = KA.fft_radices(M)
         assert int(np.prod(plan)) == M, M
@@ -92,20 +96,80 @@ def test_fft_plan_and_twiddles_every_width():
             if R in plan:       # a head constant a butterfly reads is whole
                 assert j * M % R == 0
         wide = KA.FFT_WIDE_HOPS[M]
-        assert wide == 2 * KA.FFT_TILE_HOPS[M] and wide % 4 == 0, M
-        assert 8 * (wide * KA.fft_hop_stride(M) + len(e)) <= SMEM_BYTES, M
+        if M <= 2048:
+            assert wide == 2 * KA.FFT_TILE_HOPS[M] and wide % 4 == 0, M
+            assert 8 * (wide * KA.fft_hop_stride(M) + len(e)) <= SMEM_BYTES, M
+        else:
+            assert wide == KA.FFT_TILE_HOPS[M] and wide % 2 == 0, M
+            assert 8 * wide * KA.fft_hop_stride(M) <= SMEM_BYTES, M
+            assert 8 * (wide + 2) * KA.fft_hop_stride(M) > SMEM_BYTES, M
 
 
-@pytest.mark.parametrize("M", [7, 6, 4, 2049, 2050, 4096, 1023])
+@pytest.mark.parametrize("M", [7, 6, 4, 4097, 4098, 8192, 1023])
 def test_widths_the_tile_refuses(M):
-    """Only odd M, M < 8 and M past 2048 are refused, naming the rule."""
-    with pytest.raises(ValueError, match="even M from 8 to 2048"):
+    """Only odd M, M < 8 and M past 4096 are refused, naming the rule."""
+    with pytest.raises(ValueError, match="even M from 8 to 4096"):
         KA.check_fft_width(M)
 
 
 def test_every_even_width_is_taken():
-    for M in (8, 10, 12, 22, 96, 384, 768, 1458, 1536, 2038, 2046, 2048):
+    for M in (8, 10, 12, 22, 96, 384, 768, 1458, 1536, 2038, 2046, 2048,
+              2050, 2304, 3072, 4000, 4094, 4096):
         KA.check_fft_width(M)
+    assert KA.FFT_WIDTHS == tuple(range(8, 4097, 2))
+    assert 4096 in KA.LIBRARY_WIDTHS
+
+
+# ---- the kernels' geometry at every width (the mirror of the CUDA
+# ---- constants that kernels.analysis.bind holds each library to) -------
+
+def _smem(M, H):
+    """A block's shared memory, counted afresh: H hops of the padded plane
+    (8 bytes a value, one value of padding every 32, plus one), and the
+    twiddle table beside it up to M = 2048."""
+    table = len(KA.fft_twiddle_exponents(M)) if M <= 2048 else 0
+    return 8 * (H * (M + M // 32 + 1) + table)
+
+
+def test_kernel_shared_memory_fits_every_width():
+    """K1 (FFT_TILE_HOPS) and K2-K4 (FFT_WIDE_HOPS) at every even M from
+    8 to 4096: the wrapper's shared-memory bytes are the plane and table
+    counted afresh, and fit the 232,448 bytes a Hopper block may opt in
+    to; M = 4096 holds six hops (202,800 bytes)."""
+    for M in KA.FFT_WIDTHS:
+        for H in (KA.FFT_TILE_HOPS[M], KA.FFT_WIDE_HOPS[M]):
+            assert KA.fft_smem_bytes(M, H) == _smem(M, H) <= SMEM_BYTES, M
+    assert KA.FFT_WIDE_HOPS[4096] == 6
+    assert KA.fft_smem_bytes(4096, 6) == 202800
+    # the twiddle table beside six hops would not fit at 4096
+    assert 202800 + 8 * len(KA.fft_twiddle_exponents(4096)) > SMEM_BYTES
+
+
+def test_k3_owns_whole_symbols_at_sps3_every_width():
+    """K3 at sps = 3 owns at least one whole symbol a block at every even
+    M (one hop behind, two ahead within FFT_WIDE_HOPS), so its run is
+    never empty: run_hops >= 3, a multiple of 3."""
+    for M in KA.FFT_WIDTHS:
+        R = K3.run_hops(M, 3)
+        assert R >= 3 and R % 3 == 0 and R + 3 <= KA.FFT_WIDE_HOPS[M], M
+    assert K3.run_hops(4096, 3) == 3
+
+
+def test_k4_thread_columns_at_most_two_every_width():
+    """K4 at every even M and both rings (T <= 8: 2·8 sums, T <= 16: 2·16):
+    a thread holds at most 2 columns and at most 3·2·8·2 = 96 registers of
+    ring (sums and gains), the column groups cover the P = M/2 columns,
+    one group up to M = 1024 at T = 8 (512 at T = 16)."""
+    for M in KA.FFT_WIDTHS:
+        P = M // 2
+        for T in (8, 16):
+            cols, G = K4.thread_columns(M, T), K4.column_groups(M, T)
+            assert 1 <= cols <= 2, (M, T)
+            assert 3 * 2 * T * cols <= 96, (M, T)
+            assert G * 256 * cols >= P > (G - 1) * 256 * cols, (M, T)
+            assert (G == 1) == (M <= (1024 if T == 8 else 512)), (M, T)
+    assert K4.column_groups(4096, 8) == 4
+    assert K4.column_groups(1536, 8) == K4.column_groups(2048, 8) == 2
 
 
 def _x_ext(M, T, Nh, seed, sigma=0.5):
@@ -115,17 +179,26 @@ def _x_ext(M, T, Nh, seed, sigma=0.5):
     return np.concatenate([np.zeros((M * T - P, 2), np.float32), x])
 
 
-def test_plain_k1_matches_pallas_at_768():
-    """K1 at M=768 (3·256: compiled on the TPU for M % 128 == 0), Nh=256,
-    against the TPU kernel in interpret mode, atol 2e-4."""
+def _plain_k1_vs_pallas(M, T=8, Nh=256):
     from amps_tpu.pallas.channelizer_kernel import analyze_chmajor_pallas
-    M, T, Nh = 768, 8, 256
-    x = unit_channel_band(M, T, Nh, 768, device="cpu")
+    x = unit_channel_band(M, T, Nh, M, device="cpu")
     want = np.asarray(analyze_chmajor_pallas(x.numpy(), M, T, 0, tile_h=128,
                                              interpret=True))
     got = KA.analyze_block(x, M, T, 0)
     assert got.shape == want.shape == (M, Nh, 2)
     assert np.abs(got.numpy() - want).max() < 2e-4
+
+
+def test_plain_k1_matches_pallas_at_768():
+    """K1 at M=768 (3·256: compiled on the TPU for M % 128 == 0), Nh=256,
+    against the TPU kernel in interpret mode, atol 2e-4."""
+    _plain_k1_vs_pallas(768)
+
+
+def test_plain_k1_matches_pallas_at_4096():
+    """K1 at M=4096 (the 122.88 Msps bank), Nh=256, against the TPU
+    kernel in interpret mode, atol 2e-4."""
+    _plain_k1_vs_pallas(4096)
 
 
 def _fsk_band(M, T, Nh, seed):
@@ -157,15 +230,8 @@ def _jax_demod(x, M, T):
 RAMP = 2 * 8 + 2
 
 
-def test_plain_k2_matches_pallas_at_768():
-    """K2 at M=768 (M % 256 == 0: compiled on the TPU), Nh=256, on FSK in
-    every channel.  The TPU kernel takes bf16 DFT matrices at M >= 512
-    (rx_front_kernel.py:173) and writes bf16 demod, so the port's f32
-    plain version is held as close to it as the JAX package's own f32
-    chain is (+1e-3), and to that chain within 1e-4; the band power
-    within 5%."""
+def _plain_k2_vs_pallas(M, T=8, Nh=256):
     from amps_tpu.pallas.rx_front_kernel import analyze_demod_pallas
-    M, T, Nh = 768, 8, 256
     x = _fsk_band(M, T, Nh, 2)
     want_d, want_p = analyze_demod_pallas(jnp.asarray(x.numpy()), M, T,
                                           tile_h=128, interpret=True)
@@ -181,14 +247,25 @@ def test_plain_k2_matches_pallas_at_768():
     assert rel.max() < 0.05
 
 
-def test_plain_k3_matches_pallas_at_768():
-    """K3 at M=768, Nh = 384·2, on FSK in every channel: bf16 phases held
-    as close to the TPU kernel (bf16 DFT matrices at M >= 512,
-    rx_phases_kernel.py:202) as the JAX f32 chain's phases are (+1e-3,
-    and within 0.02 of them, the bf16 output's own tolerance), the
-    channel power within 5%."""
+def test_plain_k2_matches_pallas_at_768():
+    """K2 at M=768 (M % 256 == 0: compiled on the TPU), Nh=256, on FSK in
+    every channel.  The TPU kernel takes bf16 DFT matrices at M >= 512
+    (rx_front_kernel.py:173) and writes bf16 demod, so the port's f32
+    plain version is held as close to it as the JAX package's own f32
+    chain is (+1e-3), and to that chain within 1e-4; the band power
+    within 5%."""
+    _plain_k2_vs_pallas(768)
+
+
+def test_plain_k2_matches_pallas_at_4096():
+    """K2 at M=4096, Nh=256, on FSK in every channel, as at 768: within
+    1e-4 of the JAX f32 chain, as close to the TPU kernel's bf16 matrices
+    as that chain is (+1e-3), the band power within 5%."""
+    _plain_k2_vs_pallas(4096)
+
+
+def _plain_k3_vs_pallas(M, T=8, sps=3, Nh=768):
     from amps_tpu.pallas.rx_phases_kernel import analyze_phases_pallas
-    M, T, sps, Nh = 768, 8, 3, 768
     x = _fsk_band(M, T, Nh, 7)
     ph_k3, cp_k3 = analyze_phases_pallas(jnp.asarray(x.numpy()), M, T, sps,
                                          tile_h=384, interpret=True)
@@ -206,11 +283,26 @@ def test_plain_k3_matches_pallas_at_768():
     assert rel.max() < 0.05
 
 
-def test_plain_k4_matches_pallas_at_768():
-    """K4 at M=768, Nh=256, zero carry, even parity: atol 2e-4."""
+def test_plain_k3_matches_pallas_at_768():
+    """K3 at M=768, Nh = 384·2, on FSK in every channel: bf16 phases held
+    as close to the TPU kernel (bf16 DFT matrices at M >= 512,
+    rx_phases_kernel.py:202) as the JAX f32 chain's phases are (+1e-3,
+    and within 0.02 of them, the bf16 output's own tolerance), the
+    channel power within 5%."""
+    _plain_k3_vs_pallas(768)
+
+
+def test_plain_k3_matches_pallas_at_4096():
+    """K3 at M=4096, Nh = 384·2 (two of the TPU kernel's tiles), on FSK
+    in every channel, as at 768: bf16 phases within 0.02 of the JAX f32
+    chain and as close to the TPU kernel as that chain is (+1e-3), the
+    channel power within 5%."""
+    _plain_k3_vs_pallas(4096)
+
+
+def _plain_k4_vs_pallas(M, T=8, Nh=256):
     from amps_tpu.pallas.synthesizer_kernel import synthesize_pallas
-    M, T, Nh = 768, 8, 256
-    Y = np.random.default_rng(768).normal(0, 1, (Nh, M, 2)).astype(
+    Y = np.random.default_rng(M).normal(0, 1, (Nh, M, 2)).astype(
         np.float32)
     want, want_carry = synthesize_pallas(jnp.asarray(Y), M, T, 0, 128,
                                          interpret=True)
@@ -219,6 +311,16 @@ def test_plain_k4_matches_pallas_at_768():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
     np.testing.assert_allclose(got_carry.numpy(), np.asarray(want_carry),
                                atol=2e-4)
+
+
+def test_plain_k4_matches_pallas_at_768():
+    """K4 at M=768, Nh=256, zero carry, even parity: atol 2e-4."""
+    _plain_k4_vs_pallas(768)
+
+
+def test_plain_k4_matches_pallas_at_4096():
+    """K4 at M=4096, Nh=256, zero carry, even parity: atol 2e-4."""
+    _plain_k4_vs_pallas(4096)
 
 
 BLOCK_HOPS = 3600          # a 2-word burst is (48 + 2·240)·2·3 = 3168 hops
@@ -243,11 +345,12 @@ def _specs(M):
     return JSpec(**kw), TSpec(**kw)
 
 
-@pytest.mark.parametrize("M", [96, 768])
+@pytest.mark.parametrize("M", [96, 768, 4096])
 def test_rx_block_matches_jax_at_width(M):
     """rx_multichannel_block, f32 spec, three planted bursts in 3600
-    hops: the port's plain path against the JAX block; noise-only slots
-    whose first trigger moved are at most 2% of the slots."""
+    hops (at M=4096 a band of 7.4 M samples, ~20 s on one CPU thread):
+    the port's plain path against the JAX block; noise-only slots whose
+    first trigger moved are at most 2% of the slots."""
     x, events = _band(M)
     jspec, tspec = _specs(M)
     want = jax.device_get(jrx(jnp.asarray(x), jspec, max_bursts=2,

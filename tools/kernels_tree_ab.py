@@ -4,11 +4,12 @@ Builds each tree's main kernel library (the powers of two), compares the
 SASS of every kernel instantiation in the two (``cuobjdump -sass``,
 instruction text without addresses and encodings, the first 4096
 instructions of each function), then times each kernel's device time at
-M=1024, Nh=8192 under torch.profiler, the trees alternated six times,
-one process a turn.  Use it to show that a change to the FFT tile leaves
-the power-of-two kernels as they were.  Run from the repository root with
-a second tree unpacked beside it (``git archive <commit> | tar -x -C
-DIR``):
+M=1024, Nh=8192 under torch.profiler -- and the synthesis kernel's at
+M=1536 (its own library, built at first use) and 2048 too --, the trees
+alternated six times, one process a turn.  Use it to show that a change
+to the FFT tile leaves the power-of-two kernels as they were.  Run from
+the repository root with a second tree unpacked beside it (``git
+archive <commit> | tar -x -C DIR``):
 
     python3 tools/kernels_tree_ab.py OLD_TREE NEW_TREE
 """
@@ -24,11 +25,13 @@ import sys
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 TURNS = 6
 
-# one turn: every kernel 40 times at M=1024 under the profiler; prints
+# one turn: every kernel 40 times at M=1024 (and the synthesis at the
+# SYNTH_WIDTHS) under the profiler; prints
 # {kernel: (mean device ms a launch, launches)}
 _PROFILE = r'''
-import sys, json
+import sys, json, re
 sys.path.insert(0, sys.argv[1])
+SYNTH_WIDTHS = (1536, 2048)
 import torch
 from torch.profiler import profile, ProfilerActivity
 from amps_tpu_torch.eval.traffic import unit_channel_band
@@ -45,6 +48,12 @@ fns = [lambda: KA.analyze_block(x, M, T, 0),
        lambda: R.analyze_demod(x, M, T, 0, prev),
        lambda: K.analyze_phases(x, M, T, 3, 0, torch.bfloat16),
        lambda: S.synthesize_block(Y, M, T, 0, carry)]
+for Mw in SYNTH_WIDTHS:
+    Yw = torch.randn((Nh, Mw, 2), device=dev,
+                     generator=torch.Generator(dev).manual_seed(Mw))
+    cw = torch.zeros((Mw * T - Mw // 2, 2), device=dev)
+    fns.append(lambda Yw=Yw, cw=cw, Mw=Mw: S.synthesize_block(Yw, Mw, T, 0,
+                                                               cw))
 for f in fns:
     f()
 torch.cuda.synchronize()
@@ -55,10 +64,10 @@ with profile(activities=[ProfilerActivity.CUDA]) as prof:
     torch.cuda.synchronize()
 out = {}
 for e in prof.key_averages():
-    for k in ("analysis_kernel", "rx_front_kernel", "rx_phases_kernel",
-              "synth_kernel"):
-        if k in e.key and "power" not in e.key:
-            out[k] = (e.device_time_total / e.count / 1e3, e.count)
+    m = re.search(r"(analysis|rx_front|rx_phases|synth)_kernel<(\d+)", e.key)
+    if m:
+        k = f"{m.group(1)}_kernel<{m.group(2)}>"
+        out[k] = (e.device_time_total / e.count / 1e3, e.count)
 print("PROF " + json.dumps(out))
 '''
 
@@ -124,16 +133,18 @@ def main(old, new):
         elif b is None:
             print(f"  {name[:80]}: missing in the new tree")
         else:
-            diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+            pairs = [(x, y) for x, y in zip(a, b) if x != y]
+            diff = len(pairs) + abs(len(a) - len(b))
             print(f"  {name[:80]}: {len(a)} vs {len(b)} instructions, "
-                  f"{diff} differ")
+                  f"{diff} differ, first: "
+                  + " | ".join(f"{x} -> {y}" for x, y in pairs[:2]))
     print(f"SASS identical: {same} of {len(code['old'])} functions")
     runs = []
     for i in range(TURNS):
         order = (("old", old), ("new", new))
         for side, tree in order[:: 1 if i % 2 == 0 else -1]:
             runs.append((side, profile(tree)))
-    for k in runs[0][1]:
+    for k in sorted(runs[0][1]):
         for side in ("old", "new"):
             v = sorted(r[k][0] for s, r in runs if s == side)
             print(f"{k:18s} {side}: " + " ".join(f"{t:.4f}" for t in v)
