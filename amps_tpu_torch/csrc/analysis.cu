@@ -6,7 +6,7 @@
 // (analyze_chmajor_pallas, body _make_kernel) and computes what the
 // port's plain analysis, kernels/analysis.py::analyze_reference,
 // computes: riq or planar input with the history prepended, any hop
-// parity, any number of hops, any even M from 8 to 4096.  None of
+// parity, any number of hops, any even M from 8 to 8192.  None of
 // the TPU kernel's limits or workarounds is carried over: no even-parity
 // assert, no Nh % tile_h == 0, no odd bank pre-shifted by P samples, no
 // 128-lane M, no stack-and-transpose to planes.
@@ -27,7 +27,9 @@
 // the store stage: consecutive threads take consecutive hops of one
 // channel, so each channel's H hops leave as one contiguous row (96 bytes
 // riq, 48 per plane planar, at M = 1024).  Offsets into Y are 64-bit.
-// No atomics.
+// No atomics.  Past M = 4096 a cluster of two blocks runs each run, block
+// rank r folding and storing channels rN .. rN+N-1 (N = M/2; the tile's
+// combine, analysis_fft.cuh); the grid's x is then 2 x the runs.
 
 #include <cuda_runtime.h>
 
@@ -44,20 +46,21 @@ analysis_kernel(const float* __restrict__ x, int planar_in, long long n_ext,
                 int planar_out, int T, int Nh, int hop0_parity) {
   extern __shared__ __align__(16) float smem[];
   using Tile = FftTile<M, fft_tile_hops(M)>;
-  constexpr int H = Tile::H;
+  constexpr int H = Tile::H, N = Tile::N;
   Tile tile(smem);
-  const int h0 = blockIdx.x * H;          // tile hop l is stream hop h0 + l
+  // tile hop l is stream hop h0 + l
+  const int h0 = static_cast<int>(blockIdx.x / Tile::RK) * H;
   tile.load_twiddles(tw);
   tile.fold(x, planar_in, n_ext, coef, T, h0);
   __syncthreads();
   tile.fft();
   const size_t plane = static_cast<size_t>(M) * Nh;
-  for (int e = threadIdx.x; e < M * H; e += kFftThreads) {
-    const int k = e / H, l = e % H;
+  for (int e = threadIdx.x; e < N * H; e += kFftThreads) {
+    const int c = e / H, l = e % H;
     const int n = h0 + l;
     if (n < Nh) {
-      const float2 v = tile.y(l, k, n, hop0_parity);
-      const size_t o = static_cast<size_t>(k) * Nh + n;
+      const float2 v = tile.y(l, c, n, hop0_parity);
+      const size_t o = static_cast<size_t>(tile.k0 + c) * Nh + n;
       if (planar_out) {
         y[o] = v.x;
         y[plane + o] = v.y;
@@ -83,13 +86,34 @@ extern "C" int analysis_smem_bytes(int M) {
     return fft_smem_bytes(Mw, fft_tile_hops(Mw));
   });
 }
-// the FFT's plan at width M: its number of passes and the radix of pass
-// p (-1: M not taken)
+// the FFT's plan at width M (a block's transform, M/2 in a cluster): its
+// number of passes and the radix of pass p (-1: M not taken)
 extern "C" int analysis_fft_passes(int M) {
-  return with_width(M, [](auto w) { return fft_passes(decltype(w)::value); });
+  return with_width(M, [](auto w) {
+    return fft_passes(fft_width(decltype(w)::value));
+  });
 }
 extern "C" int analysis_fft_radix(int M, int p) {
-  return with_width(M, [p](auto w) { return fft_radix(decltype(w)::value, p); });
+  return with_width(M, [p](auto w) {
+    return fft_radix(fft_width(decltype(w)::value), p);
+  });
+}
+// blocks of a cluster at width M (-1: M not taken)
+extern "C" int analysis_cluster_size(int M) {
+  return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
+}
+// clusters of the kernel the card holds at once at a cluster width M
+// (-1: M not taken or not a cluster width; below -1: -(the CUDA error))
+extern "C" int analysis_max_clusters(int M) {
+  return with_width(M, [](auto w) {
+    constexpr int Mw = decltype(w)::value;
+    if constexpr (fft_ranks(Mw) == 1) {
+      return -1;
+    } else {
+      return fft_max_clusters<Mw>(
+          analysis_kernel<Mw>, FftTile<Mw, fft_tile_hops(Mw)>::kSmemBytes);
+    }
+  });
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
@@ -103,17 +127,13 @@ extern "C" int analysis_launch(const void* x, int planar_in, long long n_ext,
   const int rc = with_width(M, [&](auto w) {
     constexpr int Mw = decltype(w)::value;
     using Tile = FftTile<Mw, fft_tile_hops(Mw)>;
-    cudaError_t err = cudaFuncSetAttribute(
-        analysis_kernel<Mw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Tile::kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((Nh + Tile::H - 1) / Tile::H);
-    analysis_kernel<Mw><<<grid, kFftThreads, Tile::kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), planar_in, n_ext,
-        static_cast<const float*>(coef), static_cast<const float2*>(tw),
-        static_cast<float*>(y), planar_out, T, Nh, hop0_parity);
-    return static_cast<int>(cudaGetLastError());
+    const dim3 grid((Nh + Tile::H - 1) / Tile::H * Tile::RK);
+    return fft_launch<Mw>(
+        analysis_kernel<Mw>, grid, Tile::kSmemBytes,
+        static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
+        planar_in, n_ext, static_cast<const float*>(coef),
+        static_cast<const float2*>(tw), static_cast<float*>(y), planar_out,
+        T, Nh, hop0_parity);
   });
   return rc < 0 ? static_cast<int>(cudaErrorInvalidValue) : rc;
 }

@@ -14,7 +14,8 @@
 // (synth.cu).
 //
 // A block owns all M channels of H consecutive hops a0 .. a0+H-1 (M any
-// even width from 8 to 4096; H even, set by the kernel).  The small banks
+// even width from 8 to 4096; H even, set by the kernel); past 4096 a
+// cluster of two blocks owns them (below).  The small banks
 // (M = 8 .. 32: one pass of radix 8 or 16, or 16 then 2, or a few short
 // passes) run the same code with most of a block's threads idle in the
 // fold and the passes:
@@ -70,9 +71,41 @@
 //     the run: multiplies are __fmul_rn or explicit fmaf, adds __fadd_rn,
 //     so nvcc contracts nothing differently from hop to hop and chained
 //     calls equal one call bit for bit.
-// The caller's epilogue reads y(l, k, n) -- tile hop l, channel k, with
-// the hop sign of stream hop n -- from the plane, which doubles as the
-// store stage.
+// The caller's epilogue reads y(l, c, n) -- tile hop l, the block's
+// channel c, with the hop sign of stream hop n -- from the plane, which
+// doubles as the store stage.
+//
+// Past M = 4096 (up to 8192) one hop's plane no longer fits a block six
+// times over (K3's run at sps = 3), so a thread-block cluster of two
+// blocks on neighbouring SMs shares each hop, decimated in time: with
+// N = M/2,
+//   E[k] = FFT_N(f[2m]),  O[k] = FFT_N(f[2m+1]),
+//   y[k] = E[k] + W_M^k O[k],  y[k + N] = E[k] - W_M^k O[k]   (k < N).
+//   * Rank r of the pair folds (or loads) the half f[2m + r] of every hop
+//     of the run into its own N-wide plane and transforms it with the
+//     tile's plan at width N -- the passes above, unchanged -- so each
+//     block holds six hops at M = 8192 (202,800 bytes) as at 4096.
+//   * The radix-2 pass across the pair (combine): rank r owns channels
+//     rN .. rN+N-1, a contiguous half in natural order, so that K1-K3's
+//     epilogues run on the block's N channels at an offset (k0 = rN) and
+//     K4 reads each column's two values at one position of both planes.
+//     The other split (rank r owning k and k + N for a quarter of k)
+//     reads half as much of the partner, but scatters each block's
+//     channels over two ranges; the contiguous half was taken for the
+//     simpler epilogues.  Per hop, each thread reads its channels' value
+//     from its own plane and from the partner's (distributed shared
+//     memory), computes y, and holds it in registers across a cluster
+//     barrier (arrive.release / wait.acquire), after which the partner
+//     has read that hop of this plane and the write goes in place.  A
+//     cluster barrier before the first hop (both planes transformed) and
+//     after the last (both planes combined; K4 then reads the partner's
+//     plane) bracket it, so no block exits or refills its plane while
+//     the partner may still read it.
+//   * The twiddles W_M^k, k < N, are a block of their own after the
+//     N-point plan's table (fft_table_size); that table's W_N^e are the
+//     same numbers as W_M^{2e}.
+//   * Both ranks compute each W_M^k O[k] with the same instructions, and
+//     every hop the same sequence, so chained calls still equal one.
 
 #pragma once
 
@@ -88,7 +121,11 @@ constexpr int kFftThreads = 256;
 constexpr int kFftMaxT = 16;     // taps per phase held in registers
 constexpr int kFftValues = 16;   // complex values a thread holds in a pass
 
-constexpr int kFftMaxWidth = 4096;
+// the widest transform one block runs; past it a cluster of
+// kFftClusterSize blocks splits each hop (fft_ranks)
+constexpr int kFftBlockWidth = 4096;
+constexpr int kFftClusterSize = 2;
+constexpr int kFftMaxWidth = kFftClusterSize * kFftBlockWidth;
 constexpr int kFftMaxSmem = 232448;   // shared memory a block may opt in to
 // the widest M whose twiddle table sits in shared memory beside the plane;
 // past it the passes read the table from device memory
@@ -100,6 +137,16 @@ constexpr int kFftPlaneBudget = 102400;
 __host__ __device__ constexpr bool fft_pow2(int M) {
   return (M & (M - 1)) == 0;
 }
+// blocks of a cluster that share a hop at bank width M: 1 up to
+// kFftBlockWidth, 2 past it
+__host__ __device__ constexpr int fft_ranks(int M) {
+  return M > kFftBlockWidth ? kFftClusterSize : 1;
+}
+// the transform width of one block, and its channels: M, or M/2 in a
+// cluster
+__host__ __device__ constexpr int fft_width(int M) {
+  return M / fft_ranks(M);
+}
 // hop stride of the plane: one float2 of padding every 32
 __host__ __device__ constexpr int fft_hop_stride(int M) {
   return M + M / 32 + 1;
@@ -109,10 +156,11 @@ __host__ __device__ constexpr bool fft_shared_twiddles(int M) {
 }
 // past kFftSharedTwiddleWidth, the hops a block of any of the four kernels
 // computes: the most even hops (up to 16) whose plane fits in a block's
-// shared memory -- 12 at M = 2050, 8 at 3072, 6 at 4096, so that K3 at
-// sps = 3 (one hop behind, two ahead, whole symbols) owns 3 of them
+// shared memory -- 12 at M = 2050, 8 at 3072, 6 at 4096 and, with a
+// block's half-width plane, 6 at 8192 -- so that K3 at sps = 3 (one hop
+// behind, two ahead, whole symbols) owns 3 of them
 __host__ __device__ constexpr int fft_fit_hops(int M) {
-  const int h = kFftMaxSmem / (8 * fft_hop_stride(M));
+  const int h = kFftMaxSmem / (8 * fft_hop_stride(fft_width(M)));
   return h >= 16 ? 16 : h & ~1;
 }
 // analysis hops a block of the analysis kernel computes at width M: ~100
@@ -207,17 +255,24 @@ __host__ __device__ constexpr bool fft_has_generic(int M) {
 __host__ __device__ constexpr int fft_twiddle_size(int M) {
   return fft_twiddle_offset(M, fft_passes(M)) + (fft_has_generic(M) ? M : 0);
 }
-// shared memory of a block of H hops at width M: the plane, and the
-// table up to kFftSharedTwiddleWidth
+// the whole table of bank width M: the plan's table at the transform
+// width, and in a cluster the combine's W_M^k, k < M/2, after it
+__host__ __device__ constexpr int fft_table_size(int M) {
+  return fft_twiddle_size(fft_width(M)) +
+         (fft_ranks(M) > 1 ? fft_width(M) : 0);
+}
+// shared memory of a block of H hops at bank width M: the plane (a
+// block's fft_width(M) channels), and the table up to
+// kFftSharedTwiddleWidth
 __host__ __device__ constexpr int fft_smem_bytes(int M, int H) {
-  return 8 * (H * fft_hop_stride(M) +
+  return 8 * (H * fft_hop_stride(fft_width(M)) +
               (fft_shared_twiddles(M) ? fft_twiddle_size(M) : 0));
 }
 
 // Calls f(std::integral_constant<int, M>) for the widths this library
 // instantiates -- every power of two from 8 to 4096, or, in a library
-// built with -DAMPS_FFT_WIDTH=M, that one width --; returns -1 for any
-// other M.
+// built with -DAMPS_FFT_WIDTH=M (any other width, 8192 included), that
+// one width --; returns -1 for any other M.
 template <class F>
 int with_width(int M, F f) {
 #ifdef AMPS_FFT_WIDTH
@@ -361,27 +416,41 @@ __device__ __forceinline__ void dft_odd(float2 (&v)[R],
 }
 
 // kLoop: the kernel runs the tile again and again in a loop (synth.cu's
-// passes), beside state it holds in registers across the loop
+// passes), beside state it holds in registers across the loop.  M is the
+// bank's width; past kFftBlockWidth the tile is one rank of a cluster of
+// two (RK), whose plane holds N = M/2 channels.
 template <int M, int H_, bool kLoop = false>
 struct FftTile {
   static constexpr int P = M / 2;
+  static constexpr int RK = fft_ranks(M);      // blocks of the cluster
+  static constexpr int N = fft_width(M);       // transform width, channels
   static constexpr int H = H_;                 // analysis hops of a block
   static constexpr int FH = H / 2;             // hops a thread folds
-  static constexpr int HS = fft_hop_stride(M);  // hop stride of the plane
-  static constexpr int TWN = fft_twiddle_size(M);
+  static constexpr int HS = fft_hop_stride(N);  // hop stride of the plane
+  static constexpr int TWN = fft_table_size(M);
   static constexpr int kSmemBytes = fft_smem_bytes(M, H);
   static constexpr bool kSharedTw = fft_shared_twiddles(M);
   static_assert(H % 2 == 0 && M >= 8 && M <= kFftMaxWidth && M % 2 == 0,
-                "even widths 8 .. 4096");
+                "even widths 8 .. 8192");
+  static_assert(N <= kFftBlockWidth, "a block transforms at most 4096");
   static_assert(kSmemBytes <= kFftMaxSmem, "the plane fits a block");
 
   float2* S;   // [H][HS] the plane
   // [TWN] the twiddle table: in shared memory after the plane, or (past
   // kFftSharedTwiddleWidth) the wrapper's table in device memory
   const float2* W;
+  // the block's first channel (rank · N in a cluster, 0 alone)
+  int k0;
 
   __device__ __forceinline__ explicit FftTile(float* smem)
-      : S(reinterpret_cast<float2*>(smem)), W(S + H * HS) {}
+      : S(reinterpret_cast<float2*>(smem)), W(S + H * HS),
+        k0(RK > 1 ? rank() * N : 0) {}
+
+  // the block's rank in its cluster (0 alone), read afresh at each use
+  __device__ __forceinline__ static int rank() {
+    if constexpr (RK > 1) return static_cast<int>(cluster_rank());
+    else return 0;
+  }
 
   __device__ __forceinline__ static int pad(int i) { return i + (i >> 5); }
 
@@ -415,8 +484,9 @@ struct FftTile {
     }
   }
 
-  // The folded windows of hops a0 .. a0+H-1 into the plane.  x is
-  // (n_ext, 2) interleaved or (2, n_ext) planar, n_ext a multiple of P.
+  // The folded windows of hops a0 .. a0+H-1 into the plane (in a
+  // cluster, the block's half f[2m + rank]).  x is (n_ext, 2)
+  // interleaved or (2, n_ext) planar, n_ext a multiple of P.
   __device__ __forceinline__ void fold(const float* __restrict__ x,
                                        int planar, long long n_ext,
                                        const float* __restrict__ coef, int T,
@@ -430,18 +500,20 @@ struct FftTile {
     }
   }
 
-  // Hop-major rows n0 .. n0+H-1 of Y ((Nh, M) complex) into the plane,
-  // by cp.async (consecutive threads on consecutive k, all copies in
-  // flight together); rows outside [0, Nh) load as zero.  Ends with the
-  // copies landed and a barrier.
+  // Hop-major rows n0 .. n0+H-1 of Y ((Nh, M) complex) into the plane
+  // (in a cluster, the block's values k = 2c + rank of each row), by
+  // cp.async (consecutive threads on consecutive c, all copies in flight
+  // together); rows outside [0, Nh) load as zero.  Ends with the copies
+  // landed and a barrier.
   __device__ __forceinline__ void load_rows(const float2* __restrict__ Y,
                                             int n0, int Nh) {
 #pragma unroll 4
-    for (int e = tid(); e < H * M; e += kFftThreads) {
-      const int l = e / M, k = e % M;
+    for (int e = tid(); e < H * N; e += kFftThreads) {
+      const int l = e / N, c = e % N;
+      const int k = RK > 1 ? 2 * c + rank() : c;
       const int n = n0 + l;
       const bool ok = n >= 0 && n < Nh;
-      cp_async<8>(S + l * HS + pad(k),
+      cp_async<8>(S + l * HS + pad(c),
                   Y + (ok ? static_cast<size_t>(n) * M + k : 0), ok);
     }
     cp_async_commit();
@@ -459,8 +531,9 @@ struct FftTile {
                                             int T, int a0) {
     const long long nrow = n_ext / P;
 #pragma unroll 1
-    for (int it = threadIdx.x; it < 2 * M; it += kFftThreads) {
-      const int g = it / M, m = it % M;     // hops g, g + 2, ... of the tile
+    for (int it = threadIdx.x; it < 2 * N; it += kFftThreads) {
+      const int g = it / N, c = it % N;     // hops g, g + 2, ... of the tile
+      const int m = RK > 1 ? 2 * c + rank() : c;   // the window's sample
       const int hi = m >= P ? 1 : 0, col = m - hi * P;
       float cf[MT];
       float2 xv[FH + MT - 1];
@@ -485,7 +558,7 @@ struct FftTile {
           fr = fmaf(cf[t], xv[j + t].x, fr);
           fi = fmaf(cf[t], xv[j + t].y, fi);
         }
-        S[(g + 2 * j) * HS + pad(m)] = make_float2(fr, fi);
+        S[(g + 2 * j) * HS + pad(c)] = make_float2(fr, fi);
       }
     }
   }
@@ -494,9 +567,9 @@ struct FftTile {
   // Ns, over batches of whole hops; ends with a barrier.
   template <int R, int Ns, int OFF>
   __device__ __forceinline__ void pass() {
-    constexpr int IH = M / R;                    // butterflies per hop
+    constexpr int IH = N / R;                    // butterflies per hop
     // butterflies a thread holds: kFftValues / R, or as many as a whole
-    // hop needs (a radix 3, 5 or 7 past M = 3584)
+    // hop needs (a radix 3, 5 or 7 past N = 3584)
     constexpr int IPT = kFftValues / R * kFftThreads >= IH
                             ? kFftValues / R
                             : (IH + kFftThreads - 1) / kFftThreads;
@@ -549,11 +622,11 @@ struct FftTile {
   }
 
   // The generic pass of an odd prime Q >= 11 after passes whose radices
-  // multiply to Ns: output t = g·N + o of a hop (N = Ns·Q) is
-  //   sum_r x[j + r·M/Q] W_N^{r·o},  j = g·Ns + o mod Ns,
-  // the butterfly's twiddle and Q-point DFT in one sum, W_N^e read as
-  // W_M^{e·M/N} from the table's whole W_M.  A thread holds kGenOut
-  // outputs of a batch of whole hops (8, or 16 past M = 2048; lanes past
+  // multiply to Ns: output t = g·NQ + o of a hop (NQ = Ns·Q) is
+  //   sum_r x[j + r·N/Q] W_NQ^{r·o},  j = g·Ns + o mod Ns,
+  // the butterfly's twiddle and Q-point DFT in one sum, W_NQ^e read as
+  // W_N^{e·N/NQ} from the table's whole W_N.  A thread holds kGenOut
+  // outputs of a batch of whole hops (8, or 16 past N = 2048; lanes past
   // the hops sit idle) and sums them 8 at a time; the terms
   // add in order r = 0, 1, ... (fmaf), in runs of kGenRun whose sums
   // then add in order, which keeps a long sum's f32 error near that of
@@ -562,15 +635,15 @@ struct FftTile {
   __device__ __forceinline__ void gpass() {
     constexpr int kGenSum = kFftValues / 2;      // outputs summed at once
     // outputs a thread holds
-    constexpr int kGenOut = kGenSum * kFftThreads >= M
+    constexpr int kGenOut = kGenSum * kFftThreads >= N
                                 ? kGenSum
-                                : (M + kFftThreads * kGenSum - 1) /
+                                : (N + kFftThreads * kGenSum - 1) /
                                       (kFftThreads * kGenSum) * kGenSum;
     constexpr int kGenRun = 32;    // terms summed apart before they join
-    constexpr int N = Ns * Q, IH = M / Q, STEP = M / N;
-    constexpr int HB = kFftThreads * kGenOut / M;   // hops per batch
+    constexpr int NQ = Ns * Q, IH = N / Q, STEP = N / NQ;
+    constexpr int HB = kFftThreads * kGenOut / N;   // hops per batch
     static_assert(HB >= 1, "a batch holds a whole hop");
-    const float2* wm = W + fft_twiddle_offset(M, fft_passes(M));
+    const float2* wm = W + fft_twiddle_offset(N, fft_passes(N));
 #pragma unroll 1
     for (int b = 0; b < (H + HB - 1) / HB; ++b) {
       float2 acc[kGenOut];
@@ -583,14 +656,14 @@ struct FftTile {
 #pragma unroll
         for (int i = 0; i < kGenSum; ++i) {
           const int e = tid() + (i0 + i) * kFftThreads;
-          const int hop = b * HB + e / M, t = e % M;
-          const bool live = e < HB * M && hop < H;
-          const int o = t % N, j = (t / N) * Ns + o % Ns;
+          const int hop = b * HB + e / N, t = e % N;
+          const bool live = e < HB * N && hop < H;
+          const int o = t % NQ, j = (t / NQ) * Ns + o % Ns;
           if constexpr (HB == 1) x[0] = S + b * HS;
           else x[i] = S + (live ? hop : 0) * HS;
           idx[i] = live ? j : 0;           // x index of term r: j + r·IH
-          step[i] = live ? o * STEP : 0;   // W_M exponent step, < M
-          ex[i] = 0;                       // W_M exponent of term r
+          step[i] = live ? o * STEP : 0;   // W_N exponent step, < N
+          ex[i] = 0;                       // W_N exponent of term r
           acc[i0 + i] = make_float2(0.f, 0.f);
         }
 #pragma unroll 1
@@ -607,7 +680,7 @@ struct FftTile {
               part[i].x = fmaf(v.x, w.x, fmaf(-v.y, w.y, part[i].x));
               part[i].y = fmaf(v.x, w.y, fmaf(v.y, w.x, part[i].y));
               ex[i] += step[i];
-              if (ex[i] >= M) ex[i] -= M;
+              if (ex[i] >= N) ex[i] -= N;
             }
           }
 #pragma unroll
@@ -619,29 +692,135 @@ struct FftTile {
 #pragma unroll
       for (int i = 0; i < kGenOut; ++i) {
         const int e = tid() + i * kFftThreads;
-        const int hop = b * HB + e / M, t = e % M;
-        if (e < HB * M && hop < H) S[hop * HS + pad(t)] = acc[i];
+        const int hop = b * HB + e / N, t = e % N;
+        if (e < HB * N && hop < H) S[hop * HS + pad(t)] = acc[i];
       }
       __syncthreads();
     }
   }
 
+  // a radix the generic pass runs: a prime >= 11, or, in a kernel that
+  // loops over the tile beside state of its own, a radix 3, 5 or 7 whose
+  // register pass would hold more than kFftValues values a thread, where
+  // the table holds the whole W_N anyway (at M = 8190: N = 4095 =
+  // 3²·5·7·13, where the register passes beside K4's state spilled)
+  __host__ __device__ static constexpr bool generic_pass(int R) {
+    return fft_generic(R) ||
+           (kLoop && R % 2 == 1 && fft_has_generic(N) &&
+            kFftValues / R * kFftThreads < N / R);
+  }
+
   template <int p = 0, int Ns = 1>
-  __device__ __forceinline__ void fft() {
-    if constexpr (p < fft_passes(M)) {
-      constexpr int R = fft_radix(M, p);
-      if constexpr (fft_generic(R)) gpass<R, Ns>();
-      else pass<R, Ns, fft_twiddle_offset(M, p)>();
-      fft<p + 1, Ns * R>();
+  __device__ __forceinline__ void passes() {
+    if constexpr (p < fft_passes(N)) {
+      constexpr int R = fft_radix(N, p);
+      if constexpr (generic_pass(R)) gpass<R, Ns>();
+      else pass<R, Ns, fft_twiddle_offset(N, p)>();
+      passes<p + 1, Ns * R>();
     }
   }
 
-  // y_k of tile hop l, with the hop sign (-1)^{k(n+parity)} of stream
-  // hop n
-  __device__ __forceinline__ float2 y(int l, int k, int n, int parity) const {
-    const float2 v = S[l * HS + pad(k)];
+  // The transform of the block's plane; in a cluster then the radix-2
+  // pass across the pair (combine).  Ends with a barrier (a cluster
+  // barrier in a cluster).
+  __device__ __forceinline__ void fft() {
+    passes();
+    if constexpr (RK > 1) combine();
+  }
+
+  // y[rN + c] of every hop into this rank's plane from E (rank 0's plane)
+  // and O (rank 1's): E[c] ± W_M^c O[c].  Hop by hop: read both planes,
+  // hold the results across a cluster barrier (the partner has then read
+  // this hop of this plane), write in place.
+  __device__ __forceinline__ void combine() {
+    constexpr int CV = (N + kFftThreads - 1) / kFftThreads;  // values a thread
+    const int r = rank();
+    const unsigned peer = cluster_addr(S, r ^ 1);   // the partner's plane
+    const float2* wk = W + fft_twiddle_size(N);     // W_M^c, c < N
+    cluster_sync();     // both planes transformed
+#pragma unroll 1
+    for (int l = 0; l < H; ++l) {
+      float2 v[CV];
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        const int c = tid() + i * kFftThreads;
+        if (c < N) {
+          const float2 own = S[l * HS + pad(c)];
+          const float2 far = ld_cluster(peer + 8 * (l * HS + pad(c)));
+          const float2 t = cmul(r ? own : far, ld(wk + c));   // W_M^c O[c]
+          const float2 e = r ? far : own;
+          v[i] = r ? csub(e, t) : cadd(e, t);
+        }
+      }
+      cluster_sync();   // the partner has read hop l of this plane
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        const int c = tid() + i * kFftThreads;
+        if (c < N) S[l * HS + pad(c)] = v[i];
+      }
+    }
+    cluster_sync();     // both planes combined
+  }
+
+  // y_k of tile hop l, the block's channel c (k = k0 + c), with the hop
+  // sign (-1)^{k(n+parity)} of stream hop n
+  __device__ __forceinline__ float2 y(int l, int c, int n, int parity) const {
+    const float2 v = S[l * HS + pad(c)];
+    const int k = RK > 1 ? k0 + c : c;
     return ((k & 1) && ((n + parity) & 1)) ? make_float2(-v.x, -v.y) : v;
   }
 };
+
+// ---- host side: the launch of a tile kernel at bank width M ----
+
+// A launch of kFftThreads-thread blocks with smem bytes of dynamic
+// shared memory, in clusters of fft_ranks(M) blocks along grid x.
+inline cudaLaunchConfig_t fft_config(int M, dim3 grid, int smem,
+                                     cudaStream_t st,
+                                     cudaLaunchAttribute* cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kFftThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = fft_ranks(M);
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = fft_ranks(M) > 1 ? 1 : 0;
+  return cfg;
+}
+
+// Sets the kernel's shared memory to smem bytes and launches it (grid x
+// a multiple of fft_ranks(M)); returns the launch's CUDA error.
+template <int M, class... Params, class... Args>
+int fft_launch(void (*kernel)(Params...), dim3 grid, int smem,
+               cudaStream_t st, Args&&... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = fft_config(M, grid, smem, st, &cluster);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Args&&>(args)...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The clusters of fft_ranks(M) blocks of the kernel, smem bytes each,
+// that the card holds at once (0: it cannot schedule one), or -(the CUDA
+// error).
+template <int M, class... Params>
+int fft_max_clusters(void (*kernel)(Params...), int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg =
+      fft_config(M, dim3(fft_ranks(M)), smem, nullptr, &cluster);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err != cudaSuccess ? -static_cast<int>(err) : n;
+}
 
 }  // namespace

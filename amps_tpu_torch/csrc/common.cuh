@@ -1,6 +1,8 @@
 // Device helpers of the FFT tile (analysis_fft.cuh) and its kernels: the
-// discriminator's arctangent (rx_front.cu, rx_phases.cu) and the
-// cp.async copies of the tile's row loader (synth.cu).
+// discriminator's arctangent (rx_front.cu, rx_phases.cu), the cp.async
+// copies of the tile's row loader (synth.cu) and the thread-block
+// cluster's rank, shared-memory window and barrier (the tile past 4096
+// channels).
 
 #pragma once
 
@@ -38,6 +40,42 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The block's rank in its cluster, read afresh at each call (asm
+// volatile): a kernel that loops over the tile recomputes it, and the
+// window addresses below, instead of holding them in registers across
+// the loop.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// The address of the shared-memory object p in block `rank` of the
+// cluster, in the 32-bit shared::cluster window (distributed shared
+// memory), and a float2 read through it.
+__device__ __forceinline__ unsigned cluster_addr(const void* p,
+                                                 unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))),
+                 "r"(rank));
+  return a;
+}
+__device__ __forceinline__ float2 ld_cluster(unsigned a) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a));
+  return v;
+}
+// A barrier of every thread of the cluster: what a thread wrote or read
+// in any block's shared memory before it is done for every thread after
+// it (arrive with release, wait with acquire semantics).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace

@@ -31,7 +31,10 @@
 // stage: consecutive threads take consecutive hops of one channel, so each
 // channel's H-1 hops leave as one contiguous row of each plane (92 bytes
 // at M = 1024).  The block that owns hop Nh-1 writes `last`.  No
-// atomics: every output element has one writer.
+// atomics: every output element has one writer.  Past M = 4096 a
+// cluster of two blocks runs each run, block rank r holding channels
+// rN .. rN+N-1 (N = M/2; the tile's combine, analysis_fft.cuh); the
+// grid's x is then 2 x the runs.
 
 #include <cuda_runtime.h>
 
@@ -52,18 +55,21 @@ rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
   extern __shared__ __align__(16) float smem[];
   using Tile = FftTile<M, fft_wide_hops(M)>;
   constexpr int HO = Tile::H - 1;         // demod hops a block owns
+  constexpr int N = Tile::N;              // channels a block holds
   Tile tile(smem);
-  const int h0 = blockIdx.x * HO;         // tile hop l is stream hop h0-1+l
+  // tile hop l is stream hop h0-1+l
+  const int h0 = static_cast<int>(blockIdx.x / Tile::RK) * HO;
   tile.load_twiddles(tw);
   tile.fold(x, planar, n_ext, coef, T, h0 - 1);
   __syncthreads();
   tile.fft();
-  for (int e = threadIdx.x; e < M * HO; e += kFftThreads) {
-    const int k = e / HO, l = 1 + e % HO;
+  for (int e = threadIdx.x; e < N * HO; e += kFftThreads) {
+    const int ch = e / HO, l = 1 + e % HO;
+    const int k = tile.k0 + ch;
     const int n = h0 - 1 + l;
     if (n < Nh) {
-      const float2 c = tile.y(l, k, n, hop0_parity);
-      const float2 b = tile.y(l - 1, k, n - 1, hop0_parity);
+      const float2 c = tile.y(l, ch, n, hop0_parity);
+      const float2 b = tile.y(l - 1, ch, n - 1, hop0_parity);
       const float2 p0 = prev[k];
       const float2 q = n ? b : p0;
       const float re = __fadd_rn(__fmul_rn(c.x, q.x), __fmul_rn(c.y, q.y));
@@ -91,13 +97,34 @@ extern "C" int rx_front_smem_bytes(int M) {
     return fft_smem_bytes(Mw, fft_wide_hops(Mw));
   });
 }
-// the FFT's plan at width M: its number of passes and the radix of pass
-// p (-1: M not taken)
+// the FFT's plan at width M (a block's transform, M/2 in a cluster): its
+// number of passes and the radix of pass p (-1: M not taken)
 extern "C" int rx_front_fft_passes(int M) {
-  return with_width(M, [](auto w) { return fft_passes(decltype(w)::value); });
+  return with_width(M, [](auto w) {
+    return fft_passes(fft_width(decltype(w)::value));
+  });
 }
 extern "C" int rx_front_fft_radix(int M, int p) {
-  return with_width(M, [p](auto w) { return fft_radix(decltype(w)::value, p); });
+  return with_width(M, [p](auto w) {
+    return fft_radix(fft_width(decltype(w)::value), p);
+  });
+}
+// blocks of a cluster at width M (-1: M not taken)
+extern "C" int rx_front_cluster_size(int M) {
+  return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
+}
+// clusters of the kernel the card holds at once at a cluster width M
+// (-1: M not taken or not a cluster width; below -1: -(the CUDA error))
+extern "C" int rx_front_max_clusters(int M) {
+  return with_width(M, [](auto w) {
+    constexpr int Mw = decltype(w)::value;
+    if constexpr (fft_ranks(Mw) == 1) {
+      return -1;
+    } else {
+      return fft_max_clusters<Mw>(
+          rx_front_kernel<Mw>, FftTile<Mw, fft_wide_hops(Mw)>::kSmemBytes);
+    }
+  });
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
@@ -112,19 +139,14 @@ extern "C" int rx_front_launch(const void* x, int planar, long long n_ext,
   const int rc = with_width(M, [&](auto w) {
     constexpr int Mw = decltype(w)::value;
     using Tile = FftTile<Mw, fft_wide_hops(Mw)>;
-    cudaError_t err = cudaFuncSetAttribute(
-        rx_front_kernel<Mw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Tile::kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((Nh + Tile::H - 2) / (Tile::H - 1));
-    rx_front_kernel<Mw><<<grid, kFftThreads, Tile::kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), planar, n_ext,
-        static_cast<const float*>(coef), static_cast<const float2*>(tw),
-        static_cast<const float2*>(prev), static_cast<float*>(demod),
-        static_cast<float*>(pw), static_cast<float2*>(last), T, Nh,
-        hop0_parity);
-    return static_cast<int>(cudaGetLastError());
+    const dim3 grid((Nh + Tile::H - 2) / (Tile::H - 1) * Tile::RK);
+    return fft_launch<Mw>(
+        rx_front_kernel<Mw>, grid, Tile::kSmemBytes,
+        static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
+        planar, n_ext, static_cast<const float*>(coef),
+        static_cast<const float2*>(tw), static_cast<const float2*>(prev),
+        static_cast<float*>(demod), static_cast<float*>(pw),
+        static_cast<float2*>(last), T, Nh, hop0_parity);
   });
   return rc < 0 ? static_cast<int>(cudaErrorInvalidValue) : rc;
 }

@@ -44,6 +44,11 @@
 // (2, M, Nh) analysis planes and the (M, Nh) demod plane never do.
 // G independent bands of the same geometry run as one launch: blockIdx.y
 // is the band, whose input and outputs lie G-major one after another.
+// Past M = 4096 a cluster of two blocks runs each run (grid x = 2 x the
+// runs), block rank r holding channels rN .. rN+N-1 (N = M/2; the tile's
+// combine, analysis_fft.cuh): the discriminator, dump and power above run
+// on the block's N channels, six hops at M = 8192 and a run of 3 at
+// sps = 3.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -72,9 +77,10 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
   extern __shared__ __align__(16) float smem[];
   using Tile = FftTile<M, fft_wide_hops(M)>;
   constexpr int HS = Tile::HS;
+  constexpr int N = Tile::N;              // channels a block holds
   Tile tile(smem);
   const int R = run_hops(M, sps);
-  const int run = blockIdx.x;
+  const int run = blockIdx.x / Tile::RK;
   const size_t band = blockIdx.y;         // one of G independent bands
   x += band * 2 * static_cast<size_t>(n_ext);
   pw_part += band * M * nrun;
@@ -87,18 +93,18 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 
   // discriminator and power, tile hops L-1 down to 1; a thread's CPT
   // channels run as independent chains
-  constexpr int CPT = (M + kFftThreads - 1) / kFftThreads;
-  // a thread's last chain is past the channels only where M > 256 is ragged
-  constexpr bool kRagged = M > kFftThreads && M % kFftThreads != 0;
+  constexpr int CPT = (N + kFftThreads - 1) / kFftThreads;
+  // a thread's last chain is past the channels only where N > 256 is ragged
+  constexpr bool kRagged = N > kFftThreads && N % kFftThreads != 0;
   const int L = R + sps;
   const int b0 = h0 / kRssiBlock;
-  if (CPT > 1 || threadIdx.x < M) {
+  if (CPT > 1 || threadIdx.x < N) {
     float2 c[CPT];
     float pw0[CPT], pw1[CPT];
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int k = threadIdx.x + i * kFftThreads;
-      c[i] = (!kRagged || k < M) ? tile.y(L - 1, k, h0 + L - 2, hop0_parity)
+      c[i] = (!kRagged || k < N) ? tile.y(L - 1, k, h0 + L - 2, hop0_parity)
                                  : make_float2(0.f, 0.f);
       pw0[i] = pw1[i] = 0.f;
     }
@@ -109,7 +115,7 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 #pragma unroll
       for (int i = 0; i < CPT; ++i) {
         const int k = threadIdx.x + i * kFftThreads;
-        if (kRagged && k >= M) continue;
+        if (kRagged && k >= N) continue;
         const float2 b = tile.y(l - 1, k, n - 1, hop0_parity);
         const float2 q = n ? b : make_float2(0.f, 0.f);
         const float re =
@@ -126,29 +132,31 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int k = threadIdx.x + i * kFftThreads;
-      if (!kRagged || k < M)
-        pw_part[static_cast<size_t>(k) * nrun + run] = make_float2(pw0[i], pw1[i]);
+      if (!kRagged || k < N)
+        pw_part[static_cast<size_t>(tile.k0 + k) * nrun + run] =
+            make_float2(pw0[i], pw1[i]);
     }
   }
   __syncthreads();
 
   // integrate-and-dump: symbol j0 + jl of phase p averages demod hops
   // h0 + p + sps*jl .. + sps-1, tile hops 1 + p + sps*jl ..  Element e =
-  // (k sps + p) S + jl; a thread steps e by kFftThreads, its (k, p, jl)
-  // by carries instead of divisions.
+  // (k sps + p) S + jl of the block's channels k; a thread steps e by
+  // kFftThreads, its (k, p, jl) by carries instead of divisions.
   const int S = R / sps, j0 = h0 / sps;
   const float w = 1.0f / static_cast<float>(sps);
   const int row0 = threadIdx.x / S, drow = kFftThreads / S;
   const int dj = kFftThreads % S, dp = drow % sps, dk = drow / sps;
   int jl = threadIdx.x % S, p = row0 % sps, k = row0 / sps;
-  while (k < M) {
+  while (k < N) {
     const int j = j0 + jl;
     if (j < nsym) {
       const float2* d = tile.S + (1 + p + sps * jl) * HS + Tile::pad(k);
       float acc = 0.f;
       for (int v = 0; v < sps; ++v)
         acc = __fadd_rn(acc, __fmul_rn(d[v * HS].x, w));
-      const size_t o = ph0 + (static_cast<size_t>(k) * sps + p) * nsym + j;
+      const size_t o =
+          ph0 + (static_cast<size_t>(tile.k0 + k) * sps + p) * nsym + j;
       if (ph_bf16)
         ph_bf16[o] = __float2bfloat16_rn(acc);
       else
@@ -202,13 +210,34 @@ extern "C" int rx_phases_smem_bytes(int M) {
     return fft_smem_bytes(Mw, fft_wide_hops(Mw));
   });
 }
-// the FFT's plan at width M: its number of passes and the radix of pass
-// p (-1: M not taken)
+// the FFT's plan at width M (a block's transform, M/2 in a cluster): its
+// number of passes and the radix of pass p (-1: M not taken)
 extern "C" int rx_phases_fft_passes(int M) {
-  return with_width(M, [](auto w) { return fft_passes(decltype(w)::value); });
+  return with_width(M, [](auto w) {
+    return fft_passes(fft_width(decltype(w)::value));
+  });
 }
 extern "C" int rx_phases_fft_radix(int M, int p) {
-  return with_width(M, [p](auto w) { return fft_radix(decltype(w)::value, p); });
+  return with_width(M, [p](auto w) {
+    return fft_radix(fft_width(decltype(w)::value), p);
+  });
+}
+// blocks of a cluster at width M (-1: M not taken)
+extern "C" int rx_phases_cluster_size(int M) {
+  return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
+}
+// clusters of the kernel the card holds at once at a cluster width M
+// (-1: M not taken or not a cluster width; below -1: -(the CUDA error))
+extern "C" int rx_phases_max_clusters(int M) {
+  return with_width(M, [](auto w) {
+    constexpr int Mw = decltype(w)::value;
+    if constexpr (fft_ranks(Mw) == 1) {
+      return -1;
+    } else {
+      return fft_max_clusters<Mw>(
+          rx_phases_kernel<Mw>, FftTile<Mw, fft_wide_hops(Mw)>::kSmemBytes);
+    }
+  });
 }
 
 // Launches both kernels on `stream`; returns cudaGetLastError() (0 =
@@ -231,17 +260,14 @@ extern "C" int rx_phases_launch(const void* x, int planar, long long n_ext,
     const int R = run_hops(Mw, sps);
     if (R < sps || nrun != (Nh + R - 1) / R)
       return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(
-        rx_phases_kernel<Mw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Tile::kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rx_phases_kernel<Mw><<<dim3(nrun, G), kFftThreads, Tile::kSmemBytes, st>>>(
+    int err = fft_launch<Mw>(
+        rx_phases_kernel<Mw>, dim3(nrun * Tile::RK, G), Tile::kSmemBytes, st,
         static_cast<const float*>(x), planar, n_ext,
         static_cast<const float*>(coef), static_cast<const float2*>(tw),
         out_bf16 ? nullptr : static_cast<float*>(phases),
         out_bf16 ? static_cast<__nv_bfloat16*>(phases) : nullptr,
         static_cast<float2*>(pw_part), T, sps, Nh, nsym, hop0_parity, nrun);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if (err != 0) return err;
     const int nblk = (Nh + kRssiBlock - 1) / kRssiBlock;
     // the bands' channels are G·M rows of both power arrays
     rx_phases_power_kernel<<<(G * Mw * nblk + kFftThreads - 1) / kFftThreads,

@@ -47,10 +47,32 @@
 //     thread walks the pass's hops in order: hop h adds its terms into
 //     the sums of hops h .. h+RING-1, then output hop h is complete and
 //     leaves, the carry-in added for h < 2T - 1, and the ring shifts by
-//     one (the hop loop is unrolled, so the shift is register renaming).
+//     one (up to 4096 the hop loop is unrolled, so the shift is register
+//     renaming).
 //     The terms of an output hop add in order j = 2T-1 down to 0 (fmaf),
 //     the reverse of the plain version's order.
-//   * A persistent sweep: run i (G blocks) owns output hops [iR, iR + R)
+//   * Past M = 4096 a cluster of two blocks runs each group (the tile's
+//     split, analysis_fft.cuh): rank r loads the values k = 2c + r of each
+//     hop-major row, the pair computes F = FFT_M(Y_n), and rank r's plane
+//     holds F[rN + c] (N = M/2 = P).  Column p's two reads, F[(M - p) mod
+//     M] and F[P - p], then sit at the one position (N - p) mod N of the
+//     two planes -- in rank 1's and rank 0's for p > 0, the other way
+//     round at p = 0 --, so a thread reads one of them from its own plane
+//     and one from the partner's (distributed shared memory).  The two
+//     ranks split the group's columns: the groups stay G (a run is 2·G
+//     blocks, B below), as many as at 4096, each pair re-running its half
+//     of the pass.  A cluster barrier after the ring (instead of the
+//     block's) keeps a plane from being refilled while the partner still
+//     reads it.  Registers: a half-width plan's passes and the combine
+//     beside the ring's 64 registers spilled up to 1.5 KB (M = 6144,
+//     8190), so past 4096 the ring waits in shared memory while the tile
+//     loads and transforms a pass (32 sums a thread, 64 KB a block: a
+//     pass is then synth_hops hops, 4 at 8192 against the other kernels'
+//     6), the hop loop is not unrolled (its shift is then 32 moves a
+//     hop), and an odd radix whose register pass would hold more than 16
+//     values a thread runs as the generic pass where the table holds the
+//     whole W_N (FftTile::generic_pass): no instantiation spills.
+//   * A persistent sweep: run i (B blocks) owns output hops [iR, iR + R)
 //     of the Nh + 2T - 1 (carry included), R sized so the grid fills the
 //     card once, and walks input hops from iR - (2T-1) in passes of H:
 //     the first 2T-1 hops only warm the ring (the halo), hops outside
@@ -66,17 +88,38 @@
 namespace {
 
 // columns of the ring a thread may hold at width M and ring 2·MT: a
-// block's ceil(P/256), but at most 2 at MT = 8 and 1 at MT = 16
+// block's ceil(P/256) (P/2 a block in a cluster), but at most 2 at MT = 8
+// and 1 at MT = 16
 __host__ __device__ constexpr int synth_thread_columns(int M, int MT) {
-  return (M / 2 + kFftThreads - 1) / kFftThreads < (MT <= 8 ? 2 : 1)
-             ? (M / 2 + kFftThreads - 1) / kFftThreads
+  return (M / 2 / fft_ranks(M) + kFftThreads - 1) / kFftThreads <
+                 (MT <= 8 ? 2 : 1)
+             ? (M / 2 / fft_ranks(M) + kFftThreads - 1) / kFftThreads
              : (MT <= 8 ? 2 : 1);
 }
 // column groups of a pass (the grid's first axis; 1 up to M = 1024 at
-// MT = 8, up to 512 at MT = 16)
+// MT = 8, up to 512 at MT = 16), each a block or, past 4096, a cluster
 __host__ __device__ constexpr int synth_groups(int M, int MT) {
-  return (M / 2 + kFftThreads * synth_thread_columns(M, MT) - 1) /
-         (kFftThreads * synth_thread_columns(M, MT));
+  return (M / 2 + fft_ranks(M) * kFftThreads * synth_thread_columns(M, MT) -
+          1) /
+         (fft_ranks(M) * kFftThreads * synth_thread_columns(M, MT));
+}
+// a thread's ring past 4096: thread_columns · 2·MT = 32 running sums at
+// both rings, parked in shared memory while the tile transforms a pass
+constexpr int kSynthParkValues = 32;
+__host__ __device__ constexpr int synth_park_bytes(int M) {
+  return fft_ranks(M) > 1 ? 8 * kSynthParkValues * kFftThreads : 0;
+}
+// hops a pass transforms: the tile's fft_wide_hops, or past 4096 the most
+// even hops whose plane fits beside the parked ring (4 at M = 8192)
+__host__ __device__ constexpr int synth_hops(int M) {
+  return fft_ranks(M) == 1
+             ? fft_wide_hops(M)
+             : ((kFftMaxSmem - synth_park_bytes(M)) /
+                    (8 * fft_hop_stride(fft_width(M))) & ~1);
+}
+// a block's shared memory: the plane of synth_hops, and the parked ring
+__host__ __device__ constexpr int synth_smem(int M) {
+  return fft_smem_bytes(M, synth_hops(M)) + synth_park_bytes(M);
 }
 
 template <int M, int MT>
@@ -90,27 +133,37 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
              int T, int Nh, int hop0_parity, int R) {
   extern __shared__ __align__(16) float smem[];
   constexpr int G = synth_groups(M, MT);
+  constexpr int RK = fft_ranks(M);
+  constexpr int B = G * RK;                 // blocks of a run
   // a power of two in one group keeps the ring's fast form: gains in
   // registers, the tile's index arithmetic hoisted out of the pass loop.
-  // Elsewhere (column groups, or the wider register butterflies and the
-  // generic pass of a mixed plan) those registers go to the passes: the
-  // gains are read from the table (L1) at each hop and the tile reads its
-  // thread index afresh in each pass, which keeps every instantiation
-  // free of spills
-  constexpr bool kFrugal = G > 1 || !fft_pow2(M);
-  using Tile = FftTile<M, fft_wide_hops(M), kFrugal>;
-  constexpr int H = Tile::H, P = M / 2;
+  // Elsewhere (column groups, a cluster, or the wider register
+  // butterflies and the generic pass of a mixed plan) those registers go
+  // to the passes: the gains are read from the table (L1) at each hop
+  // and the tile reads its thread index afresh in each pass, which keeps
+  // every instantiation free of spills
+  constexpr bool kFrugal = B > 1 || !fft_pow2(M);
+  // past 4096 the ring waits in shared memory, after the plane, while the
+  // tile loads and transforms a pass: the passes of a half-width plan and
+  // the combine then have the registers K1's block has (without it ptxas
+  // spilled up to 1.5 KB at M = 6144 and 8190)
+  constexpr bool kPark = RK > 1;
+  using Tile = FftTile<M, synth_hops(M), kFrugal>;
+  constexpr int H = Tile::H, P = M / 2, N = Tile::N;
   constexpr int RING = 2 * MT;
-  constexpr int PC = (P + G - 1) / G;       // columns of a group
+  constexpr int PC = (P + B - 1) / B;       // columns of a block
   constexpr int CPT = (PC + kFftThreads - 1) / kFftThreads;   // columns a thread
-  // every column of every thread is one of the group's unless they are
+  // every column of every thread is one of the block's unless they are
   // ragged
   constexpr bool kWhole =
-      (G > 1 || CPT > 1) && PC % kFftThreads == 0 && G * PC == P;
-  // the group's columns [pg, pe) and the run
-  const int pg = G > 1 ? blockIdx.x * PC : 0;
-  const int pe = G > 1 ? min(pg + PC, P) : P;
-  const int run = G > 1 ? blockIdx.y : blockIdx.x;
+      (B > 1 || CPT > 1) && PC % kFftThreads == 0 && B * PC == P;
+  static_assert(!kPark || (CPT * RING == kSynthParkValues &&
+                           synth_smem(M) <= kFftMaxSmem),
+                "the parked ring fits beside the plane");
+  // the block's columns [pg, pe) and the run
+  const int pg = B > 1 ? blockIdx.x * PC : 0;
+  const int pe = B > 1 ? min(pg + PC, P) : P;
+  const int run = B > 1 ? blockIdx.y : blockIdx.x;
   Tile tile(smem);
   tile.load_twiddles(tw);
   const int keep = 2 * T - 1;               // carry hops
@@ -131,22 +184,58 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
     }
   }
 
+  // the parked ring: value (c, j) of thread t at (c·RING + j)·kFftThreads + t
+  float2* park = tile.S + H * Tile::HS;
 #pragma unroll 1
   for (int hb = o0 - keep; hb < o1; hb += H) {
+    if constexpr (kPark) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+#pragma unroll
+        for (int j = 0; j < RING; ++j)
+          park[(c * RING + j) * kFftThreads + Tile::tid()] = acc[c][j];
+    }
     tile.load_rows(Y, hb, Nh);
     tile.fft();
+    if constexpr (kPark) {
 #pragma unroll
+      for (int c = 0; c < CPT; ++c)
+#pragma unroll
+        for (int j = 0; j < RING; ++j)
+          acc[c][j] = park[(c * RING + j) * kFftThreads + Tile::tid()];
+    }
+    // F[k] for k < N lies in rank 0's plane, for k >= N in rank 1's: both
+    // read through the shared::cluster window (its addresses made afresh
+    // each pass)
+    unsigned F0 = 0, F1 = 0;
+    if constexpr (RK > 1) {
+      F0 = cluster_addr(tile.S, 0);
+      F1 = cluster_addr(tile.S, 1);
+    }
+    // the hop loop unrolled, so that the ring's shift is register
+    // renaming; past 4096 rolled, where its unrolled reads of both planes
+    // spilled (M = 6144)
+#pragma unroll(kPark ? 1 : H)
     for (int l = 0; l < H; ++l) {
       const int h = hb + l;
       const bool odd = (h + hop0_parity) & 1;
       const bool store = h >= o0 && h < o1;
-      const float2* row = tile.S + l * Tile::HS;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int p = pg + threadIdx.x + c * kFftThreads;
         if (kWhole || p < pe) {
-          const float2 a = row[Tile::pad(p == 0 ? 0 : M - p)];
-          const float2 b = row[Tile::pad(P - p)];
+          float2 a, b;     // F[(M - p) mod M], F[P - p]
+          if constexpr (RK > 1) {
+            const unsigned q = 8 * (Tile::pad(p == 0 ? 0 : N - p) +
+                                    l * Tile::HS);
+            const float2 f0 = ld_cluster(F0 + q), f1 = ld_cluster(F1 + q);
+            a = p == 0 ? f0 : f1;
+            b = p == 0 ? f1 : f0;
+          } else {
+            const float2* row = tile.S + l * Tile::HS;
+            a = row[Tile::pad(p == 0 ? 0 : M - p)];
+            b = row[Tile::pad(P - p)];
+          }
           const float2 ue = odd ? b : a;   // u_h[p]
           const float2 uo = odd ? a : b;   // u_h[P + p]
 #pragma unroll
@@ -176,7 +265,10 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
         }
       }
     }
-    __syncthreads();    // the next pass's rows overwrite the plane
+    // the next pass's rows overwrite the plane, which the partner reads
+    // in a cluster
+    if constexpr (RK > 1) cluster_sync();
+    else __syncthreads();
   }
 }
 
@@ -184,33 +276,43 @@ template <int M, int MT>
 int launch_width(const void* Y, const void* tw, const void* gm,
                  const void* carry_in, void* out, void* carry_out, int T,
                  int Nh, int hop0_parity, cudaStream_t st) {
-  using Tile = FftTile<M, fft_wide_hops(M)>;
-  cudaError_t err = cudaFuncSetAttribute(
-      synth_kernel<M, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, synth_kernel<M, MT>, kFftThreads, Tile::kSmemBytes)) !=
-          cudaSuccess)
-    return static_cast<int>(err);
-  // one wave: output hops split evenly over the runs, but at least a pass
-  // of them a run; a run is G blocks, one a column group
+  constexpr int H = synth_hops(M), smem = synth_smem(M);
   constexpr int G = synth_groups(M, MT);
+  constexpr int B = G * fft_ranks(M);   // blocks of a run
+  // run-slots the card holds at once: its blocks, or past 4096 its
+  // clusters, over the run's blocks or clusters
+  int slots = 0;
+  if constexpr (fft_ranks(M) > 1) {
+    const int n = fft_max_clusters<M>(synth_kernel<M, MT>, smem);
+    if (n < 0) return -n;
+    if (n == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    slots = n / G;
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        synth_kernel<M, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, synth_kernel<M, MT>, kFftThreads, smem)) !=
+            cudaSuccess)
+      return static_cast<int>(err);
+    slots = sms * per_sm / G;
+  }
+  // one wave: output hops split evenly over the runs, but at least a pass
+  // of them a run; a run is B blocks, G column groups of fft_ranks(M)
   const int NO = Nh + 2 * T - 1;
-  const int G0 = std::max(1, sms * per_sm / G);
-  const int R = std::max((NO + G0 - 1) / G0, Tile::H);
+  const int G0 = std::max(1, slots);
+  const int R = std::max((NO + G0 - 1) / G0, H);
   const int runs = (NO + R - 1) / R;
-  synth_kernel<M, MT><<<G > 1 ? dim3(G, runs) : dim3(runs), kFftThreads,
-                        Tile::kSmemBytes, st>>>(
-      static_cast<const float2*>(Y), static_cast<const float2*>(tw),
-      static_cast<const float*>(gm), static_cast<const float2*>(carry_in),
-      static_cast<float2*>(out), static_cast<float2*>(carry_out), T, Nh,
-      hop0_parity, R);
-  return static_cast<int>(cudaGetLastError());
+  return fft_launch<M>(
+      synth_kernel<M, MT>, B > 1 ? dim3(B, runs) : dim3(runs), smem, st,
+      static_cast<const float2*>(Y),
+      static_cast<const float2*>(tw), static_cast<const float*>(gm),
+      static_cast<const float2*>(carry_in), static_cast<float2*>(out),
+      static_cast<float2*>(carry_out), T, Nh, hop0_parity, R);
 }
 
 }  // namespace
@@ -219,14 +321,11 @@ int launch_width(const void* Y, const void* tw, const void* gm,
 
 // hops a pass of a thread block transforms at width M (-1: M not taken)
 extern "C" int synth_tile_hops(int M) {
-  return with_width(M, [](auto w) { return fft_wide_hops(decltype(w)::value); });
+  return with_width(M, [](auto w) { return synth_hops(decltype(w)::value); });
 }
 // a block's shared memory at width M, in bytes (-1: M not taken)
 extern "C" int synth_smem_bytes(int M) {
-  return with_width(M, [](auto w) {
-    constexpr int Mw = decltype(w)::value;
-    return fft_smem_bytes(Mw, fft_wide_hops(Mw));
-  });
+  return with_width(M, [](auto w) { return synth_smem(decltype(w)::value); });
 }
 // the column groups at width M and T taps (-1: M not taken)
 extern "C" int synth_column_groups(int M, int T) {
@@ -235,13 +334,37 @@ extern "C" int synth_column_groups(int M, int T) {
     return T <= 8 ? synth_groups(Mw, 8) : synth_groups(Mw, kFftMaxT);
   });
 }
-// the FFT's plan at width M: its number of passes and the radix of pass
-// p (-1: M not taken)
+// the FFT's plan at width M (a block's transform, M/2 in a cluster): its
+// number of passes and the radix of pass p (-1: M not taken)
 extern "C" int synth_fft_passes(int M) {
-  return with_width(M, [](auto w) { return fft_passes(decltype(w)::value); });
+  return with_width(M, [](auto w) {
+    return fft_passes(fft_width(decltype(w)::value));
+  });
 }
 extern "C" int synth_fft_radix(int M, int p) {
-  return with_width(M, [p](auto w) { return fft_radix(decltype(w)::value, p); });
+  return with_width(M, [p](auto w) {
+    return fft_radix(fft_width(decltype(w)::value), p);
+  });
+}
+// blocks of a cluster at width M (-1: M not taken)
+extern "C" int synth_cluster_size(int M) {
+  return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
+}
+// clusters the card holds at once at a cluster width M, the fewer of the
+// two rings' kernels (-1: M not taken or not a cluster width; below -1:
+// -(the CUDA error))
+extern "C" int synth_max_clusters(int M) {
+  return with_width(M, [](auto w) {
+    constexpr int Mw = decltype(w)::value;
+    if constexpr (fft_ranks(Mw) == 1) {
+      return -1;
+    } else {
+      constexpr int smem = synth_smem(Mw);
+      const int a = fft_max_clusters<Mw>(synth_kernel<Mw, 8>, smem);
+      const int b = fft_max_clusters<Mw>(synth_kernel<Mw, kFftMaxT>, smem);
+      return a < 0 ? a : (b < 0 ? b : std::min(a, b));
+    }
+  });
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).

@@ -16,9 +16,14 @@ a thread block folds each of its hops once (or, for the synthesis in
 transforms them with an f32 Stockham FFT whose radices are
 ``fft_radices(M)`` (mixed radix: 16, then 2, 4 or 8, then the odd prime
 factors of M) and whose twiddles are the table of ``_tables``; M is any
-even width in ``FFT_WIDTHS`` (8 to 4096).  The powers of two live in the
-main library; any other width builds a library of its own at first use
-(``kernels.build``).  The analysis kernel takes ``FFT_TILE_HOPS[M]``
+even width in ``FFT_WIDTHS`` (8 to 8192).  Past ``BLOCK_WIDTH`` (4096) a
+cluster of ``fft_cluster_size(M)`` = 2 thread blocks shares each hop:
+each block transforms half of it at ``fft_plan_width(M)`` = M/2 and a
+radix-2 pass across the pair, through distributed shared memory, leaves
+each block a contiguous half of the channels.  The powers of two up to
+4096 live in the main library; any other width, 8192 included, builds a
+library of its own at first use (``kernels.build``).  The analysis
+kernel takes ``FFT_TILE_HOPS[M]``
 hops a block, the receive front ends (``kernels.rx_front``,
 ``kernels.rx_phases``) and the synthesis ``FFT_WIDE_HOPS[M]``; a block's
 shared memory is ``fft_smem_bytes`` (the plane, and up to
@@ -40,9 +45,13 @@ from amps_tpu_torch.dsp.polyphase import _analysis_consts, _hop_sign
 from amps_tpu_torch.kernels import build
 
 MAX_TAPS = 16              # taps per phase the tiles hold (csrc kMaxT)
-MAX_FFT_WIDTH = 4096       # csrc kFftMaxWidth
+# the widest transform one thread block runs (csrc kFftBlockWidth); past
+# it a cluster of CLUSTER_SIZE blocks shares each hop
+BLOCK_WIDTH = 4096
+CLUSTER_SIZE = 2           # csrc kFftClusterSize
+MAX_FFT_WIDTH = CLUSTER_SIZE * BLOCK_WIDTH   # csrc kFftMaxWidth
 # M the FFT tile takes: every even width from the 8-channel bank of the
-# station app's default to 4096 (122.88 Msps)
+# station app's default to 8192 (245.76 Msps)
 FFT_WIDTHS = tuple(range(8, MAX_FFT_WIDTH + 1, 2))
 # M the main library instantiates: the powers of two; every other width
 # builds a library of its own at first use
@@ -59,10 +68,24 @@ SMEM_BYTES = 232448
 SHARED_TWIDDLE_WIDTH = 2048
 
 
+def fft_cluster_size(M: int) -> int:
+    """Blocks of a cluster that share each hop at width M (csrc
+    fft_ranks): 1 up to BLOCK_WIDTH, CLUSTER_SIZE past it."""
+    return CLUSTER_SIZE if M > BLOCK_WIDTH else 1
+
+
+def fft_plan_width(M: int) -> int:
+    """The width of one block's transform, and its channels (csrc
+    fft_width): M, or M/2 in a cluster."""
+    return M // fft_cluster_size(M)
+
+
 def _fit_hops(M: int) -> int:
     """csrc fft_fit_hops: the most even hops (up to 16) whose plane fits
-    in a block's shared memory (6 at M = 4096)."""
-    return min(16, SMEM_BYTES // (8 * fft_hop_stride(M)) & ~1)
+    in a block's shared memory (6 at M = 4096, and 6 of the half-width
+    plane at 8192)."""
+    return min(16, SMEM_BYTES // (8 * fft_hop_stride(fft_plan_width(M)))
+               & ~1)
 
 
 def _tile_hops(M: int) -> int:
@@ -197,13 +220,20 @@ FFT_HEAD = ((16, (1, 2, 3)), (3, (1,)), (5, (1, 2)), (7, (1, 2, 3)))
 
 def fft_twiddle_exponents(M: int) -> np.ndarray:
     """The exponents e of the FFT tile's twiddle table W_M^e (csrc
-    fft_twiddle_offset): the head, j·M/R for the powers j of each radix R
+    fft_twiddle_offset, fft_table_size).  In a cluster (M past
+    BLOCK_WIDTH): the table of the half width N = M/2, its W_N^e as
+    W_M^{2e}, then the combine's W_M^k for k < N.  Otherwise: the head,
+    j·M/R for the powers j of each radix R
     of FFT_HEAD (only W_16's where M is a power of two; taken as ⌊j·M/R⌋,
     whole wherever R is in the plan, the only place a butterfly reads
     it: at M = 8 only W_16^2 = W_8^1), then for each register pass after
     the first, with Ns the product of the earlier radices, the
     (R-1) x Ns block jm·r·M/(Ns·R) for r = 1 .. R-1, jm < Ns; where the
     plan has a generic pass, every e < M last."""
+    if fft_cluster_size(M) > 1:
+        N = fft_plan_width(M)
+        return np.concatenate([2 * fft_twiddle_exponents(N),
+                               np.arange(N, dtype=np.int64)])
     heads = FFT_HEAD[:1] if M & (M - 1) == 0 else FFT_HEAD
     out = [j * M // R for R, js in heads for j in js]
     ns = 1
@@ -220,10 +250,10 @@ def fft_twiddle_exponents(M: int) -> np.ndarray:
 
 def fft_smem_bytes(M: int, H: int) -> int:
     """Shared memory of a block of H hops at width M (csrc
-    fft_smem_bytes): the plane, and up to SHARED_TWIDDLE_WIDTH the
-    twiddle table."""
+    fft_smem_bytes): the plane of the block's fft_plan_width(M) channels,
+    and up to SHARED_TWIDDLE_WIDTH the twiddle table."""
     table = len(fft_twiddle_exponents(M)) if M <= SHARED_TWIDDLE_WIDTH else 0
-    return 8 * (H * fft_hop_stride(M) + table)
+    return 8 * (H * fft_hop_stride(fft_plan_width(M)) + table)
 
 
 @functools.cache
@@ -244,7 +274,7 @@ def _tables(M: int, T: int, device: torch.device):
 
 
 def check_fft_width(M: int) -> None:
-    """The FFT tile takes any even M from 8 to MAX_FFT_WIDTH."""
+    """The FFT tile takes any even M from 8 to MAX_FFT_WIDTH (8192)."""
     if M % 2 or not FFT_WIDTHS[0] <= M <= MAX_FFT_WIDTH:
         raise ValueError(f"kernel needs an even M from {FFT_WIDTHS[0]} to "
                          f"{MAX_FFT_WIDTH} (M={M})")
@@ -271,13 +301,17 @@ def card_block(x_ext: torch.Tensor, M: int, T: int):
 
 def bind(prefix: str, argtypes, M: int, hops: int, smem: int, **consts):
     """The launcher ``{prefix}_launch`` of the library that holds width M
-    (the main library for a power of two, else M's own, built at first
-    use) with its argument types (it returns a cudaError_t), once the
-    library's tile constants at M are the wrapper's: its hops
+    (the main library for a power of two up to 4096, else M's own, built
+    at first use) with its argument types (it returns a cudaError_t),
+    once the library's tile constants at M are the wrapper's: its hops
     (``{prefix}_tile_hops``), a block's shared memory
-    (``{prefix}_smem_bytes``), its FFT plan, pass by pass
-    (``{prefix}_fft_passes``, ``{prefix}_fft_radix``), and each of
-    ``consts`` (name: {int arguments: value} of ``{prefix}_{name}``)."""
+    (``{prefix}_smem_bytes``), its FFT plan at ``fft_plan_width(M)``,
+    pass by pass (``{prefix}_fft_passes``, ``{prefix}_fft_radix``), its
+    cluster size (``{prefix}_cluster_size``), and each of ``consts``
+    (name: {int arguments: value} of ``{prefix}_{name}``).  At a cluster
+    width the card must hold at least one cluster of the kernel
+    (``{prefix}_max_clusters``, cudaOccupancyMaxActiveClusters), or this
+    raises: such a width never falls back."""
     lib = build.load(None if M in LIBRARY_WIDTHS else M)
     fn = getattr(lib, f"{prefix}_launch")
     fn.argtypes = argtypes
@@ -288,18 +322,36 @@ def bind(prefix: str, argtypes, M: int, hops: int, smem: int, **consts):
         f.argtypes, f.restype = [ctypes.c_int] * len(args), ctypes.c_int
         return f(*args)
 
-    want = {"tile_hops": hops, "smem_bytes": smem, "plan": fft_radices(M),
-            **consts}
+    want = {"tile_hops": hops, "smem_bytes": smem,
+            "plan": fft_radices(fft_plan_width(M)),
+            "cluster_size": fft_cluster_size(M), **consts}
     got = {"tile_hops": const("tile_hops", M),
            "smem_bytes": const("smem_bytes", M),
            "plan": tuple(const("fft_radix", M, p)
                          for p in range(const("fft_passes", M))),
+           "cluster_size": const("cluster_size", M),
            **{name: {args: const(name, *args) for args in values}
               for name, values in consts.items()}}
     if got != want:
         raise RuntimeError(f"{prefix} kernel built for M={M} has the tile "
                            f"constants {got}, the wrapper's {want}")
+    if fft_cluster_size(M) > 1:
+        n = max_clusters(prefix, M)
+        if n <= 0:
+            raise RuntimeError(f"{prefix} kernel at M={M}: the card holds "
+                               f"no cluster of {fft_cluster_size(M)} blocks "
+                               f"of {smem} bytes (cudaOccupancyMaxActive"
+                               f"Clusters: {n})")
     return fn
+
+
+def max_clusters(prefix: str, M: int) -> int:
+    """Clusters of kernel ``prefix`` at cluster width M that the current
+    card holds at once (``{prefix}_max_clusters``)."""
+    lib = build.load(None if M in LIBRARY_WIDTHS else M)
+    f = getattr(lib, f"{prefix}_max_clusters")
+    f.argtypes, f.restype = [ctypes.c_int], ctypes.c_int
+    return f(M)
 
 
 def launch(name: str, fn, device: torch.device, *args) -> None:

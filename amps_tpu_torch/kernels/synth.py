@@ -14,7 +14,12 @@ tile's twiddles and ``_gain_taps``.  Past M = 1024 (512 for T > 8) a
 thread's ring of running sums would outgrow its registers, so the P =
 M/2 columns split into ``column_groups(M, T)`` groups, a grid axis, each
 of which transforms the pass's hops itself (``thread_columns``: at most
-2 columns a thread).
+2 columns a thread).  Past M = 4096 a group is a cluster of two blocks
+that share each hop's transform (``kernels.analysis.fft_cluster_size``)
+and split the group's columns; the groups stay as many as at 4096, and
+each thread's ring (32 running sums) waits in shared memory while the
+tile transforms a pass, so a pass takes ``SYNTH_HOPS[M]`` hops (4 at
+8192), fewer than the other kernels' ``FFT_WIDE_HOPS[M]``.
 """
 
 from __future__ import annotations
@@ -26,13 +31,47 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.dsp import channelizer as chz
-from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, MAX_TAPS,
-                                             _tables, bind, check_fft_width,
-                                             fft_smem_bytes, launch)
+from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, FFT_WIDTHS,
+                                             MAX_TAPS, SMEM_BYTES, _tables,
+                                             bind, check_fft_width,
+                                             fft_cluster_size, fft_hop_stride,
+                                             fft_plan_width, fft_smem_bytes,
+                                             launch)
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
 LAUNCHES = 0
+
+# running sums of a thread's ring past 4096 (thread_columns · 2·MT at
+# both rings), parked in shared memory while the tile transforms a pass
+# (csrc kSynthParkValues)
+PARK_VALUES = 32
+
+
+def park_bytes(M: int) -> int:
+    """Shared memory of a block's parked ring (csrc synth_park_bytes):
+    8 bytes a sum, 256 threads, past 4096 only."""
+    return 8 * PARK_VALUES * 256 if fft_cluster_size(M) > 1 else 0
+
+
+def _synth_hops(M: int) -> int:
+    """Hops a pass transforms (csrc synth_hops): FFT_WIDE_HOPS[M], or
+    past 4096 the most even hops whose plane fits beside the parked
+    ring."""
+    if fft_cluster_size(M) == 1:
+        return FFT_WIDE_HOPS[M]
+    return (SMEM_BYTES - park_bytes(M)) \
+        // (8 * fft_hop_stride(fft_plan_width(M))) & ~1
+
+
+# hops a pass of K4 transforms, by M
+SYNTH_HOPS = {M: _synth_hops(M) for M in FFT_WIDTHS}
+
+
+def smem_bytes(M: int) -> int:
+    """A block's shared memory (csrc synth_smem): the plane of
+    SYNTH_HOPS[M] hops and the parked ring."""
+    return fft_smem_bytes(M, SYNTH_HOPS[M]) + park_bytes(M)
 
 
 def _check(Y, M: int, T: int, carry):
@@ -57,24 +96,26 @@ def synthesize_block_reference(Y, M: int, T: int, hop0_parity: int, carry,
 
 def thread_columns(M: int, T: int) -> int:
     """Columns of the ring a thread may hold (csrc
-    synth_thread_columns): a block's ceil(P/256), but at most 2 with the
-    ring of T <= 8 (2·8 running sums) and 1 with that of T <= 16 (2·16)."""
-    return min(-(-(M // 2) // 256), 2 if T <= 8 else 1)
+    synth_thread_columns): a block's ceil(P/256) (P/2 a block in a
+    cluster), but at most 2 with the ring of T <= 8 (2·8 running sums)
+    and 1 with that of T <= 16 (2·16)."""
+    return min(-(-(M // 2 // fft_cluster_size(M)) // 256), 2 if T <= 8 else 1)
 
 
 def column_groups(M: int, T: int) -> int:
     """Column groups of a pass, the grid's first axis (csrc
-    synth_groups): ceil(P / (256 · thread_columns)), 1 up to M = 1024 at
-    T <= 8 (512 at T <= 16), each group's block transforming the pass's
+    synth_groups): ceil(P / (ranks · 256 · thread_columns)), 1 up to M =
+    1024 at T <= 8 (512 at T <= 16), each group's block (or cluster of
+    ``fft_cluster_size(M)`` blocks past 4096) transforming the pass's
     hops itself."""
-    return -(-(M // 2) // (256 * thread_columns(M, T)))
+    return -(-(M // 2) // (fft_cluster_size(M) * 256 * thread_columns(M, T)))
 
 
 @functools.cache
 def _launcher(M: int):
     p, i = ctypes.c_void_p, ctypes.c_int
     return bind("synth", [p, p, p, p, p, p, i, i, i, i, p], M,
-                FFT_WIDE_HOPS[M], fft_smem_bytes(M, FFT_WIDE_HOPS[M]),
+                SYNTH_HOPS[M], smem_bytes(M),
                 column_groups={(M, T): column_groups(M, T)
                                for T in (8, MAX_TAPS)})
 

@@ -81,9 +81,9 @@ def test_kernel_rejects_what_it_cannot_run(cuda_device):
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):
         K.analyze_phases(x, 95, 8)          # odd M
-    with pytest.raises(ValueError):         # past the tile's 4096
-        K.analyze_phases(torch.zeros(((100 + 15) * 4096, 2),
-                                     device=cuda_device), 8192, 8)
+    with pytest.raises(ValueError):         # past the tile's 8192
+        K.analyze_phases(torch.zeros(((100 + 15) * 8192, 2),
+                                     device=cuda_device), 16384, 8)
     with pytest.raises(ValueError):
         K.analyze_phases(x.double(), 96, 8)
     with pytest.raises(ValueError):         # sps past the tile's hops
@@ -270,10 +270,10 @@ def test_synth_kernel_chained_calls_equal_one(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_cannot_run(cuda_device):
-    Y = torch.zeros((10, 8192, 2), device=cuda_device)
-    with pytest.raises(ValueError):            # past the tile's 4096
-        K4.synthesize_block(Y, 8192, 8, 0, torch.zeros(
-            (8192 * 8 - 4096, 2), device=cuda_device))
+    Y = torch.zeros((10, 16384, 2), device=cuda_device)
+    with pytest.raises(ValueError):            # past the tile's 8192
+        K4.synthesize_block(Y, 16384, 8, 0, torch.zeros(
+            (16384 * 8 - 8192, 2), device=cuda_device))
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):            # odd M
         K2.analyze_demod(x, 95, 8, 0, torch.zeros((95, 2), device=cuda_device))
@@ -572,19 +572,19 @@ def test_small_width_synth_kernel(cuda_device, M, T, parity):
 
 @pytest.mark.cuda
 def test_widths_the_tile_cannot_take_raise(cuda_device):
-    """Odd M, M < 8 and M past 4096 raise on the card, naming the rule;
+    """Odd M, M < 8 and M past 8192 raise on the card, naming the rule;
     no width reaches the plain version."""
-    for M in (13, 6, 4097, 4098, 8192):
+    for M in (13, 6, 4097, 8194, 16384):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
         with pytest.raises(ValueError):
             KA.analyze_block(x, M, 8)
         with pytest.raises(ValueError):
             K.analyze_phases(x, M, 8)
-    for M in (6, 4098, 8192):
+    for M in (6, 8194, 16384):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
-        with pytest.raises(ValueError, match="even M from 8 to 4096"):
+        with pytest.raises(ValueError, match="even M from 8 to 8192"):
             KA.analyze_block(x, M, 8)
-        with pytest.raises(ValueError, match="even M from 8 to 4096"):
+        with pytest.raises(ValueError, match="even M from 8 to 8192"):
             K2.analyze_demod(x, M, 8, 0, torch.zeros((M, 2),
                                                      device=cuda_device))
 
@@ -602,17 +602,23 @@ MIXED = [(10, 0, False), (22, 1, True), (96, 1, False), (210, 0, True),
 # banks past 2048 channels (the twiddles read from device memory, K4's
 # column groups): 3·1024 and the 122.88 Msps bank, 4096 (main library)
 WIDE = [(3072, 1, True), (4096, 0, False)]
+# banks past 4096 channels, each hop shared by a cluster of two blocks:
+# an odd half width (4098 = 2·2049), radix 3 at 6144, the generic pass
+# at 8190 = 2·3²·5·7·13, the 245.76 Msps bank 8192; both parities, riq
+# and planar at each
+WIDEST = [(M, parity, planar) for M in (4098, 6144, 8190, 8192)
+          for parity, planar in ((0, False), (1, True))]
 
 
 @pytest.fixture(scope="module")
 def mixed_libraries():
-    """Every MIXED and WIDE width's own library, built at once (one nvcc
-    a source and width, all in parallel) before the first test needs
-    one."""
+    """Every MIXED, WIDE and WIDEST width's own library, built at once
+    (one nvcc a source and width, all in parallel) before the first test
+    needs one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the GPU machine)")
     from amps_tpu_torch.kernels import build
-    build.build(widths=[M for M, _, _ in MIXED + WIDE
+    build.build(widths=[M for M, _, _ in MIXED + WIDE + WIDEST
                         if M not in KA.LIBRARY_WIDTHS])
 
 
@@ -648,7 +654,7 @@ def _held_to_phase_atol(err, ref, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE)
+@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST)
 def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K1 at a width that is not a power of two: atol 2e-4 on
@@ -667,7 +673,7 @@ def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE)
+@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST)
 def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K2 on FSK in every channel: demod within 1e-3 (fast_atan2's seam
@@ -692,7 +698,7 @@ def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE)
+@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
                                       parity, planar, bf16):
@@ -724,7 +730,8 @@ def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity", [(M, p) for M, p, _ in MIXED + WIDE])
+@pytest.mark.parametrize("M,parity",
+                         [(M, p) for M, p, _ in MIXED + WIDE + WIDEST])
 def test_mixed_width_synth_kernel(cuda_device, mixed_libraries, M, parity):
     """K4 with a carry in: 1e-4 of the output RMS."""
     T, Nh = 8, 333
@@ -747,7 +754,21 @@ def test_chained_calls_equal_one_at_768(cuda_device, mixed_libraries):
     equal one call: K1 and K2 bit for bit; K4 within 1e-4 of the output
     RMS (the carry's partial sums group an output hop's terms
     otherwise)."""
-    M, T, N1, N2 = 768, 8, 1001, 700
+    _chained_calls_equal_one(cuda_device, 768)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4098, 6144, 8190, 8192])
+def test_chained_calls_equal_one_at_cluster_widths(cuda_device,
+                                                   mixed_libraries, M):
+    """Past 4096, where a cluster of two blocks shares each hop: two
+    chained calls equal one call, K1 and K2 bit for bit, K4 within 1e-4
+    of the output RMS, as at 768."""
+    _chained_calls_equal_one(cuda_device, M)
+
+
+def _chained_calls_equal_one(cuda_device, M):
+    T, N1, N2 = 8, 1001, 700
     P = M // 2
     x = unit_channel_band(M, T, N1 + N2, 768, cuda_device)
     y = KA.analyze_block(x, M, T, 0)

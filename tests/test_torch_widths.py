@@ -1,11 +1,13 @@
-"""Every bank width the FFT tile takes (any even M from 8 to 4096): its
-plan and twiddle table at every M, the kernels' geometry (shared memory,
-K3's run, K4's column groups) that the CUDA libraries are held to, the
-port's plain K1-K4 at M=768 (a 23.04 Msps station) and 4096 (122.88
-Msps) against the TPU kernels in interpret mode, the receive block at
-M=96, 768 and 4096 and the streaming receiver and the transmitter at
-M=96 against the JAX package.  The CUDA kernels at these widths are held
-to their plain versions on the card (test_torch_cuda.py).
+"""Every bank width the FFT tile takes (any even M from 8 to 8192): its
+plan and twiddle table at every M up to 4096 (one block a hop; the
+cluster widths past it: test_torch_cluster.py), the kernels' geometry
+(shared memory, K3's run, K4's column groups) that the CUDA libraries
+are held to, the port's plain K1-K4 at M=768 (a 23.04 Msps station) and
+4096 (122.88 Msps) against the TPU kernels in interpret mode, the
+receive block at M=96, 768, 4096 and 8192 (245.76 Msps) and the
+streaming receiver and the transmitter at M=96 against the JAX package.
+The CUDA kernels at these widths are held to their plain versions on the
+card (test_torch_cuda.py).
 
 Tolerances are tests/test_pallas.py's: atol 2e-4 for the f32 analysis
 and synthesis, 5% for the power.  K2 and K3 on the TPU take bf16 DFT
@@ -59,15 +61,16 @@ def _legacy_plan(M):
 
 
 def test_fft_plan_and_twiddles_every_width():
-    """At every even M from 8 to 4096: the radices multiply to M, are 16,
-    one of 2/4/8, then odd primes ascending; a power of two keeps its
-    old plan; every twiddle the passes read is W_M^e from float64 to f32
-    rounding; the table's length is the head, the register passes'
-    blocks and the generic pass's whole W_M; the front ends take twice
-    the analysis kernel's hops up to 2048 and as many past it; and the
-    widest block fits Hopper's shared memory, its table beside the plane
-    up to 2048 and in device memory past it."""
-    for M in KA.FFT_WIDTHS:
+    """At every even M from 8 to 4096 (the widths one block transforms
+    whole): the radices multiply to M, are 16, one of 2/4/8, then odd
+    primes ascending; a power of two keeps its old plan; every twiddle
+    the passes read is W_M^e from float64 to f32 rounding; the table's
+    length is the head, the register passes' blocks and the generic
+    pass's whole W_M; the front ends take twice the analysis kernel's
+    hops up to 2048 and as many past it; and the widest block fits
+    Hopper's shared memory, its table beside the plane up to 2048 and in
+    device memory past it."""
+    for M in KA.FFT_WIDTHS[: KA.FFT_WIDTHS.index(KA.BLOCK_WIDTH) + 1]:
         plan = KA.fft_radices(M)
         assert int(np.prod(plan)) == M, M
         twos = [R for R in plan if R % 2 == 0]
@@ -105,19 +108,20 @@ def test_fft_plan_and_twiddles_every_width():
             assert 8 * (wide + 2) * KA.fft_hop_stride(M) > SMEM_BYTES, M
 
 
-@pytest.mark.parametrize("M", [7, 6, 4, 4097, 4098, 8192, 1023])
+@pytest.mark.parametrize("M", [7, 6, 4, 4097, 8194, 16384, 1023])
 def test_widths_the_tile_refuses(M):
-    """Only odd M, M < 8 and M past 4096 are refused, naming the rule."""
-    with pytest.raises(ValueError, match="even M from 8 to 4096"):
+    """Only odd M, M < 8 and M past 8192 are refused, naming the rule."""
+    with pytest.raises(ValueError, match="even M from 8 to 8192"):
         KA.check_fft_width(M)
 
 
 def test_every_even_width_is_taken():
     for M in (8, 10, 12, 22, 96, 384, 768, 1458, 1536, 2038, 2046, 2048,
-              2050, 2304, 3072, 4000, 4094, 4096):
+              2050, 2304, 3072, 4000, 4094, 4096, 4098, 4100, 6144, 8190,
+              8192):
         KA.check_fft_width(M)
-    assert KA.FFT_WIDTHS == tuple(range(8, 4097, 2))
-    assert 4096 in KA.LIBRARY_WIDTHS
+    assert KA.FFT_WIDTHS == tuple(range(8, 8193, 2))
+    assert 4096 in KA.LIBRARY_WIDTHS and 8192 not in KA.LIBRARY_WIDTHS
 
 
 # ---- the kernels' geometry at every width (the mirror of the CUDA
@@ -125,22 +129,25 @@ def test_every_even_width_is_taken():
 
 def _smem(M, H):
     """A block's shared memory, counted afresh: H hops of the padded plane
-    (8 bytes a value, one value of padding every 32, plus one), and the
-    twiddle table beside it up to M = 2048."""
+    of its channels (M, or M/2 past 4096, where a cluster of two blocks
+    shares each hop; 8 bytes a value, one value of padding every 32, plus
+    one), and the twiddle table beside it up to M = 2048."""
     table = len(KA.fft_twiddle_exponents(M)) if M <= 2048 else 0
-    return 8 * (H * (M + M // 32 + 1) + table)
+    C = M if M <= 4096 else M // 2
+    return 8 * (H * (C + C // 32 + 1) + table)
 
 
 def test_kernel_shared_memory_fits_every_width():
     """K1 (FFT_TILE_HOPS) and K2-K4 (FFT_WIDE_HOPS) at every even M from
-    8 to 4096: the wrapper's shared-memory bytes are the plane and table
+    8 to 8192: the wrapper's shared-memory bytes are the plane and table
     counted afresh, and fit the 232,448 bytes a Hopper block may opt in
-    to; M = 4096 holds six hops (202,800 bytes)."""
+    to; M = 4096 holds six hops (202,800 bytes), and so does each block
+    of M = 8192's cluster."""
     for M in KA.FFT_WIDTHS:
         for H in (KA.FFT_TILE_HOPS[M], KA.FFT_WIDE_HOPS[M]):
             assert KA.fft_smem_bytes(M, H) == _smem(M, H) <= SMEM_BYTES, M
-    assert KA.FFT_WIDE_HOPS[4096] == 6
-    assert KA.fft_smem_bytes(4096, 6) == 202800
+    assert KA.FFT_WIDE_HOPS[4096] == KA.FFT_WIDE_HOPS[8192] == 6
+    assert KA.fft_smem_bytes(4096, 6) == KA.fft_smem_bytes(8192, 6) == 202800
     # the twiddle table beside six hops would not fit at 4096
     assert 202800 + 8 * len(KA.fft_twiddle_exponents(4096)) > SMEM_BYTES
 
@@ -152,23 +159,26 @@ def test_k3_owns_whole_symbols_at_sps3_every_width():
     for M in KA.FFT_WIDTHS:
         R = K3.run_hops(M, 3)
         assert R >= 3 and R % 3 == 0 and R + 3 <= KA.FFT_WIDE_HOPS[M], M
-    assert K3.run_hops(4096, 3) == 3
+    assert K3.run_hops(4096, 3) == K3.run_hops(8192, 3) == 3
 
 
 def test_k4_thread_columns_at_most_two_every_width():
     """K4 at every even M and both rings (T <= 8: 2·8 sums, T <= 16: 2·16):
     a thread holds at most 2 columns and at most 3·2·8·2 = 96 registers of
-    ring (sums and gains), the column groups cover the P = M/2 columns,
-    one group up to M = 1024 at T = 8 (512 at T = 16)."""
+    ring (sums and gains), the column groups -- each one block, or past
+    4096 a cluster of two that split its columns -- cover the P = M/2
+    columns, one group up to M = 1024 at T = 8 (512 at T = 16)."""
     for M in KA.FFT_WIDTHS:
         P = M // 2
+        ranks = KA.fft_cluster_size(M)
         for T in (8, 16):
             cols, G = K4.thread_columns(M, T), K4.column_groups(M, T)
             assert 1 <= cols <= 2, (M, T)
             assert 3 * 2 * T * cols <= 96, (M, T)
-            assert G * 256 * cols >= P > (G - 1) * 256 * cols, (M, T)
+            assert G * ranks * 256 * cols >= P \
+                > (G - 1) * ranks * 256 * cols, (M, T)
             assert (G == 1) == (M <= (1024 if T == 8 else 512)), (M, T)
-    assert K4.column_groups(4096, 8) == 4
+    assert K4.column_groups(4096, 8) == K4.column_groups(8192, 8) == 4
     assert K4.column_groups(1536, 8) == K4.column_groups(2048, 8) == 2
 
 
@@ -324,9 +334,23 @@ def test_plain_k4_matches_pallas_at_4096():
 
 
 BLOCK_HOPS = 3600          # a 2-word burst is (48 + 2·240)·2·3 = 3168 hops
+# at M=8192 the plain path's dense transform costs twice 4096's a hop, so
+# the block is two one-word bursts in 1792 hops (a one-word burst is
+# (48 + 240)·2·3 = 1728 hops): 7.3 M samples
+WIDEST_BLOCK_HOPS = 1792
+
+
+class _OneWordBurst(MobileEvent):
+    """A page response's first word alone: the shortest burst."""
+
+    def words(self):
+        return super().words()[:1]
 
 
 def _events(M):
+    if M == 8192:
+        return [_OneWordBurst("page_response", 1, 40, "4155559876"),
+                _OneWordBurst("page_response", M - 2, 60, "7735550000")]
     return [MobileEvent("page_response", 1, 120, "4155559876"),
             MobileEvent("page_response", M // 2 + 3, 300, "2125550000"),
             MobileEvent("page_response", M - 2, 400, "7735550000")]
@@ -336,7 +360,8 @@ def _events(M):
 def _band(M):
     spec = JSpec(num_channels=M, taps_per_phase=8, fold="bank")
     events = _events(M)
-    return np.asarray(synthesize_reverse_band(events, spec, BLOCK_HOPS,
+    hops = WIDEST_BLOCK_HOPS if M == 8192 else BLOCK_HOPS
+    return np.asarray(synthesize_reverse_band(events, spec, hops,
                                               noise_sigma=0.001)), events
 
 
@@ -345,10 +370,11 @@ def _specs(M):
     return JSpec(**kw), TSpec(**kw)
 
 
-@pytest.mark.parametrize("M", [96, 768, 4096])
+@pytest.mark.parametrize("M", [96, 768, 4096, 8192])
 def test_rx_block_matches_jax_at_width(M):
     """rx_multichannel_block, f32 spec, three planted bursts in 3600
-    hops (at M=4096 a band of 7.4 M samples, ~20 s on one CPU thread):
+    hops (at M=4096 a band of 7.4 M samples, ~20 s on one CPU thread;
+    at M=8192 two one-word bursts in 1792 hops, 7.3 M samples, ~40 s):
     the port's plain path against the JAX block; noise-only slots whose
     first trigger moved are at most 2% of the slots."""
     x, events = _band(M)
