@@ -29,7 +29,9 @@
 // riq, 48 per plane planar, at M = 1024).  Offsets into Y are 64-bit.
 // No atomics.  Past M = 4096 a cluster of two blocks runs each run, block
 // rank r folding and storing channels rN .. rN+N-1 (N = M/2; the tile's
-// combine, analysis_fft.cuh); the grid's x is then 2 x the runs.
+// combine, analysis_fft.cuh); the grid's x is then 2 x the runs.  Any
+// number of taps T: each width has a kernel for T <= 16 and one that
+// folds a longer filter in chunks of 16 taps (kLongT, analysis_fft.cuh).
 
 #include <cuda_runtime.h>
 
@@ -37,7 +39,7 @@
 
 namespace {
 
-template <int M>
+template <int M, bool kLongT>
 __global__ void __launch_bounds__(kFftThreads, fft_min_blocks(M))
 analysis_kernel(const float* __restrict__ x, int planar_in, long long n_ext,
                 const float* __restrict__ coef,   // (T, M) fold coefficients
@@ -51,7 +53,7 @@ analysis_kernel(const float* __restrict__ x, int planar_in, long long n_ext,
   // tile hop l is stream hop h0 + l
   const int h0 = static_cast<int>(blockIdx.x / Tile::RK) * H;
   tile.load_twiddles(tw);
-  tile.fold(x, planar_in, n_ext, coef, T, h0);
+  tile.template fold<kLongT>(x, planar_in, n_ext, coef, T, h0);
   __syncthreads();
   tile.fft();
   const size_t plane = static_cast<size_t>(M) * Nh;
@@ -102,7 +104,8 @@ extern "C" int analysis_fft_radix(int M, int p) {
 extern "C" int analysis_cluster_size(int M) {
   return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
 }
-// clusters of the kernel the card holds at once at a cluster width M
+// clusters of the kernel (the fewer of its two instantiations) the card
+// holds at once at a cluster width M
 // (-1: M not taken or not a cluster width; below -1: -(the CUDA error))
 extern "C" int analysis_max_clusters(int M) {
   return with_width(M, [](auto w) {
@@ -110,8 +113,9 @@ extern "C" int analysis_max_clusters(int M) {
     if constexpr (fft_ranks(Mw) == 1) {
       return -1;
     } else {
-      return fft_max_clusters<Mw>(
-          analysis_kernel<Mw>, FftTile<Mw, fft_tile_hops(Mw)>::kSmemBytes);
+      return fft_max_clusters<Mw>(analysis_kernel<Mw, false>,
+                                  analysis_kernel<Mw, true>,
+                                  FftTile<Mw, fft_tile_hops(Mw)>::kSmemBytes);
     }
   });
 }
@@ -121,15 +125,19 @@ extern "C" int analysis_launch(const void* x, int planar_in, long long n_ext,
                                const void* coef, const void* tw, void* y,
                                int planar_out, int M, int T, int Nh,
                                int hop0_parity, void* stream) {
-  if (T < 1 || T > kFftMaxT || Nh < 1 ||
+  if (T < 1 || Nh < 1 ||
       n_ext != static_cast<long long>(Nh + 2 * T - 1) * (M / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rc = with_width(M, [&](auto w) {
     constexpr int Mw = decltype(w)::value;
     using Tile = FftTile<Mw, fft_tile_hops(Mw)>;
     const dim3 grid((Nh + Tile::H - 1) / Tile::H * Tile::RK);
+    // a filter longer than kFftChunkT taps: the instantiation that
+    // folds in chunks
+    const auto kernel =
+        T > kFftChunkT ? analysis_kernel<Mw, true> : analysis_kernel<Mw, false>;
     return fft_launch<Mw>(
-        analysis_kernel<Mw>, grid, Tile::kSmemBytes,
+        kernel, grid, Tile::kSmemBytes,
         static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
         planar_in, n_ext, static_cast<const float*>(coef),
         static_cast<const float2*>(tw), static_cast<float*>(y), planar_out,

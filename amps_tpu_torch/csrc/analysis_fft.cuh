@@ -26,7 +26,16 @@
 //     warp reads 256 contiguous bytes of a row.  The taps add in order
 //     t = 0, 1, ... (fmaf from 0) for every hop.  Rows outside the input
 //     load as zero; hops outside [0, Nh) are computed like any other and
-//     never stored.
+//     never stored.  Past T = 16 the taps fold in chunks of 16, in a
+//     kernel instantiation of its own (kLongT), so that the short
+//     filters' kernels stay as they were: chunk c loads the H/2 + 15
+//     rows of taps 16c .. 16c+15 as above (8 taps a chunk where
+//     registers are tightest, kFoldChunk) and adds them into each hop's
+//     running sum, which waits between chunks in the thread's own cells
+//     of the plane (the f32 value a register would hold, so the sum is
+//     the one an unchunked fold would make, in the same order), and the
+//     chunk loop is not unrolled: any T takes the registers and code of
+//     one chunk.
 //   * load_rows (instead of the fold): H hop-major rows of M complex
 //     values copied straight into the plane by cp.async, consecutive
 //     threads on consecutive values; rows outside [0, Nh) load as zero.
@@ -118,7 +127,7 @@
 namespace {
 
 constexpr int kFftThreads = 256;
-constexpr int kFftMaxT = 16;     // taps per phase held in registers
+constexpr int kFftChunkT = 16;   // taps a fold chunk holds in registers
 constexpr int kFftValues = 16;   // complex values a thread holds in a pass
 
 // the widest transform one block runs; past it a cluster of
@@ -429,6 +438,12 @@ struct FftTile {
   static constexpr int HS = fft_hop_stride(N);  // hop stride of the plane
   static constexpr int TWN = fft_table_size(M);
   static constexpr int kSmemBytes = fft_smem_bytes(M, H);
+  // taps of a chunk of a long filter's fold: kFftChunkT, or 8 where a
+  // thread folds 16 hops or the plan has the generic pass, where K3's
+  // long-filter instantiations spilled 4-104 bytes with 16 (ptxas, M =
+  // 160, 256, 448, 512, 2038); the sum is the same either way
+  static constexpr int kFoldChunk =
+      FH >= 16 || fft_has_generic(N) ? 8 : kFftChunkT;
   static constexpr bool kSharedTw = fft_shared_twiddles(M);
   static_assert(H % 2 == 0 && M >= 8 && M <= kFftMaxWidth && M % 2 == 0,
                 "even widths 8 .. 8192");
@@ -486,17 +501,24 @@ struct FftTile {
 
   // The folded windows of hops a0 .. a0+H-1 into the plane (in a
   // cluster, the block's half f[2m + rank]).  x is (n_ext, 2)
-  // interleaved or (2, n_ext) planar, n_ext a multiple of P.
+  // interleaved or (2, n_ext) planar, n_ext a multiple of P.  A kernel
+  // instantiated for kLongT takes T > kFftChunkT, in chunks of
+  // kFoldChunk taps; one without it T <= kFftChunkT, so that a long
+  // filter's fold never costs a short one registers.
+  template <bool kLongT = false>
   __device__ __forceinline__ void fold(const float* __restrict__ x,
                                        int planar, long long n_ext,
                                        const float* __restrict__ coef, int T,
                                        int a0) {
-    if (T <= 8) {
+    if constexpr (kLongT) {
+      if (planar) fold_rows<true, kFoldChunk, true>(x, n_ext, coef, T, a0);
+      else fold_rows<false, kFoldChunk, true>(x, n_ext, coef, T, a0);
+    } else if (T <= 8) {
       if (planar) fold_rows<true, 8>(x, n_ext, coef, T, a0);
       else fold_rows<false, 8>(x, n_ext, coef, T, a0);
     } else {
-      if (planar) fold_rows<true, kFftMaxT>(x, n_ext, coef, T, a0);
-      else fold_rows<false, kFftMaxT>(x, n_ext, coef, T, a0);
+      if (planar) fold_rows<true, kFftChunkT>(x, n_ext, coef, T, a0);
+      else fold_rows<false, kFftChunkT>(x, n_ext, coef, T, a0);
     }
   }
 
@@ -523,8 +545,11 @@ struct FftTile {
 
   // fold for T <= MT: all FH + MT - 1 rows are loaded before any tap
   // adds (a row past the taps or outside the input loads as zero, its
-  // coefficient is zero), so a thread's loads are in flight together
-  template <bool PLANAR, int MT>
+  // coefficient is zero), so a thread's loads are in flight together.
+  // CHUNKED (T > MT): the same for each chunk of MT taps t0 .. t0+MT-1,
+  // in order, each hop's sum carried from chunk to chunk in the thread's
+  // own cell of the plane
+  template <bool PLANAR, int MT, bool CHUNKED = false>
   __device__ __forceinline__ void fold_rows(const float* __restrict__ x,
                                             long long n_ext,
                                             const float* __restrict__ coef,
@@ -535,30 +560,39 @@ struct FftTile {
       const int g = it / N, c = it % N;     // hops g, g + 2, ... of the tile
       const int m = RK > 1 ? 2 * c + rank() : c;   // the window's sample
       const int hi = m >= P ? 1 : 0, col = m - hi * P;
-      float cf[MT];
-      float2 xv[FH + MT - 1];
+#pragma unroll 1
+      for (int t0 = 0; t0 < (CHUNKED ? T : 1); t0 += MT) {
+        const int TC = CHUNKED ? min(MT, T - t0) : T;   // the chunk's taps
+        float cf[MT];
+        float2 xv[FH + MT - 1];
 #pragma unroll
-      for (int t = 0; t < MT; ++t)
-        cf[t] = t < T ? __ldg(coef + t * M + m) : 0.f;
+        for (int t = 0; t < MT; ++t)
+          cf[t] = t < TC ? __ldg(coef + (t0 + t) * M + m) : 0.f;
 #pragma unroll
-      for (int i = 0; i < FH + MT - 1; ++i) {
-        const long long row = a0 + g + 2 * i + hi;
-        const bool ok = i < FH + T - 1 && row >= 0 && row < nrow;
-        const long long s = ok ? row * P + col : 0;
-        const float2 v =
-            PLANAR ? make_float2(__ldg(x + s), __ldg(x + n_ext + s))
-                   : __ldg(reinterpret_cast<const float2*>(x) + s);
-        xv[i] = ok ? v : make_float2(0.f, 0.f);
-      }
-#pragma unroll
-      for (int j = 0; j < FH; ++j) {
-        float fr = 0.f, fi = 0.f;
-#pragma unroll
-        for (int t = 0; t < MT; ++t) {
-          fr = fmaf(cf[t], xv[j + t].x, fr);
-          fi = fmaf(cf[t], xv[j + t].y, fi);
+        for (int i = 0; i < FH + MT - 1; ++i) {
+          const long long row = a0 + g + 2 * (t0 + i) + hi;
+          const bool ok = i < FH + TC - 1 && row >= 0 && row < nrow;
+          const long long s = ok ? row * P + col : 0;
+          const float2 v =
+              PLANAR ? make_float2(__ldg(x + s), __ldg(x + n_ext + s))
+                     : __ldg(reinterpret_cast<const float2*>(x) + s);
+          xv[i] = ok ? v : make_float2(0.f, 0.f);
         }
-        S[(g + 2 * j) * HS + pad(c)] = make_float2(fr, fi);
+#pragma unroll
+        for (int j = 0; j < FH; ++j) {
+          float2* f = S + (g + 2 * j) * HS + pad(c);
+          float fr = 0.f, fi = 0.f;
+          if (CHUNKED && t0 > 0) {
+            fr = f->x;
+            fi = f->y;
+          }
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            fr = fmaf(cf[t], xv[j + t].x, fr);
+            fi = fmaf(cf[t], xv[j + t].y, fi);
+          }
+          *f = make_float2(fr, fi);
+        }
       }
     }
   }
@@ -821,6 +855,13 @@ int fft_max_clusters(void (*kernel)(Params...), int smem) {
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return err != cudaSuccess ? -static_cast<int>(err) : n;
+}
+// The fewer of two kernels' clusters (or the first one's error).
+template <int M, class K>
+int fft_max_clusters(K a, K b, int smem) {
+  const int na = fft_max_clusters<M>(a, smem);
+  const int nb = fft_max_clusters<M>(b, smem);
+  return na < 0 ? na : (nb < 0 ? nb : (na < nb ? na : nb));
 }
 
 }  // namespace

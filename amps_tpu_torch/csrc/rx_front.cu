@@ -34,7 +34,9 @@
 // atomics: every output element has one writer.  Past M = 4096 a
 // cluster of two blocks runs each run, block rank r holding channels
 // rN .. rN+N-1 (N = M/2; the tile's combine, analysis_fft.cuh); the
-// grid's x is then 2 x the runs.
+// grid's x is then 2 x the runs.  Any number of taps T: each width has
+// a kernel for T <= 16 and one that folds a longer filter in chunks of
+// 16 taps (kLongT, analysis_fft.cuh).
 
 #include <cuda_runtime.h>
 
@@ -42,7 +44,7 @@
 
 namespace {
 
-template <int M>
+template <int M, bool kLongT>
 __global__ void __launch_bounds__(kFftThreads, fft_min_blocks(M))
 rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
                 const float* __restrict__ coef,   // (T, M) fold coefficients
@@ -60,7 +62,7 @@ rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
   // tile hop l is stream hop h0-1+l
   const int h0 = static_cast<int>(blockIdx.x / Tile::RK) * HO;
   tile.load_twiddles(tw);
-  tile.fold(x, planar, n_ext, coef, T, h0 - 1);
+  tile.template fold<kLongT>(x, planar, n_ext, coef, T, h0 - 1);
   __syncthreads();
   tile.fft();
   for (int e = threadIdx.x; e < N * HO; e += kFftThreads) {
@@ -113,7 +115,8 @@ extern "C" int rx_front_fft_radix(int M, int p) {
 extern "C" int rx_front_cluster_size(int M) {
   return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
 }
-// clusters of the kernel the card holds at once at a cluster width M
+// clusters of the kernel (the fewer of its two instantiations) the card
+// holds at once at a cluster width M
 // (-1: M not taken or not a cluster width; below -1: -(the CUDA error))
 extern "C" int rx_front_max_clusters(int M) {
   return with_width(M, [](auto w) {
@@ -121,8 +124,9 @@ extern "C" int rx_front_max_clusters(int M) {
     if constexpr (fft_ranks(Mw) == 1) {
       return -1;
     } else {
-      return fft_max_clusters<Mw>(
-          rx_front_kernel<Mw>, FftTile<Mw, fft_wide_hops(Mw)>::kSmemBytes);
+      return fft_max_clusters<Mw>(rx_front_kernel<Mw, false>,
+                                  rx_front_kernel<Mw, true>,
+                                  FftTile<Mw, fft_wide_hops(Mw)>::kSmemBytes);
     }
   });
 }
@@ -133,15 +137,19 @@ extern "C" int rx_front_launch(const void* x, int planar, long long n_ext,
                                const void* prev, void* demod, void* pw,
                                void* last, int M, int T, int Nh,
                                int hop0_parity, void* stream) {
-  if (T < 1 || T > kFftMaxT || Nh < 1 ||
+  if (T < 1 || Nh < 1 ||
       n_ext != static_cast<long long>(Nh + 2 * T - 1) * (M / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rc = with_width(M, [&](auto w) {
     constexpr int Mw = decltype(w)::value;
     using Tile = FftTile<Mw, fft_wide_hops(Mw)>;
     const dim3 grid((Nh + Tile::H - 2) / (Tile::H - 1) * Tile::RK);
+    // a filter longer than kFftChunkT taps: the instantiation that
+    // folds in chunks
+    const auto kernel =
+        T > kFftChunkT ? rx_front_kernel<Mw, true> : rx_front_kernel<Mw, false>;
     return fft_launch<Mw>(
-        rx_front_kernel<Mw>, grid, Tile::kSmemBytes,
+        kernel, grid, Tile::kSmemBytes,
         static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
         planar, n_ext, static_cast<const float*>(coef),
         static_cast<const float2*>(tw), static_cast<const float2*>(prev),

@@ -48,7 +48,9 @@
 // runs), block rank r holding channels rN .. rN+N-1 (N = M/2; the tile's
 // combine, analysis_fft.cuh): the discriminator, dump and power above run
 // on the block's N channels, six hops at M = 8192 and a run of 3 at
-// sps = 3.
+// sps = 3.  Any number of taps T: each width has a kernel for T <= 16
+// and one that folds a longer filter in chunks of 16 taps (kLongT,
+// analysis_fft.cuh).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -65,7 +67,7 @@ __host__ __device__ constexpr int run_hops(int M, int sps) {
   return sps < 1 ? 0 : (fft_wide_hops(M) - sps) / sps * sps;
 }
 
-template <int M>
+template <int M, bool kLongT>
 __global__ void __launch_bounds__(kFftThreads, fft_min_blocks(M))
 rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
                  const float* __restrict__ coef,   // (T, M) fold coefficients
@@ -87,7 +89,7 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
   const size_t ph0 = band * M * sps * static_cast<size_t>(nsym);
   const int h0 = run * R;                 // tile hop l is stream hop h0-1+l
   tile.load_twiddles(tw);
-  tile.fold(x, planar, n_ext, coef, T, h0 - 1);
+  tile.template fold<kLongT>(x, planar, n_ext, coef, T, h0 - 1);
   __syncthreads();
   tile.fft();
 
@@ -226,7 +228,8 @@ extern "C" int rx_phases_fft_radix(int M, int p) {
 extern "C" int rx_phases_cluster_size(int M) {
   return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
 }
-// clusters of the kernel the card holds at once at a cluster width M
+// clusters of the kernel (the fewer of its two instantiations) the card
+// holds at once at a cluster width M
 // (-1: M not taken or not a cluster width; below -1: -(the CUDA error))
 extern "C" int rx_phases_max_clusters(int M) {
   return with_width(M, [](auto w) {
@@ -234,8 +237,9 @@ extern "C" int rx_phases_max_clusters(int M) {
     if constexpr (fft_ranks(Mw) == 1) {
       return -1;
     } else {
-      return fft_max_clusters<Mw>(
-          rx_phases_kernel<Mw>, FftTile<Mw, fft_wide_hops(Mw)>::kSmemBytes);
+      return fft_max_clusters<Mw>(rx_phases_kernel<Mw, false>,
+                                  rx_phases_kernel<Mw, true>,
+                                  FftTile<Mw, fft_wide_hops(Mw)>::kSmemBytes);
     }
   });
 }
@@ -250,7 +254,7 @@ extern "C" int rx_phases_launch(const void* x, int planar, long long n_ext,
                                 void* pw_blk, int M, int T, int sps, int Nh,
                                 int nsym, int hop0_parity, int nrun, int G,
                                 void* stream) {
-  if (T < 1 || T > kFftMaxT || Nh < sps || nsym < 0 || G < 1 || G > 65535 ||
+  if (T < 1 || Nh < sps || nsym < 0 || G < 1 || G > 65535 ||
       n_ext != static_cast<long long>(Nh + 2 * T - 1) * (M / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -260,8 +264,12 @@ extern "C" int rx_phases_launch(const void* x, int planar, long long n_ext,
     const int R = run_hops(Mw, sps);
     if (R < sps || nrun != (Nh + R - 1) / R)
       return static_cast<int>(cudaErrorInvalidValue);
+    // a filter longer than kFftChunkT taps: the instantiation that
+    // folds in chunks
+    const auto kernel = T > kFftChunkT ? rx_phases_kernel<Mw, true>
+                                       : rx_phases_kernel<Mw, false>;
     int err = fft_launch<Mw>(
-        rx_phases_kernel<Mw>, dim3(nrun * Tile::RK, G), Tile::kSmemBytes, st,
+        kernel, dim3(nrun * Tile::RK, G), Tile::kSmemBytes, st,
         static_cast<const float*>(x), planar, n_ext,
         static_cast<const float*>(coef), static_cast<const float2*>(tw),
         out_bf16 ? nullptr : static_cast<float*>(phases),

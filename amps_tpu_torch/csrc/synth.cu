@@ -78,6 +78,25 @@
 //     the first 2T-1 hops only warm the ring (the halo), hops outside
 //     [0, Nh) load as zero, and the run whose range reaches past Nh
 //     writes the new carry.  Every output sample has one writer; no atomics.
+//   * Past T = 16 taps (a ring of 2T sums would outgrow a thread's
+//     registers at every width, and past 4096 its parked 64 KB) the sum
+//     splits over chunks of 16 gain rows, by linearity: chunk c < C =
+//     ceil(T/16) takes the T_c = min(16, T - 16c) rows 16c .. 16c+T_c-1,
+//       y_c[b] = sum_{j<2T_c} gP[(32c + j)P + p] u_{b-j}[(j&1)P + p],
+//     the kernel above at T = T_c on those rows (32c is even, so each
+//     term keeps its half of u) with a zero carry, Nh + 2T_c - 1 hops;
+//     output hop h of the whole sum is sum_c y_c[h - 32c], plus the
+//     carry-in for h < 2T - 1 (synth_combine_kernel).  synth_launch runs
+//     the C chunk launches one after another on the stream into a scratch
+//     the caller allocates (synth_scratch_values), then the recombination,
+//     which writes the block and the new carry.  This leaves the kernel,
+//     and so every T <= 16, as it was; it costs C times the FFT and the
+//     row reads, and one pass over the chunks' planes.  The other way, a
+//     kernel that reads, adds and writes its chunk's share of the output
+//     in place, would save that pass but add a read and a flag to the
+//     ring's store, in a kernel whose registers are tight at every
+//     cluster width; a kernel that transforms each pass once for all
+//     chunks is later work.
 
 #include <cuda_runtime.h>
 
@@ -272,6 +291,56 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
   }
 }
 
+// The recombination of a filter of T > kFftChunkT taps: output hop h =
+// sum_c part_c[h - 2·16c] over the chunks c, ascending, each where it
+// lies in its Nh + 2T_c - 1 hops (part_c follow one another), then the
+// carry-in for h < 2T - 1; hops below Nh go to out, the rest to
+// carry_out.
+__global__ void __launch_bounds__(kFftThreads)
+synth_combine_kernel(const float2* __restrict__ part,
+                     const float2* __restrict__ carry_in,
+                     float2* __restrict__ out, float2* __restrict__ carry_out,
+                     int P, int T, int Nh) {
+  const long long n = static_cast<long long>(Nh + 2 * T - 1) * P;
+  const long long n_out = static_cast<long long>(Nh) * P;
+  for (long long i = static_cast<long long>(blockIdx.x) * kFftThreads +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * kFftThreads) {
+    const int h = static_cast<int>(i / P), p = static_cast<int>(i % P);
+    float2 s = make_float2(0.f, 0.f);
+    const float2* pc = part;
+#pragma unroll 1
+    for (int t0 = 0; t0 < T; t0 += kFftChunkT) {
+      const int hops = Nh + 2 * min(kFftChunkT, T - t0) - 1;
+      const int b = h - 2 * t0;
+      if (b >= 0 && b < hops) {
+        const float2 v = pc[static_cast<size_t>(b) * P + p];
+        s = make_float2(__fadd_rn(s.x, v.x), __fadd_rn(s.y, v.y));
+      }
+      pc += static_cast<size_t>(hops) * P;
+    }
+    if (h < 2 * T - 1) {
+      const float2 ci = carry_in[i];
+      s = make_float2(__fadd_rn(s.x, ci.x), __fadd_rn(s.y, ci.y));
+    }
+    if (i < n_out)
+      out[i] = s;
+    else
+      carry_out[i - n_out] = s;
+  }
+}
+
+// float2 values of the scratch a call of T taps needs: none up to
+// kFftChunkT; past it a zero carry of a chunk's 2·16 - 1 hops, then each
+// chunk's Nh + 2T_c - 1 hops
+inline long long synth_scratch(int M, int T, int Nh) {
+  if (T <= kFftChunkT) return 0;
+  long long hops = 2 * kFftChunkT - 1;
+  for (int t0 = 0; t0 < T; t0 += kFftChunkT)
+    hops += Nh + 2 * std::min(kFftChunkT, T - t0) - 1;
+  return hops * (M / 2);
+}
+
 template <int M, int MT>
 int launch_width(const void* Y, const void* tw, const void* gm,
                  const void* carry_in, void* out, void* carry_out, int T,
@@ -327,12 +396,21 @@ extern "C" int synth_tile_hops(int M) {
 extern "C" int synth_smem_bytes(int M) {
   return with_width(M, [](auto w) { return synth_smem(decltype(w)::value); });
 }
-// the column groups at width M and T taps (-1: M not taken)
+// the column groups at width M and T taps: the ring of 8 up to T = 8,
+// else that of 16, which every full chunk of T > 16 runs (-1: M not
+// taken)
 extern "C" int synth_column_groups(int M, int T) {
   return with_width(M, [T](auto w) {
     constexpr int Mw = decltype(w)::value;
-    return T <= 8 ? synth_groups(Mw, 8) : synth_groups(Mw, kFftMaxT);
+    return T <= 8 ? synth_groups(Mw, 8) : synth_groups(Mw, kFftChunkT);
   });
+}
+// float2 values of the scratch a call of T taps and Nh hops needs at
+// width M (-1: M not taken)
+extern "C" long long synth_scratch_values(int M, int T, int Nh) {
+  return with_width(M, [](auto) { return 0; }) < 0
+             ? -1
+             : synth_scratch(M, T, Nh);
 }
 // the FFT's plan at width M (a block's transform, M/2 in a cluster): its
 // number of passes and the radix of pass p (-1: M not taken)
@@ -359,29 +437,59 @@ extern "C" int synth_max_clusters(int M) {
     if constexpr (fft_ranks(Mw) == 1) {
       return -1;
     } else {
-      constexpr int smem = synth_smem(Mw);
-      const int a = fft_max_clusters<Mw>(synth_kernel<Mw, 8>, smem);
-      const int b = fft_max_clusters<Mw>(synth_kernel<Mw, kFftMaxT>, smem);
-      return a < 0 ? a : (b < 0 ? b : std::min(a, b));
+      return fft_max_clusters<Mw>(synth_kernel<Mw, 8>,
+                                  synth_kernel<Mw, kFftChunkT>,
+                                  synth_smem(Mw));
     }
   });
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches on `stream`; returns cudaGetLastError() (0 = launched).  Past
+// kFftChunkT taps: the chunk launches and the recombination, in
+// `scratch`, of scratch_n >= synth_scratch_values(M, T, Nh) float2
+// values (none needed up to kFftChunkT).
 extern "C" int synth_launch(const void* Y, const void* tw, const void* gm,
                             const void* carry_in, void* out, void* carry_out,
-                            int M, int T, int Nh, int hop0_parity,
-                            void* stream) {
-  if (T < 1 || T > kFftMaxT || Nh < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+                            void* scratch, long long scratch_n, int M, int T,
+                            int Nh, int hop0_parity, void* stream) {
+  if (T < 1 || Nh < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = with_width(M, [&](auto w) {
     constexpr int Mw = decltype(w)::value;
-    return T <= 8 ? launch_width<Mw, 8>(Y, tw, gm, carry_in, out, carry_out,
-                                        T, Nh, hop0_parity, st)
-                  : launch_width<Mw, kFftMaxT>(Y, tw, gm, carry_in, out,
-                                               carry_out, T, Nh, hop0_parity,
-                                               st);
+    // one launch of T_c <= kFftChunkT taps on the gain rows at g
+    const auto ring = [&](const float* g, const void* ci, void* o, void* co,
+                          int Tc) {
+      return Tc <= 8 ? launch_width<Mw, 8>(Y, tw, g, ci, o, co, Tc, Nh,
+                                           hop0_parity, st)
+                     : launch_width<Mw, kFftChunkT>(Y, tw, g, ci, o, co, Tc,
+                                                    Nh, hop0_parity, st);
+    };
+    if (T <= kFftChunkT)
+      return ring(static_cast<const float*>(gm), carry_in, out, carry_out, T);
+    if (scratch == nullptr || scratch_n < synth_scratch(Mw, T, Nh))
+      return static_cast<int>(cudaErrorInvalidValue);
+    constexpr int P = Mw / 2;
+    float2* zero = static_cast<float2*>(scratch);
+    float2* part = zero + (2 * kFftChunkT - 1) * P;
+    cudaError_t err = cudaMemsetAsync(
+        zero, 0, sizeof(float2) * (2 * kFftChunkT - 1) * P, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    float2* pc = part;
+    for (int t0 = 0; t0 < T; t0 += kFftChunkT) {
+      const int Tc = std::min(kFftChunkT, T - t0);
+      const float* g = static_cast<const float*>(gm) +
+                       static_cast<size_t>(t0) * Mw;   // gain rows t0 ..
+      const int e = ring(g, zero, pc, pc + static_cast<size_t>(Nh) * P, Tc);
+      if (e != 0) return e;
+      pc += static_cast<size_t>(Nh + 2 * Tc - 1) * P;
+    }
+    const long long n = static_cast<long long>(Nh + 2 * T - 1) * P;
+    const int blocks = static_cast<int>(
+        std::min<long long>((n + kFftThreads - 1) / kFftThreads, 8192));
+    synth_combine_kernel<<<blocks, kFftThreads, 0, st>>>(
+        part, static_cast<const float2*>(carry_in), static_cast<float2*>(out),
+        static_cast<float2*>(carry_out), P, T, Nh);
+    return static_cast<int>(cudaGetLastError());
   });
   return rc < 0 ? static_cast<int>(cudaErrorInvalidValue) : rc;
 }

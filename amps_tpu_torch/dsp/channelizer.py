@@ -145,11 +145,13 @@ def synthesizer_init(spec: ChannelizerSpec, batch: Tuple[int, ...] = (),
 
 
 def _synthesize_block(Y, M: int, T: int, hop0_parity: int, carry,
-                      split: int = 0):
+                      split: int = 0, taps=None):
     """Y: (..., Nh, M, 2) channel basebands -> (..., Nh*P, 2) wideband +
     new overlap-add carry (..., L-P, 2).  Overlap-add in P-sample block
     coordinates: output block b sample p receives
-    sum_j g[jP+p] * u_{b-j}[(j&1)P + p]."""
+    sum_j g[jP+p] * u_{b-j}[(j&1)P + p].  ``taps``: the M*T prototype
+    taps g/P (default ``prototype_taps(M, T)``), e.g. rows of a longer
+    filter's."""
     L = M * T
     P = M // 2
     Nh = Y.shape[-3]
@@ -157,7 +159,8 @@ def _synthesize_block(Y, M: int, T: int, hop0_parity: int, carry,
     yr = Y[..., 0] * sgn
     yi = Y[..., 1] * sgn
     ur, ui = _transform_hopmajor(yr, yi, M, split)               # (..., Nh, M)
-    gm = _const(prototype_taps(M, T), Y).reshape(T, M) * np.float32(P)
+    gm = _const(prototype_taps(M, T) if taps is None else taps,
+                Y).reshape(T, M) * np.float32(P)
     LP = L // P
     batch = Y.shape[:-3]
     nb_out = Nh + LP - 1

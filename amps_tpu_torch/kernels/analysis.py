@@ -11,7 +11,8 @@ fallback from one to the other.  ``dsp.channelizer.analyze`` calls the
 wrapper.
 
 All four kernels run one all-channel FFT tile (``csrc/analysis_fft.cuh``):
-a thread block folds each of its hops once (or, for the synthesis in
+a thread block folds each of its hops once, any number of taps T (past
+``CHUNK_TAPS`` in chunks of that many) (or, for the synthesis in
 ``kernels.synth``, loads hop-major rows of channel basebands) and
 transforms them with an f32 Stockham FFT whose radices are
 ``fft_radices(M)`` (mixed radix: 16, then 2, 4 or 8, then the odd prime
@@ -44,7 +45,10 @@ import torch
 from amps_tpu_torch.dsp.polyphase import _analysis_consts, _hop_sign
 from amps_tpu_torch.kernels import build
 
-MAX_TAPS = 16              # taps per phase the tiles hold (csrc kMaxT)
+# taps per phase one chunk of the fold holds in registers, and the gain
+# rows of one chunk launch of the synthesis (csrc kFftChunkT); a longer
+# filter runs in chunks of this many
+CHUNK_TAPS = 16
 # the widest transform one thread block runs (csrc kFftBlockWidth); past
 # it a cluster of CLUSTER_SIZE blocks shares each hop
 BLOCK_WIDTH = 4096
@@ -283,15 +287,15 @@ def check_fft_width(M: int) -> None:
 def card_block(x_ext: torch.Tensor, M: int, T: int):
     """The checks every front-end kernel makes of its input block on the
     card: a contiguous float32 CUDA tensor of whole hops (``block_geometry``),
-    1 <= T <= MAX_TAPS, and the alignment of its layout (8 bytes riq, 4
-    planar).  Each wrapper checks M against its own tile.  Returns
-    (planar, n_ext, Nh)."""
+    T >= 1 (past CHUNK_TAPS the fold runs in chunks), and the alignment of
+    its layout (8 bytes riq, 4 planar).  Each wrapper checks M against its
+    own tile.  Returns (planar, n_ext, Nh)."""
     if x_ext.device.type != "cuda":
         raise ValueError(f"unsupported device {x_ext.device}")
     if x_ext.dtype != torch.float32 or not x_ext.is_contiguous():
         raise ValueError("x_ext must be contiguous float32")
-    if not 1 <= T <= MAX_TAPS:
-        raise ValueError(f"kernel needs 1 <= T <= {MAX_TAPS} (T={T})")
+    if T < 1:
+        raise ValueError(f"kernel needs T >= 1 (T={T})")
     planar, n_ext, Nh = block_geometry(x_ext, M, T)
     if x_ext.data_ptr() % (4 if planar else 8):
         raise ValueError("x_ext must be 8-byte aligned (interleaved) or "

@@ -20,6 +20,13 @@ and split the group's columns; the groups stay as many as at 4096, and
 each thread's ring (32 running sums) waits in shared memory while the
 tile transforms a pass, so a pass takes ``SYNTH_HOPS[M]`` hops (4 at
 8192), fewer than the other kernels' ``FFT_WIDE_HOPS[M]``.
+
+Past ``CHUNK_TAPS`` (16) taps the overlap-add splits by linearity into
+chunks of 16 gain rows (``tap_chunks``): each chunk is one launch of the
+kernel on its rows with a zero carry, into a scratch plane, and a small
+kernel adds the chunks' planes, chunk c shifted by 32c hops, and the
+carry-in into the block and the new carry.  A call of T taps is then
+``chunk_launches(T)`` launches of the kernel (``LAUNCHES`` counts each).
 """
 
 from __future__ import annotations
@@ -31,9 +38,11 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.dsp import channelizer as chz
-from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, FFT_WIDTHS,
-                                             MAX_TAPS, SMEM_BYTES, _tables,
-                                             bind, check_fft_width,
+from amps_tpu_torch.kernels import build
+from amps_tpu_torch.kernels.analysis import (CHUNK_TAPS, FFT_WIDE_HOPS,
+                                             FFT_WIDTHS, LIBRARY_WIDTHS,
+                                             SMEM_BYTES, _tables, bind,
+                                             check_fft_width,
                                              fft_cluster_size, fft_hop_stride,
                                              fft_plan_width, fft_smem_bytes,
                                              launch)
@@ -98,26 +107,63 @@ def thread_columns(M: int, T: int) -> int:
     """Columns of the ring a thread may hold (csrc
     synth_thread_columns): a block's ceil(P/256) (P/2 a block in a
     cluster), but at most 2 with the ring of T <= 8 (2·8 running sums)
-    and 1 with that of T <= 16 (2·16)."""
+    and 1 with that of 16 (2·16), which T <= 16 and every full chunk of
+    a longer filter run (a last chunk of at most 8 taps runs the ring of
+    8: ``thread_columns(M, taps)`` of its ``tap_chunks`` entry)."""
     return min(-(-(M // 2 // fft_cluster_size(M)) // 256), 2 if T <= 8 else 1)
 
 
 def column_groups(M: int, T: int) -> int:
     """Column groups of a pass, the grid's first axis (csrc
     synth_groups): ceil(P / (ranks · 256 · thread_columns)), 1 up to M =
-    1024 at T <= 8 (512 at T <= 16), each group's block (or cluster of
-    ``fft_cluster_size(M)`` blocks past 4096) transforming the pass's
-    hops itself."""
+    1024 at T <= 8 (512 with the ring of 16, T > 8), each group's block
+    (or cluster of ``fft_cluster_size(M)`` blocks past 4096)
+    transforming the pass's hops itself."""
     return -(-(M // 2) // (fft_cluster_size(M) * 256 * thread_columns(M, T)))
+
+
+def tap_chunks(T: int):
+    """(first gain row, taps) of each launch of a T-tap call (csrc
+    synth_launch): T itself up to CHUNK_TAPS, else chunks of CHUNK_TAPS
+    rows and a last one of the rest; chunk (t0, Tc) adds its Nh + 2Tc - 1
+    output hops from hop 2·t0 on."""
+    if T <= CHUNK_TAPS:
+        return [(0, T)]
+    return [(t0, min(CHUNK_TAPS, T - t0)) for t0 in range(0, T, CHUNK_TAPS)]
+
+
+def chunk_launches(T: int) -> int:
+    """Kernel launches of one T-tap call: ceil(T / CHUNK_TAPS)."""
+    return len(tap_chunks(T))
+
+
+def scratch_values(M: int, T: int, Nh: int) -> int:
+    """float2 values of the scratch a T-tap call of Nh hops needs (csrc
+    synth_scratch_values): none up to CHUNK_TAPS; past it a zero carry of
+    2·CHUNK_TAPS - 1 hops, then each chunk's plane of Nh + 2Tc - 1 hops."""
+    if T <= CHUNK_TAPS:
+        return 0
+    return (2 * CHUNK_TAPS - 1 + sum(Nh + 2 * tc - 1
+                                     for _, tc in tap_chunks(T))) * (M // 2)
 
 
 @functools.cache
 def _launcher(M: int):
+    """The launcher of width M, once its tile constants, column groups and
+    scratch sizes are the wrapper's."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return bind("synth", [p, p, p, p, p, p, i, i, i, i, p], M,
-                SYNTH_HOPS[M], smem_bytes(M),
-                column_groups={(M, T): column_groups(M, T)
-                               for T in (8, MAX_TAPS)})
+    fn = bind("synth", [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i,
+                        p], M, SYNTH_HOPS[M], smem_bytes(M),
+              column_groups={(M, T): column_groups(M, T)
+                             for T in (8, CHUNK_TAPS, 4 * CHUNK_TAPS)})
+    f = build.load(None if M in LIBRARY_WIDTHS else M).synth_scratch_values
+    f.argtypes, f.restype = [i, i, i], ctypes.c_longlong
+    got = {(T, Nh): f(M, T, Nh) for T, Nh in ((8, 5), (17, 5), (33, 8192))}
+    want = {k: scratch_values(M, *k) for k in got}
+    if got != want:
+        raise RuntimeError(f"synth kernel built for M={M} has the scratch "
+                           f"sizes {got}, the wrapper's {want}")
+    return fn
 
 
 @functools.cache
@@ -143,8 +189,6 @@ def synthesize_block(Y, M: int, T: int, hop0_parity: int, carry):
     if Y.dtype != torch.float32 or carry.dtype != torch.float32:
         raise ValueError("Y and carry must be float32")
     check_fft_width(M)
-    if T > MAX_TAPS:
-        raise ValueError(f"kernel needs T <= {MAX_TAPS} (T={T})")
     Y = Y.contiguous()
     carry = carry.contiguous()
     if Y.data_ptr() % 8 or carry.data_ptr() % 8:
@@ -156,8 +200,12 @@ def synthesize_block(Y, M: int, T: int, hop0_parity: int, carry):
     gm = _gain_taps(M, T, dev)
     out = torch.empty((Nh * (M // 2), 2), dtype=torch.float32, device=dev)
     new_carry = torch.empty_like(carry)
+    n = scratch_values(M, T, Nh)
+    scratch = torch.empty((n, 2), dtype=torch.float32, device=dev) \
+        if n else None
     launch("synth", _launcher(M), dev, Y.data_ptr(), tw.data_ptr(),
            gm.data_ptr(), carry.data_ptr(), out.data_ptr(),
-           new_carry.data_ptr(), M, T, Nh, int(hop0_parity) % 2)
-    LAUNCHES += 1
+           new_carry.data_ptr(), scratch.data_ptr() if n else None, n, M, T,
+           Nh, int(hop0_parity) % 2)
+    LAUNCHES += chunk_launches(T)
     return out, new_carry

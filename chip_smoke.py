@@ -40,7 +40,10 @@ of two thread blocks over distributed shared memory -- every kernel
 against its plain version at M = 4098, 4100, 6144, 8190 and 8192, their
 times at 6144 and 8192 beside 1024 and 4096, the same main path and
 short app call at M=8192 (a 245.76 Msps radio), the peak device memory
---; and
+--; filters longer than 16 taps a phase -- every kernel against its
+plain version at T = 17, 24, 32, 33 and 64 and M = 8 to 8192, their
+times at M=1024 for T = 8 to 64, the main path and one sharded step at
+M=1024, T=32 --; and
 times kernels and paths against their plain versions,
 their bounds and a cuFFT yardstick, with profiler windows of one
 one-shot block, one receiver push, one transmitter superframe, one
@@ -62,12 +65,19 @@ its launches and times on the closed loop or the batched block, for
 K1 and K4 their launches, errors and times at the sharded workers'
 shapes, and each kernel's errors at phase 29's widths and its times,
 bounds and cuFFT yardsticks at 768, 1024, 1536 and 2038 (``widths_*``),
-and the same at phase 30's (``wide_*``) and phase 31's (``widest_*``);
+and the same at phase 30's (``wide_*``) and phase 31's (``widest_*``),
+and phase 32's errors by M and times by T (``taps_*``);
 ``launches_by_path`` counts each kernel's launches on every path it
 runs, the soaks', the paced legs', the two processes' of the
 cross-process station and the M=768, M=4096 and M=8192 paths'
-(``m768_*``, ``m4096_*``, ``m8192_*``) among them.  Without a CUDA card
-it exits non-zero.
+(``m768_*``, ``m4096_*``, ``m8192_*``) and the T=32 paths' (``t32_*``)
+among them.  Without a CUDA card it exits non-zero.
+
+    python3 chip_smoke.py --digest TREE
+
+builds the port in source tree TREE and prints the sha256 of each
+kernel's outputs at T = 8 and 16 on fixed inputs (``digest``): run on
+two trees in one call, it shows a change leaving them bit for bit.
 """
 
 from __future__ import annotations
@@ -88,6 +98,7 @@ POWER_RTOL = 1e-4
 BF16_ATOL = 0.02           # bf16 phase output against the f32 plain version
 N_TIMED = 30
 KERNEL_REPS = 5            # back-to-back calls per timed kernel turn
+PROFILE_TRIES = 3          # profiler windows a profile_window may take
 BURST_HOPS = (30 + 11 + 7 + 7 * 240) * 2 * 3   # one RECC burst at sps 3
 # wideband noise of the phase-2 band: ~37 dB per-channel SNR at M=1024,
 # so that no channel is dominated by the f32 roundoff of the bursts
@@ -257,10 +268,11 @@ def timed(fns, n=N_TIMED, reps=1):
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
-def compare_synth(S, M, T, Nh, dev, seed):
+def compare_synth(S, M, T, Nh, dev, seed, rtol=SYNTH_RTOL):
     """Synthesis kernel vs plain version on random channel basebands
     with a nonzero carry-in, both hop parities, and two chained calls vs
-    one; errors relative to the output RMS.  Returns the max abs error."""
+    one; errors relative to the output RMS, held to ``rtol``.  Returns the
+    max abs error."""
     g = torch.Generator(dev).manual_seed(seed)
     Y = torch.randn((Nh, M, 2), device=dev, generator=g)
     carry = torch.randn((M * T - M // 2, 2), device=dev, generator=g)
@@ -271,10 +283,11 @@ def compare_synth(S, M, T, Nh, dev, seed):
         sync(dev)
         rms = rx.pow(2).mean().sqrt().item()
         ex, ec = (x - rx).abs().max().item(), (c - rc).abs().max().item()
-        log(f"  synth M={M} Nh={Nh} parity {parity}: max|err| {ex:.3e} "
-            f"({ex / rms:.2e} of RMS), carry {ec:.3e} ({ec / rms:.2e})")
+        log(f"  synth M={M} T={T} Nh={Nh} parity {parity}: max|err| "
+            f"{ex:.3e} ({ex / rms:.2e} of RMS), carry {ec:.3e} "
+            f"({ec / rms:.2e})")
         assert torch.isfinite(x).all() and torch.isfinite(c).all()
-        assert ex <= SYNTH_RTOL * rms and ec <= SYNTH_RTOL * rms
+        assert ex <= rtol * rms and ec <= rtol * rms
         max_abs = max(max_abs, ex, ec)
     h = Nh // 2 + 1
     xa, ca = S.synthesize_block(Y[:h].contiguous(), M, T, 0, carry)
@@ -284,7 +297,7 @@ def compare_synth(S, M, T, Nh, dev, seed):
     e = max((torch.cat([xa, xb]) - x).abs().max().item(),
             (cb - c).abs().max().item()) / x.pow(2).mean().sqrt().item()
     log(f"  synth M={M}: two chained calls vs one, max|err| {e:.2e} of RMS")
-    assert e <= SYNTH_RTOL
+    assert e <= rtol
     return max_abs
 
 
@@ -675,25 +688,35 @@ def profile_window(label, fn, dev, top=6, all_threads=False):
     # under this config
     config = (torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
               if all_threads else None)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 experimental_config=config) as prof:
-        # the first launch after the profiler starts may go unrecorded (a
-        # window that opens on a hand-written kernel lost its span in some
-        # runs): spend it on a fill, and count what starts in the window
-        torch.zeros(1, device=dev)
-        sync(dev)
-        t0 = time.perf_counter()
-        with record_function("profile_window"):
-            fn()
+    # a window whose trace holds no device activity at all is taken again,
+    # up to PROFILE_TRIES times (CUPTI dropped a whole window of the ear's
+    # once on a card where the same window had recorded 37 ops before)
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     experimental_config=config) as prof:
+            # the first launch after the profiler starts may go unrecorded
+            # (a window that opens on a hand-written kernel lost its span
+            # in some runs): spend it on a fill, and count what starts in
+            # the window
+            torch.zeros(1, device=dev)
             sync(dev)
-        wall_prof = (time.perf_counter() - t0) * 1e3
-    t_win = min(e.time_range.start for e in prof.events()
-                if e.name == "profile_window")
-    # a record_function range (profile_window's own, the port's
-    # utils.profiling.trace sections) is not device work
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and e.time_range.start >= t_win and e.name != "profile_window"
-          and not e.is_user_annotation]
+            t0 = time.perf_counter()
+            with record_function("profile_window"):
+                fn()
+                sync(dev)
+            wall_prof = (time.perf_counter() - t0) * 1e3
+        t_win = min(e.time_range.start for e in prof.events()
+                    if e.name == "profile_window")
+        # a record_function range (profile_window's own, the port's
+        # utils.profiling.trace sections) is not device work
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.time_range.start >= t_win and e.name != "profile_window"
+              and not e.is_user_annotation]
+        if ev:
+            break
+        log(f"  profile, {label}: the trace holds no device activity "
+            f"(try {attempt + 1} of {PROFILE_TRIES})")
     assert ev, f"{label}: the profiler saw no device activity"
     ranges = {}
     for e in prof.events():
@@ -994,7 +1017,7 @@ def fsk_band(M, T, Nh, seed, dev):
 
 def phase_small_widths(dev, Nh=4001, widths=(8, 16, 32), Ts=(4, 8),
                        label="phase 12: the small banks", times=True,
-                       seam=False):
+                       seam=False, bounds=None):
     """Phase 12: the four kernels against their plain versions at the
     small banks M = 8, 16, 32 (the station app's default bank is 8
     channels), T = 4 and 8, both parities, riq and planar where the
@@ -1003,7 +1026,10 @@ def phase_small_widths(dev, Nh=4001, widths=(8, 16, 32), Ts=(4, 8),
     T=8.  Phase 29 runs the same checks at its ``widths`` with ``seam``:
     a demod sample on fast_atan2's seam is then held as ``demod_err``
     holds it, and moves the sps phase symbols it enters by a third of
-    the step.  Returns ({kernel: {M: max abs error}}, {kernel: {M:
+    the step.  ``bounds`` ({kernel: bound}, phase 32) holds K1's max |err|
+    on its unit-modulus channels, K2's demod error off the seam
+    (radians) and K4's share of the output's RMS to tighter bounds than
+    ANALYSIS_ATOL, PHASE_ATOL and SYNTH_RTOL.  Returns ({kernel: {M: max abs error}}, {kernel: {M:
     (kernel ms, plain ms)}})."""
     from amps_tpu_torch.eval.traffic import unit_channel_band
     from amps_tpu_torch.kernels import analysis as KA
@@ -1079,9 +1105,13 @@ def phase_small_widths(dev, Nh=4001, widths=(8, 16, 32), Ts=(4, 8),
             assert torch.equal(torch.cat([da, db], 1), d) \
                 and torch.equal(torch.cat([pa, pb], 1), pw) \
                 and torch.equal(lb, last), (M, T)
-            e4 = max(e4, compare_synth(S, M, T, Nh, dev, M + T))
+            e4 = max(e4, compare_synth(S, M, T, Nh, dev, M + T,
+                                       bounds["synth"] if bounds
+                                       else SYNTH_RTOL))
         for name, e in zip(errs, (e1, e2, e3, e4)):
             errs[name][M] = e
+        assert bounds is None or (e1 <= bounds["analysis"]
+                                  and e2 <= bounds["rx_front"]), (M, e1, e2)
         log(f"  M={M}: max|err| analysis {e1:.3e}, rx_front demod {e2:.3e}, "
             f"rx_phases {e3:.3e}, synth {e4:.3e}; K1 and K2 chained calls "
             f"equal one bit for bit")
@@ -1182,13 +1212,14 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2):
     S.LAUNCHES = R.LAUNCHES = 0
     want = eager(wp)
     sync(dev)
-    assert launches == (S.LAUNCHES, R.LAUNCHES) == (nblocks, nblocks), \
+    C = S.chunk_launches(T)                  # synth launches a block
+    assert launches == (S.LAUNCHES, R.LAUNCHES) == (C * nblocks, nblocks), \
         (launches, S.LAUNCHES, R.LAUNCHES)
     assert all(torch.equal(a, b) for a, b in zip(got, want)), (got, want)
     nv, q, wok = int(got[0]), float(got[1]), int(got[2])
     log(f"  graph (one block a replay) = eager, bit for bit: n_valid {nv}, "
         f"quality_max {q:.4f}, n_word_ok {wok}; synth and rx_front "
-        f"launches {launches}, one a block in both")
+        f"launches {launches}, {C} and one a block in both")
     assert nv == 0 and np.isfinite(q) and q < 0.55, (nv, q)
     f32 = pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank")
     kern = st.make_closed_loop_stream(f32, nblocks, frames, graph=False)[0](wp)
@@ -1308,7 +1339,7 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2):
             found.append((b, int(c), int(planes["starts"][c, k]),
                           planes["word_ok"][c, k].cpu().numpy(),
                           planes["words"][c, k].cpu().numpy()))
-    assert (S.LAUNCHES, R.LAUNCHES) == (nblocks, nblocks)
+    assert (S.LAUNCHES, R.LAUNCHES) == (C * nblocks, nblocks)
     # The window of block b is block b-1 (the carried overlap, 5556 hops
     # at frames=2) and block b.  The burst starts 100 hops into block 1 and
     # ends in block 2: block 1's window cuts its capture (the whole-capture
@@ -1368,7 +1399,9 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5):
     res = runs["graph"](wp)
     sync(dev)
     launches = (S.LAUNCHES, R.LAUNCHES)
-    assert launches == (nblocks, nblocks) and warm == (nblocks + 1,) * 2
+    C = S.chunk_launches(T)                  # synth launches a block
+    assert launches == (C * nblocks, nblocks) \
+        and warm == (C * (nblocks + 1), nblocks + 1), (launches, warm)
     assert np.isfinite(float(res[1])) and 0 <= int(res[0]) <= 2 * M * nblocks
     log(f"  random word pairs on every channel: n_valid {int(res[0])}, "
         f"quality_max {float(res[1]):.4f}, n_word_ok {int(res[2])}")
@@ -1395,7 +1428,7 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5):
         out[key + "_dev"], out[key + "_spans"] = ms, calls
         log(f"  {pat} inside the graph: {calls} spans in the run, {ms:.3f} "
             f"ms a block ({ms / (busy / nblocks):.1%} of the device time)")
-        assert calls == nblocks, (pat, calls)
+        assert calls == out["launches"][key == "rx_front"], (pat, calls)
     # the two kernels alone at the loop's shape, element by element against
     # their plain versions (the front end on an all-channel FSK band: no
     # branch cut, so every demod sample is held), then their times
@@ -2162,7 +2195,8 @@ def phase_mesh_step(dev, M, T, card, nblocks=MESH_STEP_BLOCKS):
         mesh_dedup(mesh_candidates(out, 2 * b, row, hal), sps, found)
     sync(dev)
     launches = (KA.LAUNCHES, S.LAUNCHES)
-    assert launches == (4 * nblocks, 4 * nblocks), launches
+    assert launches == (4 * nblocks, 4 * nblocks * S.chunk_launches(T)), \
+        launches
     assert len(found) == len(events), sorted(found)
     for ev in events:
         hits = [(a, v) for (c, a), v in found.items() if c == ev.channel]
@@ -2178,7 +2212,7 @@ def phase_mesh_step(dev, M, T, card, nblocks=MESH_STEP_BLOCKS):
     log(f"  {len(events)} bursts decoded bit-exact once each (across the row "
         f"boundary and the restored block boundary included); launches "
         f"analysis {launches[0]}, synth {launches[1]} ({nblocks} blocks x 4 "
-        f"workers)")
+        f"workers, synth x {S.chunk_launches(T)} chunk launches)")
     mr = MultichannelReceiver(spec, max_bursts=2, policy="first_ok",
                               device=dev)
     reps = []
@@ -2828,10 +2862,12 @@ def station_paths(dev, card, M, T=8, sps=3):
     prod = pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank",
                                io_bf16=True, corr_bf16=True,
                                transform_bf16=True)
-    # 2..4 words from hops 100..1799: every burst ends inside the block
+    # 2..4 words from hops 100..1799: every burst ends inside the block,
+    # the banks' delay (2T - 1 hops through synthesis and analysis)
+    # included
     events = plant_events(M, 768, max_words=4)
     assert max(ev.start_hop + (48 + 240 * len(ev.words)) * 2 * sps
-               for ev in events) <= Nh
+               for ev in events) + 2 * T - 1 <= Nh
     x = synthesize_reverse_band(events, prod, Nh, noise_sigma=0.001,
                                 device=dev)
     log(f"  M={M}: rx_multichannel_block, production spec, Nh={Nh} "
@@ -3065,6 +3101,153 @@ def phase_widest(dev, card, T=8, sps=3):
     return out
 
 
+# phase 32: prototype filters longer than 16 taps a phase (K1-K3 fold in
+# chunks, K4 sums one launch a chunk of 16 gain rows).  TAPS_CHECKS holds
+# each kernel to its plain version at TAPS_WIDTHS (the smallest bank, a
+# mixed radix width, 1024, a generic prime pass at 2038, the
+# device-memory twiddles at 4096, the cluster at 8192) within TAPS_TOL
+# (K1: max |err| on unit-modulus channels, K2: demod radians off the
+# seam, as phase 31 reports them; K4: the share of the output's RMS; K3 as
+# phases 29-31 hold it); TAPS_TIMES times each kernel at TAPS_M
+# beside T=8; TAPS_T is the sharp filter of an operator whose near and
+# far mobiles sit on adjacent channels, on the station's main path at
+# TAPS_M
+TAPS_CHECKS = (17, 24, 32, 33, 64)
+TAPS_WIDTHS = (8, 768, 1024, 2038, 4096, 8192)
+TAPS_TIMES = (8, 16, 24, 32, 64)
+TAPS_M, TAPS_T = 1024, 32
+TAPS_TOL = {"analysis": 5e-6, "rx_front": 1e-5, "synth": 2e-5}
+
+
+def phase_taps(dev, card, sps=3):
+    """Phase 32: filters of T > 16 taps a phase.  Holds each kernel to its
+    plain version at TAPS_CHECKS x TAPS_WIDTHS (phase 12's checks: both
+    parities, riq and planar, chained = one, K1 and K2 bit for bit, within
+    TAPS_TOL); times each kernel at TAPS_M, Nh=8192, for each of
+    TAPS_TIMES beside its plain version, its bound and cuFFT; runs the
+    station's main path at TAPS_M, TAPS_T (``station_paths``) and one
+    sharded step there (phase 21's checks), K4 launching
+    ``chunk_launches(T)`` times a call on every path.  Returns the
+    readings."""
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import synth as S
+    log(f"phase 32: filters longer than {KA.CHUNK_TAPS} taps a phase (K1-K3 "
+        f"fold in chunks of {KA.CHUNK_TAPS} taps, K4 sums one launch a "
+        f"chunk), on {card}")
+    out = {}
+    out["errs"], _ = phase_small_widths(
+        dev, Nh=2001, widths=TAPS_WIDTHS, Ts=TAPS_CHECKS,
+        label="phase 32: each kernel vs plain", times=False, seam=True,
+        bounds=TAPS_TOL)
+    rows = out["rows"] = {}
+    for T in TAPS_TIMES:
+        r = rows[T] = width_rows(dev, TAPS_M, T, 8192)
+        log(f"  M={TAPS_M}, T={T}, Nh=8192, kernel / plain / bound ms (x the "
+            f"T=8 kernel), cuFFT {r['fft']:.3f} ms, on {card}: " + "; ".join(
+                f"{k} {v['kernel']:.3f} / {v['plain']:.3f} / "
+                f"{v['bound']:.3f} ({v['bound_by']}, "
+                f"{v['kernel'] / rows[8][k]['kernel']:.2f}x)"
+                for k, v in r.items() if k != "fft"))
+    torch.cuda.empty_cache()
+    out.update(station_paths(dev, card, TAPS_M, TAPS_T, sps))
+    out["block_by_t"] = block_by_taps(dev, card, TAPS_M, (8, TAPS_T))
+    # K4's chunk launches a call (the loop's are held in phases 13-14's
+    # own checks, a block's per replay)
+    C = S.chunk_launches(TAPS_T)
+    n = out["launches"]
+    assert n["transmitter"] == 2 * C, n
+    mesh = phase_mesh_step(dev, TAPS_M, TAPS_T, card)
+    n["sharded_step"] = mesh["launches"]
+    log(f"  launches at T={TAPS_T} (K4 {C} a call): {n}")
+    return out
+
+
+def block_by_taps(dev, card, M, Ts, Nh=8192):
+    """The one-shot block on one band (station_paths' 8 bursts,
+    synthesized at the longest of ``Ts``) with each of ``Ts`` taps,
+    interleaved (median of N_TIMED, CUDA events), each with its profiler
+    window's device busy time.  Returns {T: (ms, busy ms)}."""
+    from amps_tpu_torch.eval.traffic import synthesize_reverse_band
+    from amps_tpu_torch.parallel import pipeline as pl
+    specs = {T: pl.MultichannelSpec(num_channels=M, taps_per_phase=T,
+                                    fold="bank", io_bf16=True,
+                                    corr_bf16=True, transform_bf16=True)
+             for T in Ts}
+    events = plant_events(M, 768, max_words=4)
+    x = synthesize_reverse_band(events, specs[max(Ts)], Nh,
+                                noise_sigma=0.001, device=dev)
+    for T in Ts:
+        check_planted(pl.rx_multichannel_block(x, specs[T], max_bursts=2),
+                      events)
+    t = timed({T: (lambda T=T: pl.rx_multichannel_block(x, specs[T],
+                                                        max_bursts=2))
+               for T in Ts})
+    out = {}
+    for T in Ts:
+        busy, _, _ = profile_window(
+            f"rx_multichannel_block at M={M}, T={T}", lambda: (
+                pl.rx_multichannel_block(x, specs[T], max_bursts=2)), dev)
+        out[T] = (t[T], busy)
+    log(f"  the block at M={M} on one band, by taps (ms, device busy ms), "
+        f"interleaved, median of {N_TIMED}, on {card}: {out}")
+    return out
+
+
+DIGEST_WIDTHS = (8, 1024, 2038, 8192)
+
+
+def digest(tree, widths=DIGEST_WIDTHS, Ts=(8, 16)):
+    """``--digest TREE``: builds the port of source tree TREE (its own
+    ``kernels.build``, with ``-Xptxas -v``, whose register and spill lines
+    it prints as ``PTXAS`` lines) and prints ``DIGEST`` and a JSON object:
+    the sha256 of each kernel's outputs, by kernel, M and T, on inputs made
+    from seeds with numpy (riq and planar, both parities, bf16 and f32
+    phases, a carry-in).  Run it on two trees in one call to show that a
+    change leaves the kernels' outputs as they were, bit for bit."""
+    import hashlib
+    sys.path.insert(0, tree)
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import build
+    from amps_tpu_torch.kernels import rx_front as R
+    from amps_tpu_torch.kernels import rx_phases as K
+    from amps_tpu_torch.kernels import synth as S
+    _, nvcc_log = build.build(("-Xptxas", "-v"), widths=[
+        M for M in widths if M not in KA.LIBRARY_WIDTHS])
+    for name, usage in ptxas_usage(nvcc_log):
+        print(f"PTXAS {name}: {usage}")
+    dev, Nh, out = torch.device("cuda", 0), 501, {}
+    for M in widths:
+        for T in Ts:
+            P = M // 2
+            rng = np.random.default_rng(M * 1000 + T)
+
+            def rand(*shape):
+                return torch.as_tensor(rng.normal(0, 0.5, shape).astype(
+                    np.float32), device=dev)
+
+            x, prev = rand((Nh + 2 * T - 1) * P, 2), rand(M, 2)
+            Y, carry = rand(Nh, M, 2), rand(M * T - P, 2)
+            xp = x.t().contiguous()
+            res = {"analysis": [KA.analyze_block(x, M, T, 0),
+                                KA.analyze_block(xp, M, T, 1, True, True)],
+                   "rx_front": [*R.analyze_demod(x, M, T, 1, prev),
+                                *R.analyze_demod(xp, M, T, 0, prev)],
+                   "rx_phases": [*K.analyze_phases(x, M, T, 3, 0,
+                                                   torch.float32),
+                                 *K.analyze_phases(xp, M, T, 3, 1,
+                                                   torch.bfloat16)],
+                   "synth": [*S.synthesize_block(Y, M, T, 0, carry),
+                             *S.synthesize_block(Y, M, T, 1, carry)]}
+            torch.cuda.synchronize()
+            for k, ts in res.items():
+                h = hashlib.sha256()
+                for a in ts:
+                    h.update(a.float().cpu().numpy().tobytes())
+                out[f"{k}/{M}/{T}"] = h.hexdigest()
+    print("DIGEST " + json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU",
@@ -3273,6 +3456,9 @@ def main() -> int:
     # -- phase 31: banks past 4096 channels, the main path at M=8192 ------
     widest = phase_widest(dev, card)
 
+    # -- phase 32: filters longer than 16 taps, the main path at T=32 -----
+    taps = phase_taps(dev, card)
+
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
@@ -3312,7 +3498,23 @@ def main() -> int:
                 "widest_max_clusters": {
                     str(m): n[name] for m, n in widest["clusters"].items()},
                 "widest_peak_memory_gb": widest["peak_gb"],
+                "taps_max_abs_err": {
+                    str(m): e for m, e in taps["errs"][name].items()},
+                **{f"taps_{key}_ms": {
+                    str(t): r[name][key] for t, r in taps["rows"].items()}
+                   for key in ("kernel", "plain", "bound")},
+                "taps_bound_by": {
+                    str(t): r[name]["bound_by"]
+                    for t, r in taps["rows"].items()},
+                "taps_fft_ms": {
+                    str(t): r["fft"] for t, r in taps["rows"].items()},
                 **more}
+
+    # the one-shot block (K3) at T=8 and T=32 on one band
+    k3_more = {"taps_block_ms": {str(t): v[0] for t, v in
+                                 taps["block_by_t"].items()},
+               "taps_block_busy_ms": {str(t): v[1] for t, v in
+                                      taps["block_by_t"].items()}}
 
     assert loop_launches == (4, 4) and loop["launches"] == (32, 32)
 
@@ -3334,6 +3536,9 @@ def main() -> int:
                                     wide["launches"]["analysis"],
                                 "m8192_analyze":
                                     widest["launches"]["analysis"],
+                                "t32_analyze": taps["launches"]["analysis"],
+                                "t32_sharded_step":
+                                    taps["launches"]["sharded_step"][0],
                                 **{f"soak_{k}": n["analysis"]
                                    for k, n in soak_launches.items()
                                    if n["analysis"]}},
@@ -3351,8 +3556,10 @@ def main() -> int:
                                 "entry": entry_launches,
                                 "m768_block": wd["launches"]["block"],
                                 "m4096_block": wide["launches"]["block"],
-                                "m8192_block": widest["launches"]["block"]},
+                                "m8192_block": widest["launches"]["block"],
+                                "t32_block": taps["launches"]["block"]},
               entry_ms=entry_t["kernel"], entry_plain_ms=entry_t["plain"],
+              **k3_more,
               batched_max_abs_err=batched["err"],
               batched_ms=batched["one_launch"],
               batched_g_launches_ms=batched["g_launches"],
@@ -3376,6 +3583,8 @@ def main() -> int:
                                     widest["launches"]["loop"][1],
                                 "m8192_station_app":
                                     widest["launches"]["app"][1],
+                                "t32_receiver": taps["launches"]["receiver"],
+                                "t32_loop": taps["launches"]["loop"][1],
                                 "supervision": sup_launches,
                                 "station_app": app_launches[1],
                                 **{f"soak_{k}": n["rx_front"]
@@ -3410,6 +3619,11 @@ def main() -> int:
                                     widest["launches"]["loop"][0],
                                 "m8192_station_app":
                                     widest["launches"]["app"][0],
+                                "t32_transmitter":
+                                    taps["launches"]["transmitter"],
+                                "t32_loop": taps["launches"]["loop"][0],
+                                "t32_sharded_step":
+                                    taps["launches"]["sharded_step"][1],
                                 "station_app": app_launches[0],
                                 "sharded_step": mesh["launches"][1],
                                 "sharded_loop": mesh_loop["launches"][1],
@@ -3435,6 +3649,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--digest"]:
+        sys.exit(digest(sys.argv[2]))
     if sys.argv[1:2] == ["--xproc-worker"]:
         sys.exit(xproc_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
                               int(sys.argv[5])))

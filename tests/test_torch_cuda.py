@@ -1143,3 +1143,155 @@ def test_two_process_step_on_one_card(cuda_device, tmp_path):
     outs = case.run_two_processes(case.step_worker(
         tmp_path, device="cuda:0", M=64, T=8), timeout=300)
     case.check_step_outputs(outs, backend="gloo")
+
+
+# ---- filters longer than 16 taps a phase -------------------------------
+# K1-K3 fold past 16 taps in chunks (an instantiation of their own); K4
+# runs one launch a chunk of 16 gain rows and sums them.  T = 17 (a last
+# chunk of one tap), 32 (two full chunks), 33; M = 64, the production
+# 1024, 2038 (the generic pass, its own library) and 8192 (a cluster)
+
+LONG = [(M, T) for M in (64, 1024, 2038, 8192) for T in (17, 32, 33)]
+
+
+def _rms(t):
+    return t.pow(2).mean().sqrt().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T", LONG)
+def test_long_filter_analysis_kernel(cuda_device, mixed_libraries, M, T):
+    """K1 at T > 16, riq at even parity and planar at odd: within 1.5e-5
+    of the plain output's RMS (unit-amplitude channels), one launch a
+    call."""
+    Nh = 301
+    x = unit_channel_band(M, T, Nh, M + T, cuda_device)
+    for parity, planar in ((0, False), (1, True)):
+        xi = x.t().contiguous() if planar else x
+        before = KA.LAUNCHES
+        y = KA.analyze_block(xi, M, T, parity, planar, planar)
+        torch.cuda.synchronize()
+        assert KA.LAUNCHES == before + 1
+        ry = KA.analyze_reference(xi, M, T, parity, planar, planar)
+        assert y.shape == ry.shape and torch.isfinite(y).all()
+        assert (y - ry).abs().max().item() <= 1.5e-5 * _rms(ry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T", LONG)
+def test_long_filter_rx_front_kernel(cuda_device, mixed_libraries, M, T):
+    """K2 at T > 16 on FSK in every channel, a random previous sample,
+    both parities: demod within 1e-5 of its RMS past the bank's ramp-up
+    (fast_atan2's seam rule), the power blocks within 1e-4, the last
+    sample within 1e-4 of its RMS."""
+    Nh, skip = 500, 2 * T + 2
+    x = _fsk_band(M, T, Nh, M + T, cuda_device)
+    prev = torch.randn((M, 2), device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(M))
+    for parity in (0, 1):
+        before = K2.LAUNCHES
+        d, last, pw = K2.analyze_demod(x, M, T, parity, prev)
+        torch.cuda.synchronize()
+        assert K2.LAUNCHES == before + 1
+        rd, rlast, rpw = K2.analyze_demod_reference(x, M, T, parity, prev)
+        rd = rd[:, skip:]
+        _held_to_phase_atol((d[:, skip:] - rd).abs(), rd, 1e-5 * _rms(rd))
+        blk, rblk = (window_power_blocks([p[:, skip:]]) for p in (pw, rpw))
+        assert ((blk - rblk).abs() / rblk).max().item() <= 1e-4
+        assert (last - rlast).abs().max().item() <= 1e-4 * _rms(rlast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T", LONG)
+def test_long_filter_rx_phases_kernel(cuda_device, mixed_libraries, M, T):
+    """K3 at T > 16 on FSK in every channel, a ragged hop count, planar
+    input at odd parity: f32 phases within 1e-3 past the ramp-up (a seam
+    sample moves its symbols by a third of the step, such samples within
+    BRANCH_CUT_FRACTION), bf16 within 0.02; the power within 1e-4."""
+    Nh = 27 * 20 + 1 + 2 * T
+    x = _fsk_band(M, T, Nh, M + T + 1, cuda_device).t().contiguous()
+    js = -(-(2 * T + 2) // 3)
+    rph, rcp, rpw = K.analyze_phases_reference(x, M, T, 3, 1)
+    for dt in (torch.float32, torch.bfloat16):
+        before = K.LAUNCHES
+        ph, cp, pw = K.analyze_phases(x, M, T, 3, 1, dt)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == before + 1
+        assert ph.shape == rph.shape and ph.dtype == dt
+        err = (ph.float() - rph)[..., js:].abs()
+        if dt == torch.bfloat16:
+            assert err.max().item() <= 0.02
+        else:
+            assert err.max().item() <= ATAN_SEAM / 3 + 1e-3
+            assert (err > 1e-3).sum().item() \
+                <= 3 * BRANCH_CUT_FRACTION * err.numel()
+        assert (((pw - rpw).abs() / rpw)[:, 1:]).max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T", LONG)
+def test_long_filter_synth_kernel(cuda_device, mixed_libraries, M, T):
+    """K4 at T > 16 with a carry in, both parities: ceil(T/16) launches a
+    call, the block and the new carry within 2e-5 of the output's RMS."""
+    Nh = 333
+    g = torch.Generator(cuda_device).manual_seed(M + T)
+    Y = torch.randn((Nh, M, 2), device=cuda_device, generator=g)
+    carry = torch.randn((M * T - M // 2, 2), device=cuda_device, generator=g)
+    for parity in (0, 1):
+        before = K4.LAUNCHES
+        x, c = K4.synthesize_block(Y, M, T, parity, carry)
+        torch.cuda.synchronize()
+        assert K4.LAUNCHES == before + -(-T // 16) == \
+            before + K4.chunk_launches(T)
+        rx, rc = K4.synthesize_block_reference(Y, M, T, parity, carry)
+        rms = _rms(rx)
+        assert x.shape == rx.shape and c.shape == rc.shape
+        assert (x - rx).abs().max().item() <= 2e-5 * rms
+        assert (c - rc).abs().max().item() <= 2e-5 * rms
+
+
+@pytest.mark.cuda
+def test_long_filter_chained_calls_equal_one(cuda_device):
+    """At M=1024, T=32, two chained calls (an odd first block) equal one
+    call: K1 and K2 bit for bit, K4 within 2e-5 of the output's RMS."""
+    M, T, N1, N2 = 1024, 32, 1001, 700
+    P = M // 2
+    x = unit_channel_band(M, T, N1 + N2, 32, cuda_device)
+    y = KA.analyze_block(x, M, T, 0)
+    ya = KA.analyze_block(x[: (N1 + 2 * T - 1) * P].contiguous(), M, T, 0)
+    yb = KA.analyze_block(x[N1 * P:].contiguous(), M, T, N1 % 2)
+    assert torch.equal(torch.cat([ya, yb], 1), y)
+    zero = torch.zeros((M, 2), device=cuda_device)
+    d, last, pw = K2.analyze_demod(x, M, T, 0, zero)
+    da, la, pa = K2.analyze_demod(x[: (N1 + 2 * T - 1) * P].contiguous(), M,
+                                  T, 0, zero)
+    db, lb, pb = K2.analyze_demod(x[N1 * P:].contiguous(), M, T, N1 % 2, la)
+    assert torch.equal(torch.cat([da, db], 1), d)
+    assert torch.equal(torch.cat([pa, pb], 1), pw)
+    assert torch.equal(lb, last)
+    g = torch.Generator(cuda_device).manual_seed(32)
+    Y = torch.randn((N1 + N2, M, 2), device=cuda_device, generator=g)
+    carry = torch.randn((M * T - P, 2), device=cuda_device, generator=g)
+    xs, c = K4.synthesize_block(Y, M, T, 0, carry)
+    xa, ca = K4.synthesize_block(Y[:N1].contiguous(), M, T, 0, carry)
+    xb, cb = K4.synthesize_block(Y[N1:].contiguous(), M, T, N1 % 2, ca)
+    rms = _rms(xs)
+    assert (torch.cat([xa, xb]) - xs).abs().max().item() <= 2e-5 * rms
+    assert (cb - c).abs().max().item() <= 2e-5 * rms
+
+
+@pytest.mark.cuda
+def test_zero_taps_raise(cuda_device):
+    """T = 0 is refused by every wrapper on the card; any T >= 1 runs."""
+    M, Nh = 64, 16
+    x = torch.zeros(((Nh + 2 * 8 - 1) * M // 2, 2), device=cuda_device)
+    zero = torch.zeros((M, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="T >= 1"):
+        KA.analyze_block(x, M, 0)
+    with pytest.raises(ValueError, match="T >= 1"):
+        K2.analyze_demod(x, M, 0, 0, zero)
+    with pytest.raises(ValueError, match="T >= 1"):
+        K.analyze_phases(x, M, 0)
+    with pytest.raises(ValueError):
+        K4.synthesize_block(torch.zeros((Nh, M, 2), device=cuda_device), M,
+                            0, 0, torch.zeros((0, 2), device=cuda_device))
