@@ -70,8 +70,9 @@ def _station_config(args):
 def build_parser():
     p = argparse.ArgumentParser(description="amps_tpu_torch BS-in-a-box")
     p.add_argument("--channels", type=int, default=8,
-                   help="channelizer bank size M (even, 8 .. 8192 on the "
-                        "card; M x 30 kHz is the radio's sample rate)")
+                   help="channelizer bank size M (even; on the card 2 .. "
+                        "8192, and M = C*N with C <= 8, N <= 4096 up to "
+                        "32768; M x 30 kHz is the radio's sample rate)")
     p.add_argument("--control-slot", type=int, default=1,
                    help="bank slot carrying the FOCC")
     p.add_argument("--superframes", type=int, default=2,

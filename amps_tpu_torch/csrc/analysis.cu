@@ -6,10 +6,12 @@
 // (analyze_chmajor_pallas, body _make_kernel) and computes what the
 // port's plain analysis, kernels/analysis.py::analyze_reference,
 // computes: riq or planar input with the history prepended, any hop
-// parity, any number of hops, any even M from 8 to 8192.  None of
-// the TPU kernel's limits or workarounds is carried over: no even-parity
-// assert, no Nh % tile_h == 0, no odd bank pre-shifted by P samples, no
-// 128-lane M, no stack-and-transpose to planes.
+// parity, any number of hops, any M the tile takes (analysis_fft.cuh:
+// every even M from 2 to 8192, and M = C·N, C <= 8, N <= 4096, up to
+// 32768).  None of the TPU kernel's limits or workarounds is carried
+// over: no even-parity assert, no Nh % tile_h == 0, no odd bank
+// pre-shifted by P samples, no 128-lane M, no stack-and-transpose to
+// planes.
 //
 //   y_k[n] = (-1)^{k(n+parity)} sum_m f_n[m] e^{-j2π km/M}  (analysis_fft.cuh)
 //
@@ -27,9 +29,10 @@
 // the store stage: consecutive threads take consecutive hops of one
 // channel, so each channel's H hops leave as one contiguous row (96 bytes
 // riq, 48 per plane planar, at M = 1024).  Offsets into Y are 64-bit.
-// No atomics.  Past M = 4096 a cluster of two blocks runs each run, block
-// rank r folding and storing channels rN .. rN+N-1 (N = M/2; the tile's
-// combine, analysis_fft.cuh); the grid's x is then 2 x the runs.  Any
+// No atomics.  Past M = 4096 a cluster of C blocks runs each run, block
+// rank r folding and storing channels rN .. rN+N-1 (N = M/C; the tile's
+// pass across the cluster, analysis_fft.cuh); the grid's x is then C x
+// the runs.  Any
 // number of taps T: each width has a kernel for T <= 16 and one that
 // folds a longer filter in chunks of 16 taps (kLongT, analysis_fft.cuh).
 
@@ -88,7 +91,7 @@ extern "C" int analysis_smem_bytes(int M) {
     return fft_smem_bytes(Mw, fft_tile_hops(Mw));
   });
 }
-// the FFT's plan at width M (a block's transform, M/2 in a cluster): its
+// the FFT's plan at width M (a block's transform, M/C in a cluster): its
 // number of passes and the radix of pass p (-1: M not taken)
 extern "C" int analysis_fft_passes(int M) {
   return with_width(M, [](auto w) {

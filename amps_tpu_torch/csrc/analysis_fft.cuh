@@ -14,10 +14,10 @@
 // (synth.cu).
 //
 // A block owns all M channels of H consecutive hops a0 .. a0+H-1 (M any
-// even width from 8 to 4096; H even, set by the kernel); past 4096 a
-// cluster of two blocks owns them (below).  The small banks
-// (M = 8 .. 32: one pass of radix 8 or 16, or 16 then 2, or a few short
-// passes) run the same code with most of a block's threads idle in the
+// even width from 2 to 4096; H even, set by the kernel); past 4096 a
+// cluster of C blocks owns them (below).  The small banks
+// (M = 2 .. 32: one pass of radix 2, 4, 8 or 16, or 16 then 2, or a few
+// short passes) run the same code with most of a block's threads idle in the
 // fold and the passes:
 //   * fold: a thread folds one m for the H/2 hops of one parity, whose
 //     windows share H/2 + T - 1 input rows (hop a tap t reads row
@@ -84,37 +84,45 @@
 // channel c, with the hop sign of stream hop n -- from the plane, which
 // doubles as the store stage.
 //
-// Past M = 4096 (up to 8192) one hop's plane no longer fits a block six
-// times over (K3's run at sps = 3), so a thread-block cluster of two
-// blocks on neighbouring SMs shares each hop, decimated in time: with
-// N = M/2,
-//   E[k] = FFT_N(f[2m]),  O[k] = FFT_N(f[2m+1]),
-//   y[k] = E[k] + W_M^k O[k],  y[k + N] = E[k] - W_M^k O[k]   (k < N).
-//   * Rank r of the pair folds (or loads) the half f[2m + r] of every hop
-//     of the run into its own N-wide plane and transforms it with the
+// Past M = 4096 one hop's plane no longer fits a block six times over
+// (K3's run at sps = 3), so a thread-block cluster of C blocks on
+// neighbouring SMs shares each hop, decimated in time: C is the smallest
+// divisor of M from 2 to 8 with N = M/C <= 4096 (fft_ranks; 2 for every
+// even M up to 8192, 3 .. 8 past it, up to M = 32768), and
+//   F_s[c] = FFT_N(f[C·m + s])[c],
+//   y[rN + c] = sum_s W_M^{s(rN + c)} F_s[c]   (s, r < C, c < N).
+//   * Rank r of the cluster folds (or loads) the part f[C·m + r] of every
+//     hop of the run into its own N-wide plane and transforms it with the
 //     tile's plan at width N -- the passes above, unchanged -- so each
-//     block holds six hops at M = 8192 (202,800 bytes) as at 4096.
-//   * The radix-2 pass across the pair (combine): rank r owns channels
-//     rN .. rN+N-1, a contiguous half in natural order, so that K1-K3's
-//     epilogues run on the block's N channels at an offset (k0 = rN) and
-//     K4 reads each column's two values at one position of both planes.
+//     block holds six hops at N = 4096 (202,800 bytes) as at M = 4096.
+//   * The pass across the cluster leaves rank r the channels rN ..
+//     rN+N-1, a contiguous range in natural order, so that K1-K3's
+//     epilogues run on the block's N channels at an offset (k0 = rN).
+//     Per hop, each thread reads its channels' values from its own plane
+//     and from the others' (distributed shared memory), computes y, and
+//     holds it in registers across a cluster barrier (arrive.release /
+//     wait.acquire), after which every rank has read that hop of this
+//     plane and the write goes in place.  A cluster barrier before the
+//     first hop (every plane transformed) and after the last (every plane
+//     done; K4 then reads the others' planes) bracket it, so no block
+//     exits or refills its plane while another may still read it.
+//   * C = 2 (combine, up to M = 8192): y[c] = E[c] + W_M^c O[c], y[c + N]
+//     = E[c] - W_M^c O[c], with E = F_0, O = F_1; its twiddles W_M^c,
+//     c < N, are a block of their own after the N-point plan's table
+//     (fft_table_size), whose W_N^e are the same numbers as W_M^{2e}.
 //     The other split (rank r owning k and k + N for a quarter of k)
 //     reads half as much of the partner, but scatters each block's
 //     channels over two ranges; the contiguous half was taken for the
-//     simpler epilogues.  Per hop, each thread reads its channels' value
-//     from its own plane and from the partner's (distributed shared
-//     memory), computes y, and holds it in registers across a cluster
-//     barrier (arrive.release / wait.acquire), after which the partner
-//     has read that hop of this plane and the write goes in place.  A
-//     cluster barrier before the first hop (both planes transformed) and
-//     after the last (both planes combined; K4 then reads the partner's
-//     plane) bracket it, so no block exits or refills its plane while
-//     the partner may still read it.
-//   * The twiddles W_M^k, k < N, are a block of their own after the
-//     N-point plan's table (fft_table_size); that table's W_N^e are the
-//     same numbers as W_M^{2e}.
-//   * Both ranks compute each W_M^k O[k] with the same instructions, and
-//     every hop the same sequence, so chained calls still equal one.
+//     simpler epilogues.
+//   * C > 2 (cross): rank s first turns its plane into G_s[c] = W_M^{s·c}
+//     F_s[c] in place (a thread reads each of its channels' twiddle once
+//     for all H hops), then
+//       y[rN + c] = G_0[c] + sum_{s=1}^{C-1} W_C^{s·r} G_s[c],
+//     s ascending, each term two fmaf a part; its tables are the blocks
+//     W_M^{s·c} (1 <= s < C, c < N) and W_C^e (e < C) after the plan's.
+//     It reads C - 1 remote values a channel and hop.
+//   * Every rank computes its sum with the same instructions, and every
+//     hop the same sequence, so chained calls still equal one.
 
 #pragma once
 
@@ -130,10 +138,11 @@ constexpr int kFftThreads = 256;
 constexpr int kFftChunkT = 16;   // taps a fold chunk holds in registers
 constexpr int kFftValues = 16;   // complex values a thread holds in a pass
 
-// the widest transform one block runs; past it a cluster of
-// kFftClusterSize blocks splits each hop (fft_ranks)
+// the widest transform one block runs; past it a cluster of up to
+// kFftClusterSize blocks (the portable cluster size) splits each hop
+// (fft_ranks)
 constexpr int kFftBlockWidth = 4096;
-constexpr int kFftClusterSize = 2;
+constexpr int kFftClusterSize = 8;
 constexpr int kFftMaxWidth = kFftClusterSize * kFftBlockWidth;
 constexpr int kFftMaxSmem = 232448;   // shared memory a block may opt in to
 // the widest M whose twiddle table sits in shared memory beside the plane;
@@ -147,12 +156,16 @@ __host__ __device__ constexpr bool fft_pow2(int M) {
   return (M & (M - 1)) == 0;
 }
 // blocks of a cluster that share a hop at bank width M: 1 up to
-// kFftBlockWidth, 2 past it
+// kFftBlockWidth; past it the smallest C from 2 to kFftClusterSize that
+// divides M with M/C <= kFftBlockWidth (0: no such C, M not taken)
 __host__ __device__ constexpr int fft_ranks(int M) {
-  return M > kFftBlockWidth ? kFftClusterSize : 1;
+  if (M <= kFftBlockWidth) return 1;
+  for (int c = 2; c <= kFftClusterSize; ++c)
+    if (M % c == 0 && M / c <= kFftBlockWidth) return c;
+  return 0;
 }
-// the transform width of one block, and its channels: M, or M/2 in a
-// cluster
+// the transform width of one block, and its channels: M, or M/C in a
+// cluster of C
 __host__ __device__ constexpr int fft_width(int M) {
   return M / fft_ranks(M);
 }
@@ -166,7 +179,7 @@ __host__ __device__ constexpr bool fft_shared_twiddles(int M) {
 // past kFftSharedTwiddleWidth, the hops a block of any of the four kernels
 // computes: the most even hops (up to 16) whose plane fits in a block's
 // shared memory -- 12 at M = 2050, 8 at 3072, 6 at 4096 and, with a
-// block's half-width plane, 6 at 8192 -- so that K3 at sps = 3 (one hop
+// block's plane of M/C, 6 at 8192 and 16384 -- so that K3 at sps = 3 (one hop
 // behind, two ahead, whole symbols) owns 3 of them
 __host__ __device__ constexpr int fft_fit_hops(int M) {
   const int h = kFftMaxSmem / (8 * fft_hop_stride(fft_width(M)));
@@ -265,10 +278,12 @@ __host__ __device__ constexpr int fft_twiddle_size(int M) {
   return fft_twiddle_offset(M, fft_passes(M)) + (fft_has_generic(M) ? M : 0);
 }
 // the whole table of bank width M: the plan's table at the transform
-// width, and in a cluster the combine's W_M^k, k < M/2, after it
+// width N; in a cluster of C then the twiddles of the pass across it,
+// W_M^{s·c} for 1 <= s < C, c < N (at C = 2 the combine's W_M^c), and
+// past C = 2 the C constants W_C^e
 __host__ __device__ constexpr int fft_table_size(int M) {
-  return fft_twiddle_size(fft_width(M)) +
-         (fft_ranks(M) > 1 ? fft_width(M) : 0);
+  return fft_twiddle_size(fft_width(M)) + (fft_ranks(M) - 1) * fft_width(M) +
+         (fft_ranks(M) > 2 ? fft_ranks(M) : 0);
 }
 // shared memory of a block of H hops at bank width M: the plane (a
 // block's fft_width(M) channels), and the table up to
@@ -279,9 +294,9 @@ __host__ __device__ constexpr int fft_smem_bytes(int M, int H) {
 }
 
 // Calls f(std::integral_constant<int, M>) for the widths this library
-// instantiates -- every power of two from 8 to 4096, or, in a library
-// built with -DAMPS_FFT_WIDTH=M (any other width, 8192 included), that
-// one width --; returns -1 for any other M.
+// instantiates -- every power of two from 2 to 4096, or, in a library
+// built with -DAMPS_FFT_WIDTH=M (any other width, the cluster widths past
+// 4096 included), that one width --; returns -1 for any other M.
 template <class F>
 int with_width(int M, F f) {
 #ifdef AMPS_FFT_WIDTH
@@ -290,6 +305,8 @@ int with_width(int M, F f) {
              : -1;
 #else
   switch (M) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
     case 8: return f(std::integral_constant<int, 8>{});
     case 16: return f(std::integral_constant<int, 16>{});
     case 32: return f(std::integral_constant<int, 32>{});
@@ -427,7 +444,7 @@ __device__ __forceinline__ void dft_odd(float2 (&v)[R],
 // kLoop: the kernel runs the tile again and again in a loop (synth.cu's
 // passes), beside state it holds in registers across the loop.  M is the
 // bank's width; past kFftBlockWidth the tile is one rank of a cluster of
-// two (RK), whose plane holds N = M/2 channels.
+// RK blocks, whose plane holds N = M/RK channels.
 template <int M, int H_, bool kLoop = false>
 struct FftTile {
   static constexpr int P = M / 2;
@@ -445,8 +462,10 @@ struct FftTile {
   static constexpr int kFoldChunk =
       FH >= 16 || fft_has_generic(N) ? 8 : kFftChunkT;
   static constexpr bool kSharedTw = fft_shared_twiddles(M);
-  static_assert(H % 2 == 0 && M >= 8 && M <= kFftMaxWidth && M % 2 == 0,
-                "even widths 8 .. 8192");
+  static_assert(H % 2 == 0 && M >= 2 && M <= kFftMaxWidth && M % 2 == 0 &&
+                    RK > 0 && RK * N == M,
+                "even widths 2 .. 8192, past it M = C·N with C <= 8, "
+                "N <= 4096");
   static_assert(N <= kFftBlockWidth, "a block transforms at most 4096");
   static_assert(kSmemBytes <= kFftMaxSmem, "the plane fits a block");
 
@@ -500,7 +519,7 @@ struct FftTile {
   }
 
   // The folded windows of hops a0 .. a0+H-1 into the plane (in a
-  // cluster, the block's half f[2m + rank]).  x is (n_ext, 2)
+  // cluster of RK, the block's part f[RK·m + rank]).  x is (n_ext, 2)
   // interleaved or (2, n_ext) planar, n_ext a multiple of P.  A kernel
   // instantiated for kLongT takes T > kFftChunkT, in chunks of
   // kFoldChunk taps; one without it T <= kFftChunkT, so that a long
@@ -523,7 +542,7 @@ struct FftTile {
   }
 
   // Hop-major rows n0 .. n0+H-1 of Y ((Nh, M) complex) into the plane
-  // (in a cluster, the block's values k = 2c + rank of each row), by
+  // (in a cluster of RK, the block's values k = RK·c + rank of each row), by
   // cp.async (consecutive threads on consecutive c, all copies in flight
   // together); rows outside [0, Nh) load as zero.  Ends with the copies
   // landed and a barrier.
@@ -532,7 +551,7 @@ struct FftTile {
 #pragma unroll 4
     for (int e = tid(); e < H * N; e += kFftThreads) {
       const int l = e / N, c = e % N;
-      const int k = RK > 1 ? 2 * c + rank() : c;
+      const int k = RK > 1 ? RK * c + rank() : c;
       const int n = n0 + l;
       const bool ok = n >= 0 && n < Nh;
       cp_async<8>(S + l * HS + pad(c),
@@ -558,7 +577,7 @@ struct FftTile {
 #pragma unroll 1
     for (int it = threadIdx.x; it < 2 * N; it += kFftThreads) {
       const int g = it / N, c = it % N;     // hops g, g + 2, ... of the tile
-      const int m = RK > 1 ? 2 * c + rank() : c;   // the window's sample
+      const int m = RK > 1 ? RK * c + rank() : c;  // the window's sample
       const int hi = m >= P ? 1 : 0, col = m - hi * P;
 #pragma unroll 1
       for (int t0 = 0; t0 < (CHUNKED ? T : 1); t0 += MT) {
@@ -754,12 +773,13 @@ struct FftTile {
     }
   }
 
-  // The transform of the block's plane; in a cluster then the radix-2
-  // pass across the pair (combine).  Ends with a barrier (a cluster
-  // barrier in a cluster).
+  // The transform of the block's plane; in a cluster then the pass across
+  // it: radix 2 across a pair (combine), radix RK across more (cross).
+  // Ends with a barrier (a cluster barrier in a cluster).
   __device__ __forceinline__ void fft() {
     passes();
-    if constexpr (RK > 1) combine();
+    if constexpr (RK == 2) combine();
+    else if constexpr (RK > 2) cross();
   }
 
   // y[rN + c] of every hop into this rank's plane from E (rank 0's plane)
@@ -794,6 +814,67 @@ struct FftTile {
       }
     }
     cluster_sync();     // both planes combined
+  }
+
+  // y[rN + c] of every hop into this rank's plane, in a cluster of RK > 2.
+  // First G_r[c] = W_M^{r·c} F_r[c] in place (rank 0's twiddles are 1);
+  // then hop by hop: G_0[c] + sum_{s=1}^{RK-1} W_RK^{s·r} G_s[c], s
+  // ascending, each G_s read from plane s (its own, or another's through
+  // the shared::cluster window, addresses made afresh each hop), the
+  // sums held across a cluster barrier (every rank has then read this hop
+  // of this plane), then written in place.
+  __device__ __forceinline__ void cross() {
+    constexpr int CV = (N + kFftThreads - 1) / kFftThreads;  // values a thread
+    const int r = rank();
+    const float2* wt = W + fft_twiddle_size(N);   // W_M^{s·c}: (RK-1) x N
+    if (r > 0) {
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        const int c = tid() + i * kFftThreads;
+        if (c < N) {
+          const float2 w = ld(wt + (r - 1) * N + c);
+#pragma unroll 1
+          for (int l = 0; l < H; ++l) {
+            float2* f = S + l * HS + pad(c);
+            *f = cmul(*f, w);
+          }
+        }
+      }
+    }
+    float2 wc[RK];   // W_RK^{s·r}
+#pragma unroll
+    for (int s = 0; s < RK; ++s) wc[s] = ld(wt + (RK - 1) * N + s * r % RK);
+    cluster_sync();     // every plane twiddled
+#pragma unroll 1
+    for (int l = 0; l < H; ++l) {
+      unsigned far[RK];
+#pragma unroll
+      for (int s = 0; s < RK; ++s) far[s] = cluster_addr(S, s);
+      float2 v[CV];
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        const int c = tid() + i * kFftThreads;
+        if (c < N) {
+          const int o = l * HS + pad(c);
+          float2 acc = r == 0 ? S[o] : ld_cluster(far[0] + 8 * o);
+#pragma unroll
+          for (int s = 1; s < RK; ++s) {
+            const float2 g = s == r ? S[o] : ld_cluster(far[s] + 8 * o);
+            const float2 w = wc[s];
+            acc.x = fmaf(g.x, w.x, fmaf(-g.y, w.y, acc.x));
+            acc.y = fmaf(g.x, w.y, fmaf(g.y, w.x, acc.y));
+          }
+          v[i] = acc;
+        }
+      }
+      cluster_sync();   // every rank has read hop l of this plane
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        const int c = tid() + i * kFftThreads;
+        if (c < N) S[l * HS + pad(c)] = v[i];
+      }
+    }
+    cluster_sync();     // every plane done
   }
 
   // y_k of tile hop l, the block's channel c (k = k0 + c), with the hop

@@ -32,9 +32,9 @@
 // channel's H-1 hops leave as one contiguous row of each plane (92 bytes
 // at M = 1024).  The block that owns hop Nh-1 writes `last`.  No
 // atomics: every output element has one writer.  Past M = 4096 a
-// cluster of two blocks runs each run, block rank r holding channels
-// rN .. rN+N-1 (N = M/2; the tile's combine, analysis_fft.cuh); the
-// grid's x is then 2 x the runs.  Any number of taps T: each width has
+// cluster of C blocks runs each run, block rank r holding channels
+// rN .. rN+N-1 (N = M/C; the tile's pass across the cluster,
+// analysis_fft.cuh); the grid's x is then C x the runs.  Any number of taps T: each width has
 // a kernel for T <= 16 and one that folds a longer filter in chunks of
 // 16 taps (kLongT, analysis_fft.cuh).
 
@@ -99,7 +99,7 @@ extern "C" int rx_front_smem_bytes(int M) {
     return fft_smem_bytes(Mw, fft_wide_hops(Mw));
   });
 }
-// the FFT's plan at width M (a block's transform, M/2 in a cluster): its
+// the FFT's plan at width M (a block's transform, M/C in a cluster): its
 // number of passes and the radix of pass p (-1: M not taken)
 extern "C" int rx_front_fft_passes(int M) {
   return with_width(M, [](auto w) {

@@ -44,13 +44,13 @@
 // (2, M, Nh) analysis planes and the (M, Nh) demod plane never do.
 // G independent bands of the same geometry run as one launch: blockIdx.y
 // is the band, whose input and outputs lie G-major one after another.
-// Past M = 4096 a cluster of two blocks runs each run (grid x = 2 x the
-// runs), block rank r holding channels rN .. rN+N-1 (N = M/2; the tile's
-// combine, analysis_fft.cuh): the discriminator, dump and power above run
-// on the block's N channels, six hops at M = 8192 and a run of 3 at
-// sps = 3.  Any number of taps T: each width has a kernel for T <= 16
-// and one that folds a longer filter in chunks of 16 taps (kLongT,
-// analysis_fft.cuh).
+// Past M = 4096 a cluster of C blocks runs each run (grid x = C x the
+// runs), block rank r holding channels rN .. rN+N-1 (N = M/C; the tile's
+// pass across the cluster, analysis_fft.cuh): the discriminator, dump and
+// power above run on the block's N channels, six hops at N = 4096 and a
+// run of 3 at sps = 3.  Any number of taps T: each width has a kernel for
+// T <= 16 and one that folds a longer filter in chunks of 16 taps
+// (kLongT, analysis_fft.cuh).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -212,7 +212,7 @@ extern "C" int rx_phases_smem_bytes(int M) {
     return fft_smem_bytes(Mw, fft_wide_hops(Mw));
   });
 }
-// the FFT's plan at width M (a block's transform, M/2 in a cluster): its
+// the FFT's plan at width M (a block's transform, M/C in a cluster): its
 // number of passes and the radix of pass p (-1: M not taken)
 extern "C" int rx_phases_fft_passes(int M) {
   return with_width(M, [](auto w) {

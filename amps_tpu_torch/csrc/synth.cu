@@ -51,27 +51,32 @@
 //     renaming).
 //     The terms of an output hop add in order j = 2T-1 down to 0 (fmaf),
 //     the reverse of the plain version's order.
-//   * Past M = 4096 a cluster of two blocks runs each group (the tile's
-//     split, analysis_fft.cuh): rank r loads the values k = 2c + r of each
-//     hop-major row, the pair computes F = FFT_M(Y_n), and rank r's plane
-//     holds F[rN + c] (N = M/2 = P).  Column p's two reads, F[(M - p) mod
-//     M] and F[P - p], then sit at the one position (N - p) mod N of the
-//     two planes -- in rank 1's and rank 0's for p > 0, the other way
-//     round at p = 0 --, so a thread reads one of them from its own plane
-//     and one from the partner's (distributed shared memory).  The two
-//     ranks split the group's columns: the groups stay G (a run is 2·G
-//     blocks, B below), as many as at 4096, each pair re-running its half
-//     of the pass.  A cluster barrier after the ring (instead of the
-//     block's) keeps a plane from being refilled while the partner still
-//     reads it.  Registers: a half-width plan's passes and the combine
-//     beside the ring's 64 registers spilled up to 1.5 KB (M = 6144,
-//     8190), so past 4096 the ring waits in shared memory while the tile
-//     loads and transforms a pass (32 sums a thread, 64 KB a block: a
-//     pass is then synth_hops hops, 4 at 8192 against the other kernels'
-//     6), the hop loop is not unrolled (its shift is then 32 moves a
-//     hop), and an odd radix whose register pass would hold more than 16
-//     values a thread runs as the generic pass where the table holds the
-//     whole W_N (FftTile::generic_pass): no instantiation spills.
+//   * Past M = 4096 a cluster of C blocks runs each group (the tile's
+//     split, analysis_fft.cuh; C = 2 up to 8192, 3 .. 8 past it): rank
+//     r loads the values k = C·c + r of each hop-major row, the cluster
+//     computes F = FFT_M(Y_n), and rank r's plane holds F[rN + c] (N =
+//     M/C), so F[k] lies in rank k / N at position k mod N.  A thread
+//     computes the rank and position of column p's two reads, F[(M - p)
+//     mod M] and F[P - p], once a pass and reads both through the
+//     shared::cluster window (distributed shared memory).  At C = 2 (N
+//     = P) they sit at the one position (N - p) mod N of the two planes
+//     -- in rank 1's and rank 0's for p > 0, the other way round at p =
+//     0 --; for odd C they do not (P mod N = N/2).  The C ranks split
+//     the group's columns, a contiguous range of ceil(P / (G·C)) a
+//     block, which covers every column once whether or not C divides P:
+//     the groups stay G (a run is C·G blocks, B below), each cluster
+//     re-running its share of the pass.  A cluster barrier after the
+//     ring (instead of the block's) keeps a plane from being refilled
+//     while another rank still reads it.  Registers: a half-width
+//     plan's passes and the combine beside the ring's 64 registers
+//     spilled up to 1.5 KB (M = 6144, 8190), so past 4096 the ring
+//     waits in shared memory while the tile loads and transforms a pass
+//     (32 sums a thread, 64 KB a block: a pass is then synth_hops hops,
+//     4 at 8192 and 16384 against the other kernels' 6), the hop loop
+//     is not unrolled (its shift is then 32 moves a hop), and an odd
+//     radix whose register pass would hold more than 16 values a thread
+//     runs as the generic pass where the table holds the whole W_N
+//     (FftTile::generic_pass): no instantiation spills.
 //   * A persistent sweep: run i (B blocks) owns output hops [iR, iR + R)
 //     of the Nh + 2T - 1 (carry included), R sized so the grid fills the
 //     card once, and walks input hops from iR - (2T-1) in passes of H:
@@ -107,8 +112,8 @@
 namespace {
 
 // columns of the ring a thread may hold at width M and ring 2·MT: a
-// block's ceil(P/256) (P/2 a block in a cluster), but at most 2 at MT = 8
-// and 1 at MT = 16
+// block's ceil(P/256) (P/C a block in a cluster of C), but at most 2 at
+// MT = 8 and 1 at MT = 16
 __host__ __device__ constexpr int synth_thread_columns(int M, int MT) {
   return (M / 2 / fft_ranks(M) + kFftThreads - 1) / kFftThreads <
                  (MT <= 8 ? 2 : 1)
@@ -129,7 +134,7 @@ __host__ __device__ constexpr int synth_park_bytes(int M) {
   return fft_ranks(M) > 1 ? 8 * kSynthParkValues * kFftThreads : 0;
 }
 // hops a pass transforms: the tile's fft_wide_hops, or past 4096 the most
-// even hops whose plane fits beside the parked ring (4 at M = 8192)
+// even hops whose plane fits beside the parked ring (4 at N = 4096)
 __host__ __device__ constexpr int synth_hops(int M) {
   return fft_ranks(M) == 1
              ? fft_wide_hops(M)
@@ -223,13 +228,20 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
         for (int j = 0; j < RING; ++j)
           acc[c][j] = park[(c * RING + j) * kFftThreads + Tile::tid()];
     }
-    // F[k] for k < N lies in rank 0's plane, for k >= N in rank 1's: both
-    // read through the shared::cluster window (its addresses made afresh
-    // each pass)
-    unsigned F0 = 0, F1 = 0;
-    if constexpr (RK > 1) {
-      F0 = cluster_addr(tile.S, 0);
-      F1 = cluster_addr(tile.S, 1);
+    // F[k] lies in rank k / N at position k mod N, read through the
+    // shared::cluster window (its addresses made afresh each pass):
+    // column c's reads at hop 0 (Fa, Fb: F[(M - p) mod M], F[P - p])
+    unsigned Fa[CPT], Fb[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      if constexpr (RK > 1) {
+        const int p = pg + threadIdx.x + c * kFftThreads;
+        const int ka = p > 0 && p < P ? M - p : 0, kb = p < P ? P - p : 0;
+        Fa[c] = cluster_addr(tile.S, ka / N) + 8 * Tile::pad(ka % N);
+        Fb[c] = cluster_addr(tile.S, kb / N) + 8 * Tile::pad(kb % N);
+      } else {
+        Fa[c] = Fb[c] = 0;
+      }
     }
     // the hop loop unrolled, so that the ring's shift is register
     // renaming; past 4096 rolled, where its unrolled reads of both planes
@@ -245,11 +257,9 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
         if (kWhole || p < pe) {
           float2 a, b;     // F[(M - p) mod M], F[P - p]
           if constexpr (RK > 1) {
-            const unsigned q = 8 * (Tile::pad(p == 0 ? 0 : N - p) +
-                                    l * Tile::HS);
-            const float2 f0 = ld_cluster(F0 + q), f1 = ld_cluster(F1 + q);
-            a = p == 0 ? f0 : f1;
-            b = p == 0 ? f1 : f0;
+            const unsigned q = 8 * l * Tile::HS;
+            a = ld_cluster(Fa[c] + q);
+            b = ld_cluster(Fb[c] + q);
           } else {
             const float2* row = tile.S + l * Tile::HS;
             a = row[Tile::pad(p == 0 ? 0 : M - p)];
@@ -349,7 +359,9 @@ int launch_width(const void* Y, const void* tw, const void* gm,
   constexpr int G = synth_groups(M, MT);
   constexpr int B = G * fft_ranks(M);   // blocks of a run
   // run-slots the card holds at once: its blocks, or past 4096 its
-  // clusters, over the run's blocks or clusters
+  // clusters, over the run's blocks or clusters (0 where a run needs more
+  // clusters than the card holds at once: the run's G clusters then take
+  // turns, and the launch still has one run, below)
   int slots = 0;
   if constexpr (fft_ranks(M) > 1) {
     const int n = fft_max_clusters<M>(synth_kernel<M, MT>, smem);
@@ -412,7 +424,7 @@ extern "C" long long synth_scratch_values(int M, int T, int Nh) {
              ? -1
              : synth_scratch(M, T, Nh);
 }
-// the FFT's plan at width M (a block's transform, M/2 in a cluster): its
+// the FFT's plan at width M (a block's transform, M/C in a cluster): its
 // number of passes and the radix of pass p (-1: M not taken)
 extern "C" int synth_fft_passes(int M) {
   return with_width(M, [](auto w) {

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.device import as_tensor, resolve_device
-from amps_tpu_torch.dsp.polyphase import (_dft_mats, _dft_split_mats,
+from amps_tpu_torch.dsp.polyphase import (_dft_mats_on, _dft_split_mats,
                                           _hop_sign, prototype_taps)
 from amps_tpu_torch.kernels.analysis import analyze_block
 
@@ -87,7 +87,7 @@ def _transform_hopmajor(yr, yi, M: int, split: int):
     """u[n, m] = sum_k y[n, k] E+[k, m] on hop-major (..., Nh, M) planes.
     split=0: dense (M, M) matmul pair; split=M2: two-stage Cooley-Tukey."""
     if not split:
-        C, S = (_const(a, yr) for a in _dft_mats(M))
+        C, S = _dft_mats_on(M, yr.device)
         return yr @ C - yi @ S, yr @ S + yi @ C
     M2 = split
     M1 = M // M2

@@ -37,14 +37,38 @@ def prototype_taps(M: int, T: int) -> np.ndarray:
     return taps.astype(np.float32)
 
 
+def _unit_circle(M: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) of 2π e / M for e < M, float32: each angle in float64
+    as the matrices' entries take it, so that a matrix gathered from
+    these tables by e = (k·m) mod M holds the same numbers as one
+    computed entry by entry."""
+    ang = 2.0 * np.pi * np.arange(M) / M
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def _gather_circle(M: int, device, e_of):
+    """(cos, sin) tables of ``_unit_circle(M)`` gathered on ``device`` by
+    the exponents ``e_of(k)`` of the integer row k = 0 .. M-1 (4-byte
+    integers where the products k·m < M² fit)."""
+    k = torch.arange(M, device=device,
+                     dtype=torch.int32 if M * M < 2 ** 31 else torch.int64)
+    c, s = (torch.as_tensor(a, device=device) for a in _unit_circle(M))
+    return [t[e] for e in e_of(k) for t in (c, s)]
+
+
+def _dft_mats_on(M: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E+[k,m] = exp(+j 2π k m / M) as (cos, sin) float32 matrices on
+    ``device`` (symmetric, shared by analysis and synthesis), gathered
+    afresh at each call: the dense synthesis holds them for one block,
+    as it held its host copies."""
+    return tuple(_gather_circle(M, device,
+                                lambda k: [k[:, None] * k[None, :] % M]))
+
+
 @functools.cache
 def _dft_mats(M: int) -> Tuple[np.ndarray, np.ndarray]:
-    """E+[k,m] = exp(+j 2π k m / M) as (cos, sin) float32 matrices
-    (symmetric, shared by analysis and synthesis)."""
-    k = np.arange(M)
-    km = np.outer(k, k) % M
-    ang = 2.0 * np.pi * km / M
-    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+    """``_dft_mats_on`` on the CPU, as numpy arrays."""
+    return tuple(t.numpy() for t in _dft_mats_on(M, torch.device("cpu")))
 
 
 @functools.cache
@@ -61,21 +85,22 @@ def _dft_split_mats(M: int, M2: int):
             np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
 
 
-@functools.cache
-def _dft_mats_folded(M: int):
-    """Transform matrices with the polyphase permutation absorbed:
+def _folded_exponents(k, M: int):
+    """The exponents of the folded matrices: e_o[k, q] = k·(P-1-q) mod M
+    and e_e[k, q] = k·(M-1-q) mod M = e_o[k, q] + k·P (mod M)."""
+    P = M // 2
+    e_o = k[:, None] * (P - 1 - k[:P])[None, :] % M
+    return e_o, (e_o + (k % 2 * P)[:, None]) % M
+
+
+def _dft_mats_folded_on(M: int, device):
+    """Transform matrices with the polyphase permutation absorbed, on
+    ``device`` (``_analysis_consts`` holds them):
     y[k,n] = sum_q Eo[k,q] fo[n,q] + Ee[k,q] fe[n,q] with
     Eo[k,q] = E+[k, P-1-q], Ee[k,q] = E+[k, M-1-q].
     Returns (Co, So, Ce, Se), each (M, P) float32."""
-    P = M // 2
-    k = np.arange(M)[:, None]
-    q = np.arange(P)[None, :]
-    ang_o = 2.0 * np.pi * ((k * (P - 1 - q)) % M) / M
-    ang_e = 2.0 * np.pi * ((k * (M - 1 - q)) % M) / M
-    return (np.cos(ang_o).astype(np.float32),
-            np.sin(ang_o).astype(np.float32),
-            np.cos(ang_e).astype(np.float32),
-            np.sin(ang_e).astype(np.float32))
+    return tuple(_gather_circle(M, device,
+                                lambda k: _folded_exponents(k, M)))
 
 
 @functools.cache
@@ -91,12 +116,13 @@ def _derotation(M: int) -> Tuple[np.ndarray, np.ndarray]:
 def _analysis_consts(M: int, T: int, device):
     """Device copies of the bank path's tables: fold coefficients
     coef[t, q_w] = h[L-1-(tM+q_w)] (T, M), the folded transform matrices
-    (Co, So, Ce, Se) and the derotation (rc, rs) as (M, 1) columns."""
+    (Co, So, Ce, Se), gathered on the device itself, and the derotation
+    (rc, rs) as (M, 1) columns."""
     coef = np.ascontiguousarray(prototype_taps(M, T)[::-1]).reshape(T, M)
-    mats = _dft_mats_folded(M)
     rc, rs = _derotation(M)
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in (coef, *mats, rc[:, None], rs[:, None]))
+    return (torch.as_tensor(coef, device=device),
+            *_dft_mats_folded_on(M, device),
+            *(torch.as_tensor(a[:, None], device=device) for a in (rc, rs)))
 
 
 def _hop_sign(M: int, Nh: int, hop0_parity: int, device) -> torch.Tensor:

@@ -17,14 +17,16 @@ a thread block folds each of its hops once, any number of taps T (past
 transforms them with an f32 Stockham FFT whose radices are
 ``fft_radices(M)`` (mixed radix: 16, then 2, 4 or 8, then the odd prime
 factors of M) and whose twiddles are the table of ``_tables``; M is any
-even width in ``FFT_WIDTHS`` (8 to 8192).  Past ``BLOCK_WIDTH`` (4096) a
-cluster of ``fft_cluster_size(M)`` = 2 thread blocks shares each hop:
-each block transforms half of it at ``fft_plan_width(M)`` = M/2 and a
-radix-2 pass across the pair, through distributed shared memory, leaves
-each block a contiguous half of the channels.  The powers of two up to
-4096 live in the main library; any other width, 8192 included, builds a
-library of its own at first use (``kernels.build``).  The analysis
-kernel takes ``FFT_TILE_HOPS[M]``
+width in ``FFT_WIDTHS``: every even M from 2 to 8192, and past it M = C·N
+with C <= 8 and N <= 4096, up to 32768.  Past ``BLOCK_WIDTH`` (4096) a
+cluster of ``fft_cluster_size(M)`` = C thread blocks (the smallest
+divisor of M from 2 to ``CLUSTER_SIZE`` with M/C <= 4096) shares each
+hop: each block transforms its part at ``fft_plan_width(M)`` = M/C and a
+radix-C pass across the cluster, through distributed shared memory,
+leaves each block a contiguous range of M/C channels.  The powers of two
+up to 4096 live in the main library; any other width, every cluster
+width among them, builds a library of its own at first use
+(``kernels.build``).  The analysis kernel takes ``FFT_TILE_HOPS[M]``
 hops a block, the receive front ends (``kernels.rx_front``,
 ``kernels.rx_phases``) and the synthesis ``FFT_WIDE_HOPS[M]``; a block's
 shared memory is ``fft_smem_bytes`` (the plane, and up to
@@ -42,7 +44,8 @@ import functools
 import numpy as np
 import torch
 
-from amps_tpu_torch.dsp.polyphase import _analysis_consts, _hop_sign
+from amps_tpu_torch.dsp.polyphase import (_analysis_consts, _hop_sign,
+                                         prototype_taps)
 from amps_tpu_torch.kernels import build
 
 # taps per phase one chunk of the fold holds in registers, and the gain
@@ -50,16 +53,14 @@ from amps_tpu_torch.kernels import build
 # filter runs in chunks of this many
 CHUNK_TAPS = 16
 # the widest transform one thread block runs (csrc kFftBlockWidth); past
-# it a cluster of CLUSTER_SIZE blocks shares each hop
+# it a cluster of up to CLUSTER_SIZE blocks (the portable cluster size)
+# shares each hop
 BLOCK_WIDTH = 4096
-CLUSTER_SIZE = 2           # csrc kFftClusterSize
+CLUSTER_SIZE = 8           # csrc kFftClusterSize
 MAX_FFT_WIDTH = CLUSTER_SIZE * BLOCK_WIDTH   # csrc kFftMaxWidth
-# M the FFT tile takes: every even width from the 8-channel bank of the
-# station app's default to 8192 (245.76 Msps)
-FFT_WIDTHS = tuple(range(8, MAX_FFT_WIDTH + 1, 2))
-# M the main library instantiates: the powers of two; every other width
-# builds a library of its own at first use
-LIBRARY_WIDTHS = tuple(1 << b for b in range(3, 13))
+# M the main library instantiates: the powers of two up to BLOCK_WIDTH;
+# every other width builds a library of its own at first use
+LIBRARY_WIDTHS = tuple(1 << b for b in range(1, 13))
 # plane bytes a block of the analysis kernel may hold at a width up to
 # 2048 that is not a power of two (csrc kFftPlaneBudget): ~100 KB, M =
 # 1024's plane
@@ -74,20 +75,32 @@ SHARED_TWIDDLE_WIDTH = 2048
 
 def fft_cluster_size(M: int) -> int:
     """Blocks of a cluster that share each hop at width M (csrc
-    fft_ranks): 1 up to BLOCK_WIDTH, CLUSTER_SIZE past it."""
-    return CLUSTER_SIZE if M > BLOCK_WIDTH else 1
+    fft_ranks): 1 up to BLOCK_WIDTH; past it the smallest C from 2 to
+    CLUSTER_SIZE that divides M with M/C <= BLOCK_WIDTH (2 for every even
+    M up to 8192), or 0 where there is none (M not taken)."""
+    if M <= BLOCK_WIDTH:
+        return 1
+    return next((C for C in range(2, CLUSTER_SIZE + 1)
+                 if M % C == 0 and M // C <= BLOCK_WIDTH), 0)
 
 
 def fft_plan_width(M: int) -> int:
     """The width of one block's transform, and its channels (csrc
-    fft_width): M, or M/2 in a cluster."""
+    fft_width): M, or M/C in a cluster of C."""
     return M // fft_cluster_size(M)
+
+
+# M the FFT tile takes: every even width from 2 to 8192 (245.76 Msps),
+# and past it the M = C·N that a cluster of C <= 8 blocks of N <= 4096
+# channels splits, up to 32768 (983.04 Msps)
+FFT_WIDTHS = tuple(M for M in range(2, MAX_FFT_WIDTH + 1, 2)
+                   if fft_cluster_size(M))
 
 
 def _fit_hops(M: int) -> int:
     """csrc fft_fit_hops: the most even hops (up to 16) whose plane fits
-    in a block's shared memory (6 at M = 4096, and 6 of the half-width
-    plane at 8192)."""
+    in a block's shared memory (6 at M = 4096, and 6 of a block's plane
+    of M/C at 8192 and 16384)."""
     return min(16, SMEM_BYTES // (8 * fft_hop_stride(fft_plan_width(M)))
                & ~1)
 
@@ -99,7 +112,7 @@ def _tile_hops(M: int) -> int:
     2048 ``_fit_hops``."""
     if M > SHARED_TWIDDLE_WIDTH:
         return _fit_hops(M)
-    if M in LIBRARY_WIDTHS:
+    if M & (M - 1) == 0:
         return 16 if M <= 512 else 12 if M == 1024 else 4
     h = PLANE_BUDGET // (8 * fft_hop_stride(M))
     return 16 if h >= 16 else max(2, h & ~1)
@@ -224,9 +237,11 @@ FFT_HEAD = ((16, (1, 2, 3)), (3, (1,)), (5, (1, 2)), (7, (1, 2, 3)))
 
 def fft_twiddle_exponents(M: int) -> np.ndarray:
     """The exponents e of the FFT tile's twiddle table W_M^e (csrc
-    fft_twiddle_offset, fft_table_size).  In a cluster (M past
-    BLOCK_WIDTH): the table of the half width N = M/2, its W_N^e as
-    W_M^{2e}, then the combine's W_M^k for k < N.  Otherwise: the head,
+    fft_twiddle_offset, fft_table_size).  In a cluster of C (M past
+    BLOCK_WIDTH): the table of the block's width N = M/C, its W_N^e as
+    W_M^{Ce}, then the pass across the cluster's W_M^{s·c} for 1 <= s <
+    C, c < N (s-major; at C = 2 the combine's W_M^c), and past C = 2 the
+    constants W_C^e = W_M^{eN}, e < C.  Otherwise: the head,
     j·M/R for the powers j of each radix R
     of FFT_HEAD (only W_16's where M is a power of two; taken as ⌊j·M/R⌋,
     whole wherever R is in the plan, the only place a butterfly reads
@@ -234,10 +249,13 @@ def fft_twiddle_exponents(M: int) -> np.ndarray:
     the first, with Ns the product of the earlier radices, the
     (R-1) x Ns block jm·r·M/(Ns·R) for r = 1 .. R-1, jm < Ns; where the
     plan has a generic pass, every e < M last."""
-    if fft_cluster_size(M) > 1:
-        N = fft_plan_width(M)
-        return np.concatenate([2 * fft_twiddle_exponents(N),
-                               np.arange(N, dtype=np.int64)])
+    C = fft_cluster_size(M)
+    if C > 1:
+        N = M // C
+        s, c = np.meshgrid(np.arange(1, C), np.arange(N), indexing="ij")
+        w_c = np.arange(C) * N if C > 2 else np.zeros(0, np.int64)
+        return np.concatenate([C * fft_twiddle_exponents(N),
+                               (s * c).ravel(), w_c]).astype(np.int64)
     heads = FFT_HEAD[:1] if M & (M - 1) == 0 else FFT_HEAD
     out = [j * M // R for R, js in heads for j in js]
     ns = 1
@@ -271,17 +289,25 @@ def _fft_twiddles(M: int) -> np.ndarray:
 
 @functools.cache
 def _tables(M: int, T: int, device: torch.device):
-    """The FFT tile's tables on device: fold coefficients coef[t, m]
-    (T, M) and the twiddle table of ``_fft_twiddles``."""
-    coef = _analysis_consts(M, T, device)[0]
-    return coef, torch.as_tensor(_fft_twiddles(M), device=device)
+    """The FFT tile's tables on device: fold coefficients coef[t, m] =
+    h[M·T - 1 - (tM + m)] (T, M), the prototype's taps reversed as
+    ``dsp.polyphase._analysis_consts`` takes them (without the plain
+    version's dense matrices), and the twiddle table of
+    ``_fft_twiddles``."""
+    coef = np.ascontiguousarray(prototype_taps(M, T)[::-1]).reshape(T, M)
+    return (torch.as_tensor(coef, device=device),
+            torch.as_tensor(_fft_twiddles(M), device=device))
 
 
 def check_fft_width(M: int) -> None:
-    """The FFT tile takes any even M from 8 to MAX_FFT_WIDTH (8192)."""
-    if M % 2 or not FFT_WIDTHS[0] <= M <= MAX_FFT_WIDTH:
-        raise ValueError(f"kernel needs an even M from {FFT_WIDTHS[0]} to "
-                         f"{MAX_FFT_WIDTH} (M={M})")
+    """The FFT tile takes any even M from 2 to 2·BLOCK_WIDTH (8192) and
+    past it M = C·N with C <= CLUSTER_SIZE and N <= BLOCK_WIDTH, up to
+    MAX_FFT_WIDTH (32768): ``FFT_WIDTHS``."""
+    if M % 2 or not 2 <= M <= MAX_FFT_WIDTH or not fft_cluster_size(M):
+        raise ValueError(
+            f"kernel needs an even M from 2 to {2 * BLOCK_WIDTH}, or M = C·N "
+            f"with C <= {CLUSTER_SIZE} and N <= {BLOCK_WIDTH} up to "
+            f"{MAX_FFT_WIDTH} (M={M})")
 
 
 def card_block(x_ext: torch.Tensor, M: int, T: int):
@@ -313,7 +339,8 @@ def bind(prefix: str, argtypes, M: int, hops: int, smem: int, **consts):
     pass by pass (``{prefix}_fft_passes``, ``{prefix}_fft_radix``), its
     cluster size (``{prefix}_cluster_size``), and each of ``consts``
     (name: {int arguments: value} of ``{prefix}_{name}``).  At a cluster
-    width the card must hold at least one cluster of the kernel
+    width (a cluster of 2 to 8 blocks) the card must hold at least one
+    cluster of the kernel
     (``{prefix}_max_clusters``, cudaOccupancyMaxActiveClusters), or this
     raises: such a width never falls back."""
     lib = build.load(None if M in LIBRARY_WIDTHS else M)

@@ -4,7 +4,7 @@ Every ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 (``sm_90a``) into an object file, all sources at once in parallel
 processes; the objects link into one shared library with a plain C
 interface.  The main library instantiates the FFT tile at every power of
-two from 8 to 4096; any other width M the tile takes (8192 and the other
+two from 2 to 4096; any other width M the tile takes (8192 and the other
 cluster widths past 4096 among them) compiles into a small library of
 its own, from the same sources with ``-DAMPS_FFT_WIDTH=M``
 (``build(widths=...)`` builds several in one parallel run).  The libraries

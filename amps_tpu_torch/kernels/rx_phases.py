@@ -9,7 +9,7 @@ raises; a CPU tensor computes the kernel's plain version,
 quadrature_demod_planar -> symbol_phase_streams / window_power_blocks.
 There is no fallback from one to the other.  The kernel runs the
 all-channel FFT tile of ``kernels.analysis`` (``csrc/analysis_fft.cuh``,
-any even M in ``FFT_WIDTHS``): a block computes
+any M in ``FFT_WIDTHS``): a block computes
 ``FFT_WIDE_HOPS[M]`` analysis hops and owns the ``run_hops(M, sps)``
 demod hops after the first, whole symbols whose look-ahead fits in the
 tile; the 384-hop power partials of the runs go through a scratch that a

@@ -8,18 +8,21 @@ a CPU tensor computes the kernel's plain version,
 ``dsp.channelizer._synthesize_block``.  There is no fallback from one to
 the other.  The kernel runs the all-channel FFT tile of
 ``kernels.analysis`` on hop-major rows of Y (``FFT_WIDE_HOPS[M]`` a pass,
-any even M in ``FFT_WIDTHS``), reads the inverse transform off the
+any M in ``FFT_WIDTHS``), reads the inverse transform off the
 forward FFT by index and overlap-adds in registers: its tables are the
 tile's twiddles and ``_gain_taps``.  Past M = 1024 (512 for T > 8) a
 thread's ring of running sums would outgrow its registers, so the P =
 M/2 columns split into ``column_groups(M, T)`` groups, a grid axis, each
 of which transforms the pass's hops itself (``thread_columns``: at most
-2 columns a thread).  Past M = 4096 a group is a cluster of two blocks
-that share each hop's transform (``kernels.analysis.fft_cluster_size``)
-and split the group's columns; the groups stay as many as at 4096, and
-each thread's ring (32 running sums) waits in shared memory while the
-tile transforms a pass, so a pass takes ``SYNTH_HOPS[M]`` hops (4 at
-8192), fewer than the other kernels' ``FFT_WIDE_HOPS[M]``.
+2 columns a thread).  Past M = 4096 a group is a cluster of C blocks
+(``kernels.analysis.fft_cluster_size``: 2 up to 8192, up to 8 past it)
+that share each hop's transform and split the group's columns, each
+block a contiguous range; each thread reads its columns' two values of
+the forward FFT from whichever ranks hold them (through distributed
+shared memory).  The groups stay as many as at 4096, and each thread's
+ring (32 running sums) waits in shared memory while the tile transforms
+a pass, so a pass takes ``SYNTH_HOPS[M]`` hops (4 at 8192 and 16384),
+fewer than the other kernels' ``FFT_WIDE_HOPS[M]``.
 
 Past ``CHUNK_TAPS`` (16) taps the overlap-add splits by linearity into
 chunks of 16 gain rows (``tap_chunks``): each chunk is one launch of the
@@ -105,8 +108,8 @@ def synthesize_block_reference(Y, M: int, T: int, hop0_parity: int, carry,
 
 def thread_columns(M: int, T: int) -> int:
     """Columns of the ring a thread may hold (csrc
-    synth_thread_columns): a block's ceil(P/256) (P/2 a block in a
-    cluster), but at most 2 with the ring of T <= 8 (2·8 running sums)
+    synth_thread_columns): a block's ceil(P/256) (P/C a block in a
+    cluster of C), but at most 2 with the ring of T <= 8 (2·8 running sums)
     and 1 with that of 16 (2·16), which T <= 16 and every full chunk of
     a longer filter run (a last chunk of at most 8 taps runs the ring of
     8: ``thread_columns(M, taps)`` of its ``tap_chunks`` entry)."""

@@ -1,10 +1,10 @@
 """GPU smoke run of the PyTorch/CUDA port.  It builds the four CUDA
 kernels of the ported paths (rx_phases, rx_front, synth, analysis),
 holds each against its plain PyTorch version at M=1024 and 256 and at
-the small banks M=8, 16 and 32, drives the 1024-channel receive block,
-the station's streaming duplex -- MultichannelTransmitter superframes
-read back through the rx_phases kernel, and planted bursts streamed
-through MultichannelReceiver --, a whole call over channelized RF
+the small banks M=2, 4, 6, 8, 16 and 32, drives the 1024-channel
+receive block, the station's streaming duplex -- MultichannelTransmitter
+superframes read back through the rx_phases kernel, and planted bursts
+streamed through MultichannelReceiver --, a whole call over channelized RF
 (BaseStation, the transmitter, the mobile simulator's ear on the
 analysis kernel, its RECC bursts through the receiver), the fused TX->RX
 closed loop under a CUDA graph (synth + rx_front once a block), the
@@ -43,7 +43,12 @@ short app call at M=8192 (a 245.76 Msps radio), the peak device memory
 --; filters longer than 16 taps a phase -- every kernel against its
 plain version at T = 17, 24, 32, 33 and 64 and M = 8 to 8192, their
 times at M=1024 for T = 8 to 64, the main path and one sharded step at
-M=1024, T=32 --; and
+M=1024, T=32 --; banks past 8192 channels, each hop shared by a cluster
+of 3 to 8 blocks with a radix-C pass across it -- every wrapper refusing
+M = 8195, 8194 and 32770, every kernel against its plain version at
+M = 8196, 12288, 16384, 20480, 12294, 28672, 32768 and 16424, their
+times at 12288 and 16384 beside 8192, the same main path and short app
+call at M=16384 (a 491.52 Msps radio), the peak device memory --; and
 times kernels and paths against their plain versions,
 their bounds and a cuFFT yardstick, with profiler windows of one
 one-shot block, one receiver push, one transmitter superframe, one
@@ -65,18 +70,22 @@ its launches and times on the closed loop or the batched block, for
 K1 and K4 their launches, errors and times at the sharded workers'
 shapes, and each kernel's errors at phase 29's widths and its times,
 bounds and cuFFT yardsticks at 768, 1024, 1536 and 2038 (``widths_*``),
-and the same at phase 30's (``wide_*``) and phase 31's (``widest_*``),
-and phase 32's errors by M and times by T (``taps_*``);
+and the same at phase 30's (``wide_*``), phase 31's (``widest_*``) and
+phase 33's (``wider_*``, with K1's, K2's and K4's errors against
+float64 references of their functions, the kernel's beside its plain
+version's, in ``wider_vs_float64``), and
+phase 32's errors by M and times by T (``taps_*``);
 ``launches_by_path`` counts each kernel's launches on every path it
 runs, the soaks', the paced legs', the two processes' of the
-cross-process station and the M=768, M=4096 and M=8192 paths'
-(``m768_*``, ``m4096_*``, ``m8192_*``) and the T=32 paths' (``t32_*``)
+cross-process station and the M=768, M=4096, M=8192 and M=16384
+paths' (``m768_*``, ``m4096_*``, ``m8192_*``, ``m16384_*``) and the T=32
+paths' (``t32_*``)
 among them.  Without a CUDA card it exits non-zero.
 
     python3 chip_smoke.py --digest TREE
 
 builds the port in source tree TREE and prints the sha256 of each
-kernel's outputs at T = 8 and 16 on fixed inputs (``digest``): run on
+kernel's outputs at T = 8 and 32 on fixed inputs (``digest``): run on
 two trees in one call, it shows a change leaving them bit for bit.
 """
 
@@ -124,8 +133,17 @@ F32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def stamp(label):
+    """A line with the seconds since the script started, before a phase
+    or a part of one."""
+    log(f"[{time.perf_counter() - T_START:.1f} s] {label}")
 
 
 def sync(dev):
@@ -268,11 +286,79 @@ def timed(fns, n=N_TIMED, reps=1):
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
-def compare_synth(S, M, T, Nh, dev, seed, rtol=SYNTH_RTOL):
+def analysis_f64(x, M, T, parity):
+    """K1's function in float64 on riq x ((Nh + 2T - 1)·M/2, 2), on its
+    device: the polyphase fold with ``prototype_taps(M, T)``, y_n[k] =
+    sum_m v_n[m] e^{+j2πkm/M} (v_n[P-1-q] the odd bank's fold, v_n[M-1-q]
+    the even one's) as M times an inverse FFT, the derotation
+    e^{+j2πk/M} and the hop sign.  Returns (M, Nh) complex128: the
+    reference to which phase 33 holds each kernel and its plain version
+    alike."""
+    from amps_tpu_torch.dsp.polyphase import _hop_sign, prototype_taps
+    P = M // 2
+    Nh = x.shape[0] // P - (2 * T - 1)
+    coef = torch.as_tensor(np.ascontiguousarray(
+        prototype_taps(M, T)[::-1]).reshape(T, M), device=x.device).double()
+    z = torch.complex(x[:, 0].double(), x[:, 1].double())
+    bl = z[: x.shape[0] // P * P].reshape(-1, P)
+    acc_e = sum(coef[t, :P] * bl[2 * t: 2 * t + Nh] for t in range(T))
+    acc_o = sum(coef[t, P:] * bl[2 * t + 1: 2 * t + 1 + Nh]
+                for t in range(T))
+    v = torch.cat([acc_o.flip(-1), acc_e.flip(-1)], dim=-1)
+    k = torch.arange(M, device=x.device, dtype=torch.float64)
+    y = M * torch.fft.ifft(v, dim=-1) * torch.exp(2j * math.pi * k / M)
+    return y.T * _hop_sign(M, Nh, parity, x.device).double()
+
+
+def demod_f64(y, prev):
+    """K2's discriminator in float64 on channel-major y (M, Nh)
+    complex128 after prev (M, 2): fast_atan2's polynomial (dsp.fm)
+    evaluated in float64 on y_n conj(y_{n-1})."""
+    from amps_tpu_torch.dsp import fm
+    s = torch.cat([torch.complex(prev[:, :1].double(), prev[:, 1:].double()),
+                   y[:, :-1]], dim=1)
+    w = y * s.conj()
+    ax, ay = w.real.abs(), w.imag.abs()
+    z = torch.minimum(ax, ay) / torch.clamp(torch.maximum(ax, ay), min=1e-30)
+    z2 = z * z
+    base = z * (float(fm._ATAN_A) + z2 * (float(fm._ATAN_B) + z2 * (
+        float(fm._ATAN_C) + z2 * float(fm._ATAN_D))))
+    base = torch.where(ay > ax, float(fm._HALF_PI) - base, base)
+    base = torch.where(w.real < 0, float(fm._PI) - base, base)
+    return torch.where(w.imag < 0, -base, base)
+
+
+def synth_f64(Y, M, T, parity, carry):
+    """K4's function in float64 on Y (Nh, M, 2) and carry, on Y's
+    device: u_n[m] = sum_k s_n[k] y_n[k] e^{+j2πkm/M} (s the hop sign)
+    as M times an inverse FFT, then the overlap-add out[n + j] +=
+    g_j u_n[(j & 1)P .. +P] with g = P · ``prototype_taps(M, T)`` and
+    the carry added to the first 2T - 1 hops.  Returns (wideband (Nh·P,
+    2), carry ((2T - 1)·P, 2)) float64."""
+    from amps_tpu_torch.dsp.polyphase import _hop_sign, prototype_taps
+    P, Nh = M // 2, Y.shape[0]
+    y = torch.complex(Y[..., 0].double(), Y[..., 1].double()) \
+        * _hop_sign(M, Nh, parity, Y.device).double().T
+    u = M * torch.fft.ifft(y, dim=-1)
+    g = torch.as_tensor(prototype_taps(M, T), device=Y.device).double() \
+        .reshape(T, M) * P
+    out = torch.zeros((Nh + 2 * T - 1, P), dtype=torch.complex128,
+                      device=Y.device)
+    for j in range(2 * T):
+        h = (j & 1) * P
+        out[j: j + Nh] += g[j // 2, h: h + P] * u[:, h: h + P]
+    out = torch.view_as_real(out.reshape(-1)).clone()
+    out[: carry.shape[0]] += carry.double()
+    return out[: Nh * P], out[Nh * P:]
+
+
+def compare_synth(S, M, T, Nh, dev, seed, rtol=SYNTH_RTOL, witness=None):
     """Synthesis kernel vs plain version on random channel basebands
     with a nonzero carry-in, both hop parities, and two chained calls vs
-    one; errors relative to the output RMS, held to ``rtol``.  Returns the
-    max abs error."""
+    one; errors relative to the output RMS, held to ``rtol``.  With
+    ``witness`` (a dict) both are also held to ``synth_f64``:
+    witness[M] = (kernel, plain) max |err| / RMS over both parities.
+    Returns the max abs error."""
     g = torch.Generator(dev).manual_seed(seed)
     Y = torch.randn((Nh, M, 2), device=dev, generator=g)
     carry = torch.randn((M * T - M // 2, 2), device=dev, generator=g)
@@ -289,6 +375,14 @@ def compare_synth(S, M, T, Nh, dev, seed, rtol=SYNTH_RTOL):
         assert torch.isfinite(x).all() and torch.isfinite(c).all()
         assert ex <= rtol * rms and ec <= rtol * rms
         max_abs = max(max_abs, ex, ec)
+        if witness is not None:
+            fx, fc = synth_f64(Y, M, T, parity, carry)
+            frms = fx.pow(2).mean().sqrt().item()
+            witness[M] = tuple(
+                max(w, (a.double() - fx).abs().max().item() / frms,
+                    (b.double() - fc).abs().max().item() / frms)
+                for w, (a, b) in zip(witness.get(M, (0.0, 0.0)),
+                                     ((x, c), (rx, rc))))
     h = Nh // 2 + 1
     xa, ca = S.synthesize_block(Y[:h].contiguous(), M, T, 0, carry)
     xb, cb = S.synthesize_block(Y[h:].contiguous(), M, T, h % 2, ca)
@@ -489,13 +583,15 @@ def phase_tx(dev, M, T, n_random=60):
             f"of RMS)")
         assert torch.isfinite(x).all() and e <= TX_PEAK_RTOL * peak
     mirror.next_word_pairs()
-    want = {c: focc_frame_bits(FoccStream(sps=sps).next_word_pairs())
-            for c in range(M)}
-    want[1] = focc_frame_bits(mirror.next_word_pairs())
     rng = np.random.default_rng(M)
     fixed = [0, 1, M // 2 - 1, M // 2, M - 1]
     others = [int(c) for c in rng.permutation(M) if c not in fixed]
     chans = fixed + others[:n_random]
+    # every channel but 1 sends the same steady-state superframe: its bits
+    # once, for each channel read back
+    idle = focc_frame_bits(FoccStream(sps=sps).next_word_pairs())
+    want = {c: idle for c in chans}
+    want[1] = focc_frame_bits(mirror.next_word_pairs())
     band = torch.cat(xs + [tx._state.carry])
     n = check_forward_band(K3, band, M, T, sps, want, chans,
                            (1, 4, page[0]))
@@ -675,6 +771,9 @@ def profile_window(label, fn, dev, top=6, all_threads=False):
     ms, {op name: (device ms, calls)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    # the profiler's device-side record buffers are allocated on the card
+    # while it traces: release the allocator's unused cache first
+    torch.cuda.empty_cache()
     walls = []
     for _ in range(4):
         sync(dev)
@@ -733,7 +832,8 @@ def profile_window(label, fn, dev, top=6, all_threads=False):
     busy /= 1e3
     log(f"  profile, {label}: device busy {busy:.3f} ms in {len(ev)} device "
         f"ops, host wall {wall:.3f} ms ({wall_prof:.3f} under the "
-        f"profiler), idle share {1 - busy / wall:.1%}")
+        f"profiler), idle share {1 - busy / wall:.1%}; card memory free "
+        f"{torch.cuda.mem_get_info(dev)[0] / 1e9:.2f} GB after it")
     if ranges:
         log("    traced sections: " + ", ".join(
             f"{k} {n}x" for k, n in sorted(ranges.items())))
@@ -977,6 +1077,11 @@ ATAN_SEAM = 0.0417          # fast_atan2's step where |im| = |re|: its
                             # polynomial reads 0.76457 at z = 1, pi/4 - 0.02083
 
 
+# phase 12's banks: 2, 4 and 6 (the smallest the JAX package takes), and 8
+# (the station app's default), 16 and 32
+SMALL_WIDTHS = (2, 4, 6, 8, 16, 32)
+
+
 def demod_err(d, rd):
     """Two demod planes of a signal band, sample by sample: (max |err|
     off the seam, samples on it).  Every sample is held to PHASE_ATOL but
@@ -1015,12 +1120,12 @@ def fsk_band(M, T, Nh, seed, dev):
     return torch.cat([carry, x]).contiguous()
 
 
-def phase_small_widths(dev, Nh=4001, widths=(8, 16, 32), Ts=(4, 8),
+def phase_small_widths(dev, Nh=4001, widths=SMALL_WIDTHS, Ts=(4, 8),
                        label="phase 12: the small banks", times=True,
-                       seam=False, bounds=None):
+                       seam=False, bounds=None, witness=None):
     """Phase 12: the four kernels against their plain versions at the
-    small banks M = 8, 16, 32 (the station app's default bank is 8
-    channels), T = 4 and 8, both parities, riq and planar where the
+    small banks M = 2, 4, 6, 8, 16, 32 (the station app's default bank is
+    8 channels), T = 4 and 8, both parities, riq and planar where the
     kernel takes both, two chained calls against one, at the bounds the
     wide widths meet; then each kernel's time at these widths, Nh=8192,
     T=8.  Phase 29 runs the same checks at its ``widths`` with ``seam``:
@@ -1029,8 +1134,12 @@ def phase_small_widths(dev, Nh=4001, widths=(8, 16, 32), Ts=(4, 8),
     the step.  ``bounds`` ({kernel: bound}, phase 32) holds K1's max |err|
     on its unit-modulus channels, K2's demod error off the seam
     (radians) and K4's share of the output's RMS to tighter bounds than
-    ANALYSIS_ATOL, PHASE_ATOL and SYNTH_RTOL.  Returns ({kernel: {M: max abs error}}, {kernel: {M:
-    (kernel ms, plain ms)}})."""
+    ANALYSIS_ATOL, PHASE_ATOL and SYNTH_RTOL.  ``witness`` (phase 33,
+    {kernel: {}} for analysis, rx_front and synth) gets {M: (kernel
+    error, plain error)} against the float64 references
+    ``analysis_f64``, ``demod_f64`` and ``synth_f64``, in the terms of
+    ``bounds``, the largest over both parities, riq and planar.  Returns ({kernel: {M: max abs error}},
+    {kernel: {M: (kernel ms, plain ms)}})."""
     from amps_tpu_torch.eval.traffic import unit_channel_band
     from amps_tpu_torch.kernels import analysis as KA
     from amps_tpu_torch.kernels import rx_front as R
@@ -1062,6 +1171,20 @@ def phase_small_widths(dev, Nh=4001, widths=(8, 16, 32), Ts=(4, 8),
                     d, last, pw = R.analyze_demod(xi, M, T, parity, prev)
                     rd, rlast, rpw = R.analyze_demod_reference(
                         xi, M, T, parity, prev)
+                    if witness is not None:
+                        fy = torch.view_as_real(analysis_f64(xu, M, T,
+                                                             parity))
+                        fd = demod_f64(analysis_f64(xf, M, T, parity), prev)
+                        riq = (lambda a: a.permute(1, 2, 0)) if planar \
+                            else (lambda a: a)
+                        for k, got in (
+                                ("analysis", [(riq(a).double() - fy).abs()
+                                              .max().item() for a in (y, ry)]),
+                                ("rx_front", [demod_err(
+                                    a[:, skip:].double(), fd[:, skip:])[0]
+                                    for a in (d, rd)])):
+                            was = witness[k].get(M, (0.0, 0.0))
+                            witness[k][M] = tuple(map(max, got, was))
                     e2 = max(e2, demod_err(d[:, skip:], rd[:, skip:])[0]
                              if seam else
                              (d - rd)[:, skip:].abs().max().item())
@@ -1105,9 +1228,10 @@ def phase_small_widths(dev, Nh=4001, widths=(8, 16, 32), Ts=(4, 8),
             assert torch.equal(torch.cat([da, db], 1), d) \
                 and torch.equal(torch.cat([pa, pb], 1), pw) \
                 and torch.equal(lb, last), (M, T)
-            e4 = max(e4, compare_synth(S, M, T, Nh, dev, M + T,
-                                       bounds["synth"] if bounds
-                                       else SYNTH_RTOL))
+            e4 = max(e4, compare_synth(
+                S, M, T, Nh, dev, M + T,
+                bounds["synth"] if bounds else SYNTH_RTOL,
+                None if witness is None else witness["synth"]))
         for name, e in zip(errs, (e1, e2, e3, e4)):
             errs[name][M] = e
         assert bounds is None or (e1 <= bounds["analysis"]
@@ -1142,7 +1266,8 @@ def phase_small_widths(dev, Nh=4001, widths=(8, 16, 32), Ts=(4, 8),
         log(f"  M={M}, Nh={Nt}, kernel / plain ms: " + ", ".join(
             f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in
             ((k, ms[k][M]) for k in ms)))
-    for M in (13, 6, 8194, 16384):  # odd, below 8, past 8192: refused
+    # odd, no split into a cluster of <= 8 blocks, past 32768: refused
+    for M in (13, 8198, 8194, 32770):
         try:
             KA.analyze_block(torch.zeros(((100 + 15) * (M // 2), 2),
                                          device=dev), M, 8)
@@ -1415,14 +1540,28 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5):
             f"Msamples/s, {msps / band_msps:.1f}x real time")
     log(f"  graph vs eager {out['eager'] / out['graph']:.3f}x, kernel path "
         f"vs plain path (eager) {out['plain'] / out['eager']:.3f}x")
-    busy, wall, ops = profile_window(
-        f"one run of the closed loop under the graph ({nblocks} blocks)",
-        lambda: runs["graph"](wp), dev, top=8)
-    out["busy"], out["wall"] = busy / nblocks, wall / nblocks
     # the launches run adds for its replays, held to the kernel spans the
-    # profiler saw on the card in that graph run
-    for key, pat in (("synth", "synth_kernel"),
-                     ("rx_front", "rx_front_kernel")):
+    # profiler saw on the card in one graph run.  A window whose trace
+    # holds fewer spans than launches is taken again, up to PROFILE_TRIES
+    # windows, each shortfall logged: the profiler drops records (on the
+    # H100 the M=16384 loop's window has lost about 40 of its 5608 device
+    # ops, one span of each kernel among them, while every block ran);
+    # more spans than launches fail at once
+    kernels = (("synth", "synth_kernel"), ("rx_front", "rx_front_kernel"))
+    for attempt in range(PROFILE_TRIES):
+        busy, wall, ops = profile_window(
+            f"one run of the closed loop under the graph ({nblocks} blocks)",
+            lambda: runs["graph"](wp), dev, top=8)
+        spans = [sum(c for k, (_, c) in ops.items() if pat in k)
+                 for _, pat in kernels]
+        if all(n >= want for n, want in zip(spans, out["launches"])) or \
+                attempt + 1 == PROFILE_TRIES:
+            break
+        log(f"  the trace holds {spans} spans of {[p for _, p in kernels]} "
+            f"against {list(out['launches'])} launches (try "
+            f"{attempt + 1} of {PROFILE_TRIES})")
+    out["busy"], out["wall"] = busy / nblocks, wall / nblocks
+    for key, pat in kernels:
         ms = sum(v for k, (v, _) in ops.items() if pat in k) / nblocks
         calls = sum(c for k, (_, c) in ops.items() if pat in k)
         out[key + "_dev"], out[key + "_spans"] = ms, calls
@@ -2773,19 +2912,25 @@ WIDEST_M = 8192
 
 
 def width_libraries():
-    """The widths of phases 29-31 that build a library of their own."""
+    """The widths of phases 12 and 29-33 that build a library of their
+    own."""
     from amps_tpu_torch.kernels import analysis as KA
-    return sorted(set(WIDTH_CHECKS + WIDTH_TIMES + WIDE_CHECKS + WIDE_TIMES
-                      + WIDEST_CHECKS + WIDEST_TIMES)
+    return sorted(set(SMALL_WIDTHS + WIDTH_CHECKS + WIDTH_TIMES + WIDE_CHECKS
+                      + WIDE_TIMES + WIDEST_CHECKS + WIDEST_TIMES
+                      + WIDER_CHECKS + WIDER_TIMES)
                   - set(KA.LIBRARY_WIDTHS))
 
 
-def width_rows(dev, M, T, Nh, sps=3):
+def width_rows(dev, M, T, Nh, sps=3, plain=None):
     """Each kernel alone at width M, Nh hops, T taps, on one FSK band
     (K1-K3) and random channel basebands (K4), timed with its plain
-    version (median of 10 turns of KERNEL_REPS calls, CUDA events), with
-    its bound and the cuFFT time of the (Nh, M) transform.  Returns
-    {kernel: {"kernel", "plain", "bound", "bound_by"}, "fft": ms}."""
+    version (median of 10 turns of KERNEL_REPS calls, CUDA events, in
+    turns with the kernels; or, with ``plain`` = (turns, calls), the
+    kernels so and then the plain versions apart in that many turns of
+    that many calls, where a dense plain version takes a large share of
+    a second), with its bound and the cuFFT time of the (Nh, M)
+    transform.  Returns {kernel: {"kernel", "plain", "bound",
+    "bound_by"}, "fft": ms}."""
     from amps_tpu_torch.kernels import analysis as KA
     from amps_tpu_torch.kernels import rx_front as R
     from amps_tpu_torch.kernels import rx_phases as K
@@ -2797,7 +2942,7 @@ def width_rows(dev, M, T, Nh, sps=3):
                     generator=torch.Generator(dev).manual_seed(M))
     carry = torch.zeros((M * T - P, 2), device=dev)
     bf = torch.bfloat16
-    t = timed({
+    fns = {
         "analysis": lambda: KA.analyze_block(x, M, T, 0),
         "analysis_plain": lambda: KA.analyze_reference(x, M, T, 0),
         "rx_front": lambda: R.analyze_demod(x, M, T, 0, prev),
@@ -2809,7 +2954,14 @@ def width_rows(dev, M, T, Nh, sps=3):
         "synth": lambda: S.synthesize_block(Y, M, T, 0, carry),
         "synth_plain": lambda: S.synthesize_block_reference(Y, M, T, 0,
                                                             carry),
-    }, 10, KERNEL_REPS)
+    }
+    if plain is None:
+        t = timed(fns, 10, KERNEL_REPS)
+    else:
+        t = timed({k: f for k, f in fns.items() if "plain" not in k}, 10,
+                  KERNEL_REPS)
+        t.update(timed({k: f for k, f in fns.items() if "plain" in k},
+                       *plain))
     tables = nbytes(*KA._tables(M, T, dev))
     nsym = (Nh - sps + 1) // sps
     moved = {"analysis": nbytes(x) + tables + M * Nh * 8,
@@ -2824,12 +2976,12 @@ def width_rows(dev, M, T, Nh, sps=3):
     return rows
 
 
-def width_times(dev, card, widths, T, base=1024):
+def width_times(dev, card, widths, T, base=1024, plain=None):
     """width_rows at each of ``widths`` (Nh=8192), each kernel's time also
     as a multiple of its time at ``base`` once that has run."""
     rows = {}
     for M in widths:
-        r = rows[M] = width_rows(dev, M, T, 8192)
+        r = rows[M] = width_rows(dev, M, T, 8192, plain=plain)
         log(f"  M={M}, Nh=8192, kernel / plain / bound ms (x the M={base} "
             f"kernel), cuFFT {r['fft']:.3f} ms, on {card}: " + "; ".join(
                 f"{k} {v['kernel']:.3f} / {v['plain']:.3f} / "
@@ -2840,7 +2992,7 @@ def width_times(dev, card, widths, T, base=1024):
     return rows
 
 
-def station_paths(dev, card, M, T=8, sps=3):
+def station_paths(dev, card, M, T=8, sps=3, loop_runs=3):
     """The station's main path at width M through the entry points -- the
     one-shot block (K3, n = Nh·M/2 at Nh=8192, 8 planted bursts), the
     streaming receiver (K2, phase 8's stream in pushes of at least 8192
@@ -2848,7 +3000,8 @@ def station_paths(dev, card, M, T=8, sps=3):
     closed loop (K4 + K2 under the CUDA graph: phase 13's checks at 4
     blocks, phase 14's times at 32) and the mobile's analysis (K1,
     ``dsp.channelizer.analyze``) -- each path with its kernel's count set
-    to 0 just before it and read just after.  Returns the readings."""
+    to 0 just before it and read just after; the loop's times are the
+    median of ``loop_runs`` runs.  Returns the readings."""
     from amps_tpu_torch.dsp import channelizer as chz
     from amps_tpu_torch.eval.traffic import (synthesize_reverse_band,
                                              unit_channel_band)
@@ -2893,13 +3046,17 @@ def station_paths(dev, card, M, T=8, sps=3):
     torch.cuda.empty_cache()
 
     # the streaming receiver (K2), the transmitter (K4), the closed loop
+    stamp(f"  M={M}: the receiver")
     launches["receiver"], _ = phase_rx(dev, M, T,
                                        push=max(RX_PUSH, 8192 * (M // 2)))
+    stamp(f"  M={M}: the transmitter")
     launches["transmitter"] = phase_tx(dev, M, T)
+    stamp(f"  M={M}: the closed loop")
     launches["loop_checks"], out["loop_err"] = phase_loop_checks(dev, M, T)
-    out["loop"] = phase_loop_times(dev, M, T, card, n_runs=3)
+    out["loop"] = phase_loop_times(dev, M, T, card, n_runs=loop_runs)
     launches["loop"] = out["loop"]["launches"]
     torch.cuda.empty_cache()
+    stamp(f"  M={M}: the mobile's analysis")
 
     # the mobile's analysis (K1): dsp.channelizer.analyze on a CUDA state
     spec = chz.ChannelizerSpec(M, T)
@@ -2973,7 +3130,7 @@ def phase_widths(dev, card, T=8, sps=3):
 
 def phase_wide(dev, card, T=8, sps=3):
     """Phase 30: banks past 2048 channels.  Every wrapper refuses M = 8194,
-    16384, an odd width and 6 on the card; each kernel is held to its
+    32770, an odd width and 8198 on the card; each kernel is held to its
     plain version at WIDE_CHECKS (phase 12's checks, T=8) and timed at
     WIDE_TIMES beside M=1024; the station's main path runs at WIDE_M
     (``station_paths``), then the station app's short call (``bs
@@ -2993,7 +3150,7 @@ def phase_wide(dev, card, T=8, sps=3):
             f"{K.run_hops(M, sps)} hops a block at sps={sps}, K4 in "
             f"{S.column_groups(M, T)} column groups of at most "
             f"{S.thread_columns(M, T)} columns a thread")
-    for M in (8194, 16384, 4095, 6):
+    for M in (8194, 32770, 4095, 8198):
         x = torch.zeros(((100 + 2 * T - 1) * max(M // 2, 1), 2), device=dev)
         Y = torch.zeros((4, M, 2), device=dev)
         calls = (lambda: KA.analyze_block(x, M, T),
@@ -3009,7 +3166,7 @@ def phase_wide(dev, card, T=8, sps=3):
                 continue
             raise AssertionError(f"M={M} was not refused")
         del x, Y
-    log("  M = 8194, 16384, 4095 and 6 raise ValueError in all four "
+    log("  M = 8194, 32770, 4095 and 8198 raise ValueError in all four "
         "wrappers")
     out = {}
     out["errs"], _ = phase_small_widths(
@@ -3063,8 +3220,9 @@ def phase_widest(dev, card, T=8, sps=3):
     Clusters, each kernel); holds each kernel to its plain version at
     WIDEST_CHECKS (phase 12's checks, T=8: both parities, riq and planar,
     chained = one bit for bit); times each kernel at WIDEST_TIMES beside
-    M=4096 and 1024; runs the station's main path at WIDEST_M
-    (``station_paths``) and the station app's short call there, with the
+    M=4096 and 1024 (the dense plain versions in WIDER_PLAIN_TURNS); runs
+    the station's main path at WIDEST_M (``station_paths``, the loop's
+    times from one run) and the station app's short call there, with the
     peak device memory of the paths.  Returns the readings."""
     from amps_tpu_torch.kernels import analysis as KA
     from amps_tpu_torch.kernels import rx_phases as K
@@ -3089,10 +3247,11 @@ def phase_widest(dev, card, T=8, sps=3):
     out["errs"], _ = phase_small_widths(
         dev, Nh=2001, widths=WIDEST_CHECKS, Ts=(T,),
         label="phase 31: each kernel vs plain", times=False, seam=True)
-    out["rows"] = width_times(dev, card, WIDEST_TIMES, T, base=4096)
+    out["rows"] = width_times(dev, card, WIDEST_TIMES, T, base=4096,
+                              plain=WIDER_PLAIN_TURNS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    out.update(station_paths(dev, card, WIDEST_M, T, sps))
+    out.update(station_paths(dev, card, WIDEST_M, T, sps, loop_runs=1))
     out["app"] = station_app_call(dev, card, WIDEST_M)
     out["launches"]["app"] = out["app"]["launches"]
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -3193,10 +3352,147 @@ def block_by_taps(dev, card, M, Ts, Nh=8192):
     return out
 
 
-DIGEST_WIDTHS = (8, 1024, 2038, 8192)
+# phase 33: banks past 8192 channels, whose hops a cluster of C = 3 .. 8
+# thread blocks shares, with a radix-C pass across it over distributed
+# shared memory (C the smallest divisor of M from 2 to 8 with M/C <=
+# 4096).  WIDER_REFUSED is an odd width, one with no such C and one past
+# the widest; WIDER_CHECKS holds each kernel to its plain version at one
+# width a cluster size (3: 8196 = 3·2732, the generic pass, and 12288; 4:
+# 16384; 5: 20480; 6: 12294 = 6·2049, an odd block width; 7: 28672; 8:
+# 32768, and 16424 = 8·2053, a prime block width whose ranges of K4's
+# columns do not divide P evenly) on WIDER_NH hops (the plain versions
+# are dense: 8.6 GB of matrices at 32768); WIDER_TIMES times them beside
+# 8192; WIDER_M is a 491.52 Msps station (a USRP X410's top master clock
+# rate), whose main path runs end to end
+WIDER_REFUSED = (8195, 8194, 32770)
+WIDER_CHECKS = (8196, 12288, 16384, 20480, 12294, 28672, 32768, 16424)
+WIDER_NH = 501
+WIDER_TIMES = (8192, 12288, 16384)
+WIDER_PLAIN_TURNS = (3, 1)    # turns and calls of the dense plain versions
+WIDER_M = 16384
 
 
-def digest(tree, widths=DIGEST_WIDTHS, Ts=(8, 16)):
+def wider_bounds(M):
+    """The kernel-vs-plain bounds at width M: phase 32's TAPS_TOL up to
+    8192, and past it TAPS_TOL x sqrt(M / 8192).  Past 8192 the plain
+    versions' dense f32 sums (cuBLAS SGEMM over M/2 terms a product) set
+    the difference, which grows as the square root of their length;
+    phase 33 shows which side it is by holding both to float64
+    references (``analysis_f64``, ``demod_f64``, ``synth_f64``), the
+    kernels within TAPS_TOL itself at every width."""
+    return {k: v * max(1.0, math.sqrt(M / 8192)) for k, v in TAPS_TOL.items()}
+
+
+def free_dense_tables():
+    """Drop the plain analysis's cached dense DFT matrices
+    (``_analysis_consts``, on the card): phase 33 holds one width's at a
+    time."""
+    from amps_tpu_torch.dsp import polyphase as pp
+    pp._analysis_consts.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def phase_wider(dev, card, T=8, sps=3):
+    """Phase 33: banks past 8192 channels.  Every wrapper refuses
+    WIDER_REFUSED; prints each width's cluster, block plan, hops, shared
+    memory, K3's run, K4's groups and the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters, each kernel); holds each kernel to
+    its plain version at WIDER_CHECKS (phase 12's checks, T=8: both
+    parities, riq and planar, chained = one bit for bit) within
+    ``wider_bounds``, and K1, K2 and K4 to float64 references of their
+    functions within TAPS_TOL (their plain versions' errors there
+    beside them); times each kernel at WIDER_TIMES beside 8192; runs
+    the station's main path at WIDER_M (``station_paths``) and the
+    station app's short call there, with the peak device memory of the
+    paths.  Returns the readings."""
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import rx_front as R
+    from amps_tpu_torch.kernels import rx_phases as K
+    from amps_tpu_torch.kernels import synth as S
+    t0 = time.perf_counter()
+    log(f"phase 33: banks past 8192 channels (a cluster of up to 8 blocks a "
+        f"hop, a radix-C pass across it), on {card}")
+    for M in WIDER_REFUSED:
+        x = torch.zeros(((100 + 2 * T - 1) * (M // 2), 2), device=dev)
+        Y = torch.zeros((4, M, 2), device=dev)
+        calls = (lambda: KA.analyze_block(x, M, T),
+                 lambda: R.analyze_demod(x, M, T, 0, torch.zeros(
+                     (M, 2), device=dev)),
+                 lambda: K.analyze_phases(x, M, T, sps),
+                 lambda: S.synthesize_block(Y, M, T, 0, torch.zeros(
+                     (M * T - M // 2, 2), device=dev)))
+        for call in calls:
+            try:
+                call()
+            except ValueError:
+                continue
+            raise AssertionError(f"M={M} was not refused")
+        del x, Y
+    log(f"  M = {', '.join(map(str, WIDER_REFUSED))} (odd, no cluster of "
+        f"at most 8 blocks of at most 4096 channels, past 32768) raise "
+        f"ValueError in all four wrappers")
+    out = {"clusters": {}, "errs": {
+        k: {} for k in ("analysis", "rx_front", "rx_phases", "synth")},
+        "f64": {k: {} for k in TAPS_TOL}}
+    for M in WIDER_CHECKS:
+        C, N, H = (KA.fft_cluster_size(M), KA.fft_plan_width(M),
+                   KA.FFT_WIDE_HOPS[M])
+        n = out["clusters"][M] = {
+            p: KA.max_clusters(p, M)
+            for p in ("analysis", "rx_front", "rx_phases", "synth")}
+        assert C > 2 and min(n.values()) > 0, (M, C, n)
+        log(f"  M={M}: clusters of {C} blocks, each block's plan "
+            f"{KA.fft_radices(N)} at N={N}, hops a block "
+            f"{KA.FFT_TILE_HOPS[M]} (K1) / {H}, {KA.fft_smem_bytes(M, H)} "
+            f"bytes of shared memory a K1-K3 block, K3 owns "
+            f"{K.run_hops(M, sps)} hops a cluster at sps={sps}, K4 in "
+            f"{S.column_groups(M, T)} column groups of {C} blocks, "
+            f"{S.SYNTH_HOPS[M]} hops a pass, at most "
+            f"{S.thread_columns(M, T)} columns a thread; clusters the card "
+            f"holds at once {n}")
+    for M in WIDER_CHECKS:
+        b = wider_bounds(M)
+        errs, _ = phase_small_widths(
+            dev, Nh=WIDER_NH, widths=(M,), Ts=(T,),
+            label=f"phase 33: each kernel vs plain (bounds K1 "
+                  f"{b['analysis']:.2e}, K2 {b['rx_front']:.2e} rad, K4 "
+                  f"{b['synth']:.2e} of RMS)",
+            times=False, seam=True, bounds=b, witness=out["f64"])
+        for k, v in errs.items():
+            out["errs"][k].update(v)
+        f = {k: out["f64"][k][M] for k in TAPS_TOL}
+        log(f"  M={M} against float64 (both parities, riq and planar), "
+            f"kernel | plain: K1 "
+            f"{f['analysis'][0]:.3e} | {f['analysis'][1]:.3e}, K2 "
+            f"{f['rx_front'][0]:.3e} | {f['rx_front'][1]:.3e} rad, K4 "
+            f"{f['synth'][0]:.2e} | {f['synth'][1]:.2e} of RMS (kernels' "
+            f"bounds K1 {TAPS_TOL['analysis']:.0e}, K2 "
+            f"{TAPS_TOL['rx_front']:.0e}, K4 {TAPS_TOL['synth']:.0e})")
+        assert all(f[k][0] <= TAPS_TOL[k] for k in TAPS_TOL), (M, f)
+        free_dense_tables()
+    log(f"  checks done at {time.perf_counter() - t0:.1f} s into the phase")
+    out["rows"] = width_times(dev, card, WIDER_TIMES, T, base=8192,
+                              plain=WIDER_PLAIN_TURNS)
+    free_dense_tables()
+    log(f"  times done at {time.perf_counter() - t0:.1f} s into the phase "
+        f"(plain versions: median of {WIDER_PLAIN_TURNS[0]} turns of "
+        f"{WIDER_PLAIN_TURNS[1]} call)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out.update(station_paths(dev, card, WIDER_M, T, sps, loop_runs=1))
+    free_dense_tables()
+    out["app"] = station_app_call(dev, card, WIDER_M)
+    out["launches"]["app"] = out["app"]["launches"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  peak device memory of the M={WIDER_M} paths: "
+        f"{out['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated); phase "
+        f"33 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+DIGEST_WIDTHS = (8, 1024, 2038, 4098, 8192)
+
+
+def digest(tree, widths=DIGEST_WIDTHS, Ts=(8, 32)):
     """``--digest TREE``: builds the port of source tree TREE (its own
     ``kernels.build``, with ``-Xptxas -v``, whose register and spill lines
     it prints as ``PTXAS`` lines) and prints ``DIGEST`` and a JSON object:
@@ -3266,8 +3562,9 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     # -- phase 1: build -------------------------------------------------
-    # the main library and phases 29-31's single-width libraries, one nvcc
-    # a source and library, all at once
+    stamp("phase 1: build")
+    # the main library and phases 12 and 29-33's single-width libraries,
+    # one nvcc a source and library, all at once
     t0 = time.perf_counter()
     path, nvcc_log = build.build(("-Xptxas", "-v"), widths=width_libraries())
     log(f"phase 1: built {path.name} and the single-width libraries of M = "
@@ -3276,6 +3573,7 @@ def main() -> int:
         log(f"  nvcc: {name}: {usage}")
 
     # -- phase 2: kernel against its plain version ------------------------
+    stamp("phase 2: kernel against its plain version")
     T, sps = 8, 3
     log("phase 2: kernel vs plain version (f32, bf16 output)")
     max_err = None
@@ -3314,6 +3612,7 @@ def main() -> int:
         assert prel <= POWER_RTOL
 
     # -- phase 3: the slice at full width ----------------------------------
+    stamp("phase 3: the slice at full width")
     M, Nh = 1024, 12288
     log(f"phase 3: rx_multichannel_block, M={M}, Nh={Nh} "
         f"({Nh * M // 2} samples), 8 planted bursts")
@@ -3347,6 +3646,7 @@ def main() -> int:
         f"slot; starts differ on {idle_diff} of {gv.size} noise-only slots")
 
     # -- phase 4: times -----------------------------------------------------
+    stamp("phase 4: times")
     n = 1 << 22
     Nh = n // (M // 2)
     log(f"phase 4: times, n = {n} samples (Nh={Nh}), median of {N_TIMED}, "
@@ -3393,6 +3693,7 @@ def main() -> int:
             f"({fe['bound_by']}), cuFFT of the plane {fe['fft']:.3f} ms")
 
     # -- phases 5-9: the streaming duplex ----------------------------------
+    stamp("phases 5-9: the streaming duplex")
     synth_err = phase_synth(dev, (1024, 256), T)
     front_err = phase_rx_front(dev, (1024, 256), T)
     tx_launches = phase_tx(dev, M, T)
@@ -3402,6 +3703,7 @@ def main() -> int:
     times = phase_times(dev, M, T, card)
 
     # -- phases 10-11: the mobile's ear and the whole call -----------------
+    stamp("phases 10-11: the mobile's ear and the whole call")
     from amps_tpu_torch.kernels import analysis as KA
     ana_err, ana_times = phase_analysis(dev, T, card)
     log(f"phase 11: the whole call over channelized RF, M={M}, production "
@@ -3421,6 +3723,8 @@ def main() -> int:
 
     # -- phases 12-17: small banks, the closed loop, the batched block, the
     # -- single-channel chains, supervision ---------------------------------
+    stamp("phases 12-17: small banks, the closed loop, the batched block, "
+          "the single-channel chains, supervision")
     small_err, small_ms = phase_small_widths(dev)
     loop_launches, loop_err = phase_loop_checks(dev, M, T)
     loop = phase_loop_times(dev, M, T, card)
@@ -3429,35 +3733,47 @@ def main() -> int:
     sup_launches = phase_supervision(dev, M, T)
 
     # -- phases 18-20: the station as operators run it ----------------------
+    stamp("phases 18-20: the station as operators run it")
     app_launches, app_front_err = phase_station_app(dev, M, card, times)
     phase_ring(dev, M, card)
     phase_entry_points(dev, card)
 
     # -- phases 21-24: the multi-device station on one card ----------------
+    stamp("phases 21-24: the multi-device station on one card")
     mesh = phase_mesh_step(dev, M, T, card)
     mesh_loop = phase_mesh_loop(dev, M, T, card)
     mesh_app = phase_mesh_app(dev, M, card)
     phase_mesh_dryrun(card, M, T)
 
     # -- phases 25-26: the certification soaks and the paced legs ----------
+    stamp("phases 25-26: the certification soaks and the paced legs")
     soak_launches = phase_soaks(dev, card)
     pace_launches, _ = phase_pacing(dev, card)
 
     # -- phases 27-28: the cross-process station, the entry forward ---------
+    stamp("phases 27-28: the cross-process station, the entry forward")
     xl = phase_xproc(card, mesh["reports"], mesh_loop["sums"])
     entry_launches, entry_t = phase_entry(dev, card)
 
     # -- phase 29: every even width, the station's main path at M=768 -----
+    stamp("phase 29: every even width, the station's main path at M=768")
     wd = phase_widths(dev, card)
 
     # -- phase 30: banks past 2048 channels, the main path at M=4096 ------
+    stamp("phase 30: banks past 2048 channels, the main path at M=4096")
     wide = phase_wide(dev, card)
 
     # -- phase 31: banks past 4096 channels, the main path at M=8192 ------
+    stamp("phase 31: banks past 4096 channels, the main path at M=8192")
     widest = phase_widest(dev, card)
 
     # -- phase 32: filters longer than 16 taps, the main path at T=32 -----
+    stamp("phase 32: filters longer than 16 taps, the main path at T=32")
     taps = phase_taps(dev, card)
+
+    # -- phase 33: banks past 8192 channels, the main path at M=16384 -----
+    stamp("phase 33: banks past 8192 channels, the main path at M=16384")
+    wider = phase_wider(dev, card)
 
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
@@ -3508,6 +3824,19 @@ def main() -> int:
                     for t, r in taps["rows"].items()},
                 "taps_fft_ms": {
                     str(t): r["fft"] for t, r in taps["rows"].items()},
+                "wider_max_abs_err": {
+                    str(m): e for m, e in wider["errs"][name].items()},
+                "wider_vs_float64": {
+                    str(m): {"kernel": e[0], "plain": e[1]}
+                    for m, e in wider["f64"].get(name, {}).items()},
+                **{f"wider_{key}_ms": {
+                    str(m): r[name][key] for m, r in wider["rows"].items()}
+                   for key in ("kernel", "plain", "bound")},
+                "wider_fft_ms": {
+                    str(m): r["fft"] for m, r in wider["rows"].items()},
+                "wider_max_clusters": {
+                    str(m): n[name] for m, n in wider["clusters"].items()},
+                "wider_peak_memory_gb": wider["peak_gb"],
                 **more}
 
     # the one-shot block (K3) at T=8 and T=32 on one band
@@ -3536,6 +3865,8 @@ def main() -> int:
                                     wide["launches"]["analysis"],
                                 "m8192_analyze":
                                     widest["launches"]["analysis"],
+                                "m16384_analyze":
+                                    wider["launches"]["analysis"],
                                 "t32_analyze": taps["launches"]["analysis"],
                                 "t32_sharded_step":
                                     taps["launches"]["sharded_step"][0],
@@ -3557,6 +3888,7 @@ def main() -> int:
                                 "m768_block": wd["launches"]["block"],
                                 "m4096_block": wide["launches"]["block"],
                                 "m8192_block": widest["launches"]["block"],
+                                "m16384_block": wider["launches"]["block"],
                                 "t32_block": taps["launches"]["block"]},
               entry_ms=entry_t["kernel"], entry_plain_ms=entry_t["plain"],
               **k3_more,
@@ -3583,6 +3915,12 @@ def main() -> int:
                                     widest["launches"]["loop"][1],
                                 "m8192_station_app":
                                     widest["launches"]["app"][1],
+                                "m16384_receiver":
+                                    wider["launches"]["receiver"],
+                                "m16384_closed_loop":
+                                    wider["launches"]["loop"][1],
+                                "m16384_station_app":
+                                    wider["launches"]["app"][1],
                                 "t32_receiver": taps["launches"]["receiver"],
                                 "t32_loop": taps["launches"]["loop"][1],
                                 "supervision": sup_launches,
@@ -3619,6 +3957,12 @@ def main() -> int:
                                     widest["launches"]["loop"][0],
                                 "m8192_station_app":
                                     widest["launches"]["app"][0],
+                                "m16384_transmitter":
+                                    wider["launches"]["transmitter"],
+                                "m16384_closed_loop":
+                                    wider["launches"]["loop"][0],
+                                "m16384_station_app":
+                                    wider["launches"]["app"][0],
                                 "t32_transmitter":
                                     taps["launches"]["transmitter"],
                                 "t32_loop": taps["launches"]["loop"][0],

@@ -58,7 +58,8 @@ def test_cluster_size_and_half_width_plan_every_width_past_4096():
         assert N <= KA.BLOCK_WIDTH
     for M in (8, 768, 2048, 4094, 4096):
         assert KA.fft_cluster_size(M) == 1 and KA.fft_plan_width(M) == M
-    assert KA.MAX_FFT_WIDTH == 8192 == KA.CLUSTER_SIZE * KA.BLOCK_WIDTH
+    # past 8192 clusters of up to CLUSTER_SIZE = 8 (test_torch_cluster_wide)
+    assert KA.MAX_FFT_WIDTH == 32768 == KA.CLUSTER_SIZE * KA.BLOCK_WIDTH
 
 
 def test_cluster_block_shared_memory_every_width_past_4096():

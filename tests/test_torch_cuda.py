@@ -81,9 +81,9 @@ def test_kernel_rejects_what_it_cannot_run(cuda_device):
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):
         K.analyze_phases(x, 95, 8)          # odd M
-    with pytest.raises(ValueError):         # past the tile's 8192
-        K.analyze_phases(torch.zeros(((100 + 15) * 8192, 2),
-                                     device=cuda_device), 16384, 8)
+    with pytest.raises(ValueError):         # past the tile's 32768
+        K.analyze_phases(torch.zeros(((100 + 15) * 16385, 2),
+                                     device=cuda_device), 32770, 8)
     with pytest.raises(ValueError):
         K.analyze_phases(x.double(), 96, 8)
     with pytest.raises(ValueError):         # sps past the tile's hops
@@ -221,9 +221,9 @@ def test_analysis_kernel_rejects_what_it_cannot_run(cuda_device):
     with pytest.raises(ValueError):            # odd M
         KA.analyze_block(torch.zeros(((Nh + 15) * 48, 2), device=cuda_device),
                          97, T)
-    with pytest.raises(ValueError):            # below the tile's 8
-        KA.analyze_block(torch.zeros(((Nh + 15) * 3, 2), device=cuda_device),
-                         6, T)
+    with pytest.raises(ValueError):            # no cluster of <= 8 splits it
+        KA.analyze_block(torch.zeros(((Nh + 15) * 4097, 2),
+                                     device=cuda_device), 8194, T)
     with pytest.raises(ValueError):            # rows that are no (n, 2) block
         KA.analyze_block(torch.zeros((2, n, 3), device=cuda_device), M, T)
     with pytest.raises(ValueError):
@@ -270,10 +270,10 @@ def test_synth_kernel_chained_calls_equal_one(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_cannot_run(cuda_device):
-    Y = torch.zeros((10, 16384, 2), device=cuda_device)
-    with pytest.raises(ValueError):            # past the tile's 8192
-        K4.synthesize_block(Y, 16384, 8, 0, torch.zeros(
-            (16384 * 8 - 8192, 2), device=cuda_device))
+    Y = torch.zeros((10, 8194, 2), device=cuda_device)
+    with pytest.raises(ValueError):            # no cluster of <= 8 splits it
+        K4.synthesize_block(Y, 8194, 8, 0, torch.zeros(
+            (8194 * 8 - 4097, 2), device=cuda_device))
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):            # odd M
         K2.analyze_demod(x, 95, 8, 0, torch.zeros((95, 2), device=cuda_device))
@@ -572,19 +572,21 @@ def test_small_width_synth_kernel(cuda_device, M, T, parity):
 
 @pytest.mark.cuda
 def test_widths_the_tile_cannot_take_raise(cuda_device):
-    """Odd M, M < 8 and M past 8192 raise on the card, naming the rule;
-    no width reaches the plain version."""
-    for M in (13, 6, 4097, 8194, 16384):
+    """Odd M, M past 32768 and the widths past 8192 that no cluster of
+    at most 8 blocks of at most 4096 channels splits raise on the card,
+    naming the rule; no width reaches the plain version."""
+    for M in (13, 8198, 4097, 8194, 32770):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
         with pytest.raises(ValueError):
             KA.analyze_block(x, M, 8)
         with pytest.raises(ValueError):
             K.analyze_phases(x, M, 8)
-    for M in (6, 8194, 16384):
+    rule = "even M from 2 to 8192, or M = C"
+    for M in (8198, 8194, 32770):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
-        with pytest.raises(ValueError, match="even M from 8 to 8192"):
+        with pytest.raises(ValueError, match=rule):
             KA.analyze_block(x, M, 8)
-        with pytest.raises(ValueError, match="even M from 8 to 8192"):
+        with pytest.raises(ValueError, match=rule):
             K2.analyze_demod(x, M, 8, 0, torch.zeros((M, 2),
                                                      device=cuda_device))
 
@@ -608,17 +610,22 @@ WIDE = [(3072, 1, True), (4096, 0, False)]
 # and planar at each
 WIDEST = [(M, parity, planar) for M in (4098, 6144, 8190, 8192)
           for parity, planar in ((0, False), (1, True))]
+# banks past 8192 channels, each hop shared by a cluster of C > 2 blocks
+# and a radix-C pass across it: 12294 = 6·2049 (an odd block width),
+# 16384 = 4·4096 (491.52 Msps)
+WIDER = [(M, parity, planar) for M in (12294, 16384)
+         for parity, planar in ((0, False), (1, True))]
 
 
 @pytest.fixture(scope="module")
 def mixed_libraries():
-    """Every MIXED, WIDE and WIDEST width's own library, built at once
-    (one nvcc a source and width, all in parallel) before the first test
+    """Every MIXED, WIDE, WIDEST and WIDER width's own library, built at
+    once (one nvcc a source and width, all in parallel) before the first test
     needs one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the GPU machine)")
     from amps_tpu_torch.kernels import build
-    build.build(widths=[M for M, _, _ in MIXED + WIDE + WIDEST
+    build.build(widths=[M for M, _, _ in MIXED + WIDE + WIDEST + WIDER
                         if M not in KA.LIBRARY_WIDTHS])
 
 
@@ -654,7 +661,7 @@ def _held_to_phase_atol(err, ref, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST)
+@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST + WIDER)
 def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K1 at a width that is not a power of two: atol 2e-4 on
@@ -673,7 +680,7 @@ def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST)
+@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST + WIDER)
 def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K2 on FSK in every channel: demod within 1e-3 (fast_atan2's seam
@@ -698,7 +705,7 @@ def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST)
+@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST + WIDER)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
                                       parity, planar, bf16):
@@ -731,7 +738,8 @@ def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,parity",
-                         [(M, p) for M, p, _ in MIXED + WIDE + WIDEST])
+                         [(M, p) for M, p, _ in
+                          MIXED + WIDE + WIDEST + WIDER])
 def test_mixed_width_synth_kernel(cuda_device, mixed_libraries, M, parity):
     """K4 with a carry in: 1e-4 of the output RMS."""
     T, Nh = 8, 333
@@ -758,10 +766,11 @@ def test_chained_calls_equal_one_at_768(cuda_device, mixed_libraries):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [4098, 6144, 8190, 8192])
+@pytest.mark.parametrize("M", [4098, 6144, 8190, 8192, 16384])
 def test_chained_calls_equal_one_at_cluster_widths(cuda_device,
                                                    mixed_libraries, M):
-    """Past 4096, where a cluster of two blocks shares each hop: two
+    """Past 4096, where a cluster of blocks shares each hop (two up to
+    8192, four at 16384, with the radix-4 pass across them): two
     chained calls equal one call, K1 and K2 bit for bit, K4 within 1e-4
     of the output RMS, as at 768."""
     _chained_calls_equal_one(cuda_device, M)

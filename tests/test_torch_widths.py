@@ -1,4 +1,5 @@
-"""Every bank width the FFT tile takes (any even M from 8 to 8192): its
+"""Every bank width the FFT tile takes (any even M from 2 to 8192, and
+past it the cluster widths of test_torch_cluster_wide.py): its
 plan and twiddle table at every M up to 4096 (one block a hop; the
 cluster widths past it: test_torch_cluster.py), the kernels' geometry
 (shared memory, K3's run, K4's column groups) that the CUDA libraries
@@ -108,19 +109,27 @@ def test_fft_plan_and_twiddles_every_width():
             assert 8 * (wide + 2) * KA.fft_hop_stride(M) > SMEM_BYTES, M
 
 
-@pytest.mark.parametrize("M", [7, 6, 4, 4097, 8194, 16384, 1023])
+@pytest.mark.parametrize("M", [7, 8198, 32770, 4097, 8194, 16388, 1023])
 def test_widths_the_tile_refuses(M):
-    """Only odd M, M < 8 and M past 8192 are refused, naming the rule."""
-    with pytest.raises(ValueError, match="even M from 8 to 8192"):
+    """Only odd M, M past 32768 and the widths past 8192 that no cluster
+    of at most 8 blocks of at most 4096 channels splits (8194 = 2·17·241,
+    8198 = 2·4099, 16388 = 4·17·241) are refused, naming the rule."""
+    with pytest.raises(ValueError,
+                       match="even M from 2 to 8192, or M = C·N with C <= 8"):
         KA.check_fft_width(M)
 
 
 def test_every_even_width_is_taken():
-    for M in (8, 10, 12, 22, 96, 384, 768, 1458, 1536, 2038, 2046, 2048,
-              2050, 2304, 3072, 4000, 4094, 4096, 4098, 4100, 6144, 8190,
-              8192):
+    for M in (2, 4, 6, 8, 10, 12, 22, 96, 384, 768, 1458, 1536, 2038, 2046,
+              2048, 2050, 2304, 3072, 4000, 4094, 4096, 4098, 4100, 6144,
+              8190, 8192, 8196, 12288, 12294, 16384, 16424, 20480, 28672,
+              32768):
         KA.check_fft_width(M)
-    assert KA.FFT_WIDTHS == tuple(range(8, 8193, 2))
+    # every even M up to 8192, then the M = C·N (C <= 8, N <= 4096)
+    assert KA.FFT_WIDTHS == tuple(
+        M for M in range(2, 32769, 2)
+        if M <= 8192 or any(M % C == 0 and M // C <= 4096
+                            for C in range(2, 9)))
     assert 4096 in KA.LIBRARY_WIDTHS and 8192 not in KA.LIBRARY_WIDTHS
 
 
@@ -129,11 +138,13 @@ def test_every_even_width_is_taken():
 
 def _smem(M, H):
     """A block's shared memory, counted afresh: H hops of the padded plane
-    of its channels (M, or M/2 past 4096, where a cluster of two blocks
-    shares each hop; 8 bytes a value, one value of padding every 32, plus
-    one), and the twiddle table beside it up to M = 2048."""
+    of its channels (M, or M/C past 4096, where a cluster of C blocks
+    shares each hop, C the smallest divisor of M from 2 to 8 with M/C <=
+    4096; 8 bytes a value, one value of padding every 32, plus one), and
+    the twiddle table beside it up to M = 2048."""
     table = len(KA.fft_twiddle_exponents(M)) if M <= 2048 else 0
-    C = M if M <= 4096 else M // 2
+    C = M if M <= 4096 else M // min(
+        c for c in range(2, 9) if M % c == 0 and M // c <= 4096)
     return 8 * (H * (C + C // 32 + 1) + table)
 
 

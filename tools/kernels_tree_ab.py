@@ -1,15 +1,19 @@
 """Two source trees of the port, kernel against kernel, on one CUDA card.
 
-Builds each tree's main kernel library (the powers of two), compares the
-SASS of every kernel instantiation in the two (``cuobjdump -sass``,
-instruction text without addresses and encodings, the first 4096
-instructions of each function), then times each kernel's device time at
-M=1024, Nh=8192 under torch.profiler -- and the synthesis kernel's at
-M=1536 (its own library, built at first use) and 2048 too --, the trees
-alternated six times, one process a turn.  Use it to show that a change
-to the FFT tile leaves the power-of-two kernels as they were.  Run from
-the repository root with a second tree unpacked beside it (``git
-archive <commit> | tar -x -C DIR``):
+Builds each tree's main kernel library (the powers of two) and its
+library of the cluster width 8192, compares the SASS of every kernel
+instantiation in the two (``cuobjdump -sass``, instruction text without
+addresses and encodings, the first 4096 instructions of each function),
+each function paired with the other tree's by
+kernel and template arguments (``kernel_key``: not by its whole
+signature, so a kernel whose parameters or default template argument
+changed still pairs), then times each kernel's device time at M=1024
+and 8192, Nh=8192, under torch.profiler -- and the synthesis kernel's
+at M=1536 (its own library, built at first use) and 2048 too --, the
+trees alternated six times, one process a turn.  Use it to show that a
+change to the FFT tile leaves the kernels it does not mean to change as
+they were.  Run from the repository root with a second tree unpacked
+beside it (``git archive <commit> | tar -x -C DIR``):
 
     python3 tools/kernels_tree_ab.py OLD_TREE NEW_TREE
 """
@@ -25,12 +29,14 @@ import sys
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 TURNS = 6
 
-# one turn: every kernel 40 times at M=1024 (and the synthesis at the
-# SYNTH_WIDTHS) under the profiler; prints
-# {kernel: (mean device ms a launch, launches)}
+# one turn: every kernel 40 times at each of WIDTHS (a power of two of
+# the main library and the cluster of two at 8192), and the synthesis at
+# the SYNTH_WIDTHS, under the profiler; prints
+# {kernel<M>: (mean device ms a launch, launches)}
 _PROFILE = r'''
 import sys, json, re
 sys.path.insert(0, sys.argv[1])
+WIDTHS = (1024, 8192)
 SYNTH_WIDTHS = (1536, 2048)
 import torch
 from torch.profiler import profile, ProfilerActivity
@@ -38,19 +44,22 @@ from amps_tpu_torch.eval.traffic import unit_channel_band
 from amps_tpu_torch.kernels import analysis as KA, rx_front as R
 from amps_tpu_torch.kernels import rx_phases as K, synth as S
 dev = torch.device("cuda", 0)
-M, T, Nh = 1024, 8, 8192
-x = unit_channel_band(M, T, Nh, 1, dev)
-prev = torch.zeros((M, 2), device=dev)
-Y = torch.randn((Nh, M, 2), device=dev,
-                generator=torch.Generator(dev).manual_seed(1))
-carry = torch.zeros((M * T - M // 2, 2), device=dev)
-fns = [lambda: KA.analyze_block(x, M, T, 0),
-       lambda: R.analyze_demod(x, M, T, 0, prev),
-       lambda: K.analyze_phases(x, M, T, 3, 0, torch.bfloat16),
-       lambda: S.synthesize_block(Y, M, T, 0, carry)]
+T, Nh = 8, 8192
+fns = []
+for M in WIDTHS:
+    x = unit_channel_band(M, T, Nh, 1, dev)
+    prev = torch.zeros((M, 2), device=dev)
+    Y = torch.randn((Nh, M, 2), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    carry = torch.zeros((M * T - M // 2, 2), device=dev)
+    fns += [lambda x=x, M=M: KA.analyze_block(x, M, T, 0),
+            lambda x=x, M=M, prev=prev: R.analyze_demod(x, M, T, 0, prev),
+            lambda x=x, M=M: K.analyze_phases(x, M, T, 3, 0, torch.bfloat16),
+            lambda Y=Y, M=M, carry=carry: S.synthesize_block(Y, M, T, 0,
+                                                             carry)]
 for Mw in SYNTH_WIDTHS:
     Yw = torch.randn((Nh, Mw, 2), device=dev,
-                     generator=torch.Generator(dev).manual_seed(Mw))
+                      generator=torch.Generator(dev).manual_seed(Mw))
     cw = torch.zeros((Mw * T - Mw // 2, 2), device=dev)
     fns.append(lambda Yw=Yw, cw=cw, Mw=Mw: S.synthesize_block(Yw, Mw, T, 0,
                                                                cw))
@@ -72,16 +81,18 @@ print("PROF " + json.dumps(out))
 '''
 
 
-def library(tree):
-    """The tree's main library, built by the tree's own kernels.build."""
+def libraries(tree):
+    """The tree's main library and its 8192 library, built by the tree's
+    own kernels.build."""
     r = subprocess.run([sys.executable, "-c",
                         "import sys; sys.path.insert(0, sys.argv[1]);"
                         "from amps_tpu_torch.kernels import build;"
-                        "print(build.build()[0])", tree],
+                        "print(build.build(widths=[8192])[0]);"
+                        "print(build.library_path(8192))", tree],
                        capture_output=True, text=True, timeout=900)
     if r.returncode:
         raise RuntimeError(r.stderr[-3000:])
-    return r.stdout.strip().splitlines()[-1]
+    return r.stdout.strip().splitlines()[-2:]
 
 
 def demangle(names):
@@ -97,8 +108,24 @@ def demangle(names):
     return [re.sub(r"_GLOBAL__N__\w+?_\d+", "", n) for n in names]
 
 
+def kernel_key(name):
+    """The pairing key of a demangled function: its name and template
+    arguments, without return type, namespace, cu++filt's casts and
+    parameter list, and without a last template argument ``false`` (a
+    kernel's default instantiation: ``analysis_kernel<1024>`` of a tree
+    before the long-filter instantiations pairs with
+    ``analysis_kernel<1024, false>`` after them).  cu++filt writes
+    ``void <unnamed>::analysis_kernel<(int)1024, (bool)0>(const float
+    *, ...)``, c++filt ``void (anonymous namespace)::analysis_kernel<1024,
+    false>(float const*, ...)``: both give ``analysis_kernel<1024>``."""
+    name = re.sub(r"<unnamed>::|\(anonymous namespace\)::|^void ", "", name)
+    name = name.replace("(bool)0", "false").replace("(bool)1", "true")
+    name = re.sub(r"\((?:unsigned )?int\)", "", name)
+    return re.sub(r", false>$", ">", name.split("(")[0].strip())
+
+
 def sass(lib):
-    """{demangled function: [instruction text]} of a library."""
+    """{kernel_key: [instruction text]} of a library's functions."""
     out = subprocess.run([CUOBJDUMP, "-sass", lib], capture_output=True,
                          text=True, timeout=600).stdout
     funcs, name = {}, None
@@ -110,7 +137,8 @@ def sass(lib):
         elif name and re.search(r"/\*[0-9a-f]{4}\*/", line):
             ins = re.sub(r"/\*[0-9a-f]+\*/", "", line).split(";")[0].strip()
             funcs[name].append(ins)
-    return dict(zip(demangle(list(funcs)), funcs.values()))
+    return {kernel_key(n): v
+            for n, v in zip(demangle(list(funcs)), funcs.values())}
 
 
 def profile(tree):
@@ -122,10 +150,15 @@ def profile(tree):
     return json.loads(line[0][5:])
 
 
-def main(old, new):
-    code = {side: sass(library(tree))
+def compare_sass(old, new):
+    """Print each paired function whose SASS differs, the functions only
+    one tree has, and the count of identical ones."""
+    code = {side: {k: v for lib in libraries(tree)
+                   for k, v in sass(lib).items()}
             for side, tree in (("old", old), ("new", new))}
     same = 0
+    for name in sorted(set(code["new"]) - set(code["old"])):
+        print(f"  {name[:80]}: only in the new tree")
     for name in sorted(code["old"]):
         a, b = code["old"][name], code["new"].get(name)
         if a == b:
@@ -138,7 +171,14 @@ def main(old, new):
             print(f"  {name[:80]}: {len(a)} vs {len(b)} instructions, "
                   f"{diff} differ, first: "
                   + " | ".join(f"{x} -> {y}" for x, y in pairs[:2]))
-    print(f"SASS identical: {same} of {len(code['old'])} functions")
+    paired = len(set(code["old"]) & set(code["new"]))
+    print(f"SASS identical: {same} of {paired} paired functions "
+          f"({len(code['old'])} in the old tree, {len(code['new'])} in the "
+          f"new)")
+
+
+def main(old, new):
+    compare_sass(old, new)
     runs = []
     for i in range(TURNS):
         order = (("old", old), ("new", new))
