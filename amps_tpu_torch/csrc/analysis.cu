@@ -7,8 +7,9 @@
 // port's plain analysis, kernels/analysis.py::analyze_reference,
 // computes: riq or planar input with the history prepended, any hop
 // parity, any number of hops, any M the tile takes (analysis_fft.cuh:
-// every even M from 2 to 8192, and M = C·N, C <= 8, N <= 4096, up to
-// 32768).  None of the TPU kernel's limits or workarounds is carried
+// every even M from 2 to 16384 -- past 8192 split, or else Bluestein's
+// chirp transform of length 32768 --, and M = C·N, C <= 8, N <= 4096, up
+// to 32768).  None of the TPU kernel's limits or workarounds is carried
 // over: no even-parity assert, no Nh % tile_h == 0, no odd bank
 // pre-shifted by P samples, no 128-lane M, no stack-and-transpose to
 // planes.
@@ -31,8 +32,8 @@
 // riq, 48 per plane planar, at M = 1024).  Offsets into Y are 64-bit.
 // No atomics.  Past M = 4096 a cluster of C blocks runs each run, block
 // rank r folding and storing channels rN .. rN+N-1 (N = M/C; the tile's
-// pass across the cluster, analysis_fft.cuh); the grid's x is then C x
-// the runs.  Any
+// pass across the cluster, analysis_fft.cuh), or in the Bluestein mode
+// channels 8c + r (tile.channel(c)); the grid's x is then C x the runs.  Any
 // number of taps T: each width has a kernel for T <= 16 and one that
 // folds a longer filter in chunks of 16 taps (kLongT, analysis_fft.cuh).
 
@@ -51,7 +52,7 @@ analysis_kernel(const float* __restrict__ x, int planar_in, long long n_ext,
                 int planar_out, int T, int Nh, int hop0_parity) {
   extern __shared__ __align__(16) float smem[];
   using Tile = FftTile<M, fft_tile_hops(M)>;
-  constexpr int H = Tile::H, N = Tile::N;
+  constexpr int H = Tile::H, NC = Tile::NC;   // NC: positions of channels
   Tile tile(smem);
   // tile hop l is stream hop h0 + l
   const int h0 = static_cast<int>(blockIdx.x / Tile::RK) * H;
@@ -60,12 +61,12 @@ analysis_kernel(const float* __restrict__ x, int planar_in, long long n_ext,
   __syncthreads();
   tile.fft();
   const size_t plane = static_cast<size_t>(M) * Nh;
-  for (int e = threadIdx.x; e < N * H; e += kFftThreads) {
+  for (int e = threadIdx.x; e < NC * H; e += kFftThreads) {
     const int c = e / H, l = e % H;
     const int n = h0 + l;
-    if (n < Nh) {
+    if (n < Nh && (!Tile::LB || tile.holds(c))) {
       const float2 v = tile.y(l, c, n, hop0_parity);
-      const size_t o = static_cast<size_t>(tile.k0 + c) * Nh + n;
+      const size_t o = static_cast<size_t>(tile.channel(c)) * Nh + n;
       if (planar_out) {
         y[o] = v.x;
         y[plane + o] = v.y;
@@ -105,7 +106,14 @@ extern "C" int analysis_fft_radix(int M, int p) {
 }
 // blocks of a cluster at width M (-1: M not taken)
 extern "C" int analysis_cluster_size(int M) {
-  return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
+  return with_width(M, [](auto w) { return fft_blocks(decltype(w)::value); });
+}
+// the length of the chirp transform at width M: 0, or L in the Bluestein
+// mode (-1: M not taken)
+extern "C" int analysis_bluestein_length(int M) {
+  return with_width(M, [](auto w) {
+    return fft_bluestein(decltype(w)::value);
+  });
 }
 // clusters of the kernel (the fewer of its two instantiations) the card
 // holds at once at a cluster width M
@@ -113,13 +121,47 @@ extern "C" int analysis_cluster_size(int M) {
 extern "C" int analysis_max_clusters(int M) {
   return with_width(M, [](auto w) {
     constexpr int Mw = decltype(w)::value;
-    if constexpr (fft_ranks(Mw) == 1) {
+    if constexpr (fft_blocks(Mw) == 1) {
       return -1;
     } else {
       return fft_max_clusters<Mw>(analysis_kernel<Mw, false>,
                                   analysis_kernel<Mw, true>,
                                   FftTile<Mw, fft_tile_hops(Mw)>::kSmemBytes);
     }
+  });
+}
+
+// clusters of `blocks` blocks of the analysis kernel at width M, its
+// shared memory a block, that the card holds at once with cluster sizes
+// past the portable 8 allowed
+// (cudaFuncAttributeNonPortableClusterSizeAllowed): a probe of the
+// card's limit for a chirp transform longer than a cluster of 8 holds.
+// It launches nothing (-1: M not taken; below -1: -(the CUDA error))
+extern "C" int analysis_probe_clusters(int M, int blocks) {
+  return with_width(M, [blocks](auto w) {
+    constexpr int Mw = decltype(w)::value;
+    const auto kernel = analysis_kernel<Mw, false>;
+    const int smem = FftTile<Mw, fft_tile_hops(Mw)>::kSmemBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kFftThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = blocks;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    return err != cudaSuccess ? -static_cast<int>(err) : n;
   });
 }
 

@@ -15,10 +15,11 @@
 //
 // A block owns all M channels of H consecutive hops a0 .. a0+H-1 (M any
 // even width from 2 to 4096; H even, set by the kernel); past 4096 a
-// cluster of C blocks owns them (below).  The small banks
-// (M = 2 .. 32: one pass of radix 2, 4, 8 or 16, or 16 then 2, or a few
-// short passes) run the same code with most of a block's threads idle in the
-// fold and the passes:
+// cluster of C blocks owns them (below), and past 8192, where no cluster
+// splits M, a cluster of 8 runs Bluestein's chirp transform (last).  The
+// small banks (M = 2 .. 32: one pass of radix 2, 4, 8 or 16, or 16 then
+// 2, or a few short passes) run the same code with most of a block's
+// threads idle in the fold and the passes:
 //   * fold: a thread folds one m for the H/2 hops of one parity, whose
 //     windows share H/2 + T - 1 input rows (hop a tap t reads row
 //     a + 2t, +1 for m >= P), loaded all at once straight from device
@@ -123,6 +124,33 @@
 //     It reads C - 1 remote values a channel and hop.
 //   * Every rank computes its sum with the same instructions, and every
 //     hop the same sequence, so chained calls still equal one.
+//
+// Past M = 8192 a width that no cluster of up to 8 blocks splits (an even
+// M up to 16384 whose half has no factor 2 .. 7 leaving M/C <= 4096:
+// 8194 = 2·17·241, 16382 = 2·8191, 937 widths) runs Bluestein's chirp
+// transform (fft_bluestein, LB = L = 32768 >= 2M - 1), an instantiation
+// of its own: with the chirp w[n] = e^{-jπn²/M},
+//   X[k] = w[k] sum_n (x[n] w[n]) conj(w[k - n]),
+// a circular convolution of length L on the cluster of 8 blocks of 4096
+// points that the split width L = 32768 runs:
+//   * chirp_in: rank r folds (or loads) x[8c + r] for the c < NC =
+//     ceil(M/8) with 8c + r < M (fold_rows, load_rows), multiplies each
+//     by the chirp and zeroes every other position of its plane;
+//   * the plan at N = 4096 and cross at L: rank r holds A[rN + c];
+//   * icross: Z = conj(A·B) in place (B = FFT_L(b) / L of the conjugate
+//     chirp b, a table), then the inverse's pass across the cluster,
+//     decimated in frequency: rank s's plane becomes
+//       V_s[c] = W_L^{s·c} sum_r W_8^{r·s} Z_r[c]
+//     (cross's tables, read and held across a cluster barrier hop by hop
+//     as in cross), whose N-point transform, the plan again, is
+//     conj(z[8m + s]), z the convolution;
+//   * chirp_out: channel k = 8m + s < M is w[k] z[k], at rank k mod 8,
+//     position k / 8 (channel(), holds(), owner(), slot()), so the
+//     epilogues and K4's reads follow the map instead of k0 + c.
+// The table is L's (the plan's at 4096, W_L^{s·c}, W_8^e), then the
+// chirp in 8 rows of NC (row r: w[8c + r], zero past M; the angle from
+// n² mod 2M in exact integers and float64) and B, in device memory.
+// Every split width keeps its instructions: the mode is `if constexpr`.
 
 #pragma once
 
@@ -164,10 +192,32 @@ __host__ __device__ constexpr int fft_ranks(int M) {
     if (M % c == 0 && M / c <= kFftBlockWidth) return c;
   return 0;
 }
-// the transform width of one block, and its channels: M, or M/C in a
-// cluster of C
+// Bluestein's length at bank width M: L = kFftMaxWidth for every even M
+// up to kFftMaxWidth / 2 that no cluster splits (fft_ranks(M) == 0: 937
+// widths in (8192, 16384], 8194 the first), whose M-point DFT the tile
+// computes as a chirp convolution of length L >= 2M - 1 (below); 0 for
+// every other M
+__host__ __device__ constexpr int fft_bluestein(int M) {
+  return M % 2 == 0 && 2 * M <= kFftMaxWidth && fft_ranks(M) == 0
+             ? kFftMaxWidth
+             : 0;
+}
+// blocks of the cluster that runs bank width M: fft_ranks(M), or in the
+// Bluestein mode those of its length L (8)
+__host__ __device__ constexpr int fft_blocks(int M) {
+  return fft_bluestein(M) ? fft_ranks(fft_bluestein(M)) : fft_ranks(M);
+}
+// the transform width of one block: M, or M/C in a cluster of C, or in
+// the Bluestein mode L/C (4096)
 __host__ __device__ constexpr int fft_width(int M) {
-  return M / fft_ranks(M);
+  return (fft_bluestein(M) ? fft_bluestein(M) : M) / fft_blocks(M);
+}
+// plane positions of a block that hold channels: its fft_width(M), or in
+// the Bluestein mode ceil(M/C), position c of rank r holding channel
+// C·c + r where that is below M
+__host__ __device__ constexpr int fft_channels(int M) {
+  return fft_bluestein(M) ? (M + fft_blocks(M) - 1) / fft_blocks(M)
+                          : fft_width(M);
 }
 // hop stride of the plane: one float2 of padding every 32
 __host__ __device__ constexpr int fft_hop_stride(int M) {
@@ -280,10 +330,15 @@ __host__ __device__ constexpr int fft_twiddle_size(int M) {
 // the whole table of bank width M: the plan's table at the transform
 // width N; in a cluster of C then the twiddles of the pass across it,
 // W_M^{s·c} for 1 <= s < C, c < N (at C = 2 the combine's W_M^c), and
-// past C = 2 the C constants W_C^e
+// past C = 2 the C constants W_C^e.  In the Bluestein mode that is the
+// table of L (W_L for W_M), and then the chirp, C rows of
+// fft_channels(M) (row r: w[C·c + r], zero past M), and B, L values
 __host__ __device__ constexpr int fft_table_size(int M) {
-  return fft_twiddle_size(fft_width(M)) + (fft_ranks(M) - 1) * fft_width(M) +
-         (fft_ranks(M) > 2 ? fft_ranks(M) : 0);
+  return fft_twiddle_size(fft_width(M)) + (fft_blocks(M) - 1) * fft_width(M) +
+         (fft_blocks(M) > 2 ? fft_blocks(M) : 0) +
+         (fft_bluestein(M)
+              ? fft_blocks(M) * fft_channels(M) + fft_bluestein(M)
+              : 0);
 }
 // shared memory of a block of H hops at bank width M: the plane (a
 // block's fft_width(M) channels), and the table up to
@@ -444,12 +499,15 @@ __device__ __forceinline__ void dft_odd(float2 (&v)[R],
 // kLoop: the kernel runs the tile again and again in a loop (synth.cu's
 // passes), beside state it holds in registers across the loop.  M is the
 // bank's width; past kFftBlockWidth the tile is one rank of a cluster of
-// RK blocks, whose plane holds N = M/RK channels.
+// RK blocks, whose plane holds N = M/RK channels (in the Bluestein mode
+// N = L/RK positions, NC of them channels).
 template <int M, int H_, bool kLoop = false>
 struct FftTile {
   static constexpr int P = M / 2;
-  static constexpr int RK = fft_ranks(M);      // blocks of the cluster
-  static constexpr int N = fft_width(M);       // transform width, channels
+  static constexpr int LB = fft_bluestein(M);  // Bluestein's L, or 0
+  static constexpr int RK = fft_blocks(M);     // blocks of the cluster
+  static constexpr int N = fft_width(M);       // transform width
+  static constexpr int NC = fft_channels(M);   // positions holding channels
   static constexpr int H = H_;                 // analysis hops of a block
   static constexpr int FH = H / 2;             // hops a thread folds
   static constexpr int HS = fft_hop_stride(N);  // hop stride of the plane
@@ -463,9 +521,9 @@ struct FftTile {
       FH >= 16 || fft_has_generic(N) ? 8 : kFftChunkT;
   static constexpr bool kSharedTw = fft_shared_twiddles(M);
   static_assert(H % 2 == 0 && M >= 2 && M <= kFftMaxWidth && M % 2 == 0 &&
-                    RK > 0 && RK * N == M,
-                "even widths 2 .. 8192, past it M = C·N with C <= 8, "
-                "N <= 4096");
+                    RK > 0 && RK * N == (LB ? LB : M),
+                "even widths 2 .. 16384 (past 8192 M = C·N with C <= 8, "
+                "N <= 4096, or Bluestein's L), past it M = C·N");
   static_assert(N <= kFftBlockWidth, "a block transforms at most 4096");
   static_assert(kSmemBytes <= kFftMaxSmem, "the plane fits a block");
 
@@ -473,12 +531,33 @@ struct FftTile {
   // [TWN] the twiddle table: in shared memory after the plane, or (past
   // kFftSharedTwiddleWidth) the wrapper's table in device memory
   const float2* W;
-  // the block's first channel (rank · N in a cluster, 0 alone)
+  // the block's first channel (rank · N in a cluster, 0 alone; the rank
+  // in the Bluestein mode)
   int k0;
 
   __device__ __forceinline__ explicit FftTile(float* smem)
       : S(reinterpret_cast<float2*>(smem)), W(S + H * HS),
-        k0(RK > 1 ? rank() * N : 0) {}
+        k0(RK > 1 ? (LB ? rank() : rank() * N) : 0) {}
+
+  // the channel at plane position c: k0 + c, or in the Bluestein mode
+  // RK·c + rank; and whether position c holds one (only in the Bluestein
+  // mode not: where RK·c + rank >= M).  The epilogues test
+  // `!Tile::LB || tile.holds(c)`: a bare `tile.holds(c)`, though always
+  // true at a split width, changed the split widths' SASS (K1-K3)
+  __device__ __forceinline__ int channel(int c) const {
+    return LB ? RK * c + k0 : k0 + c;
+  }
+  __device__ __forceinline__ bool holds(int c) const {
+    return !LB || RK * c + k0 < M;
+  }
+  // the rank and the position whose plane holds channel k after fft(): k
+  // / N and k mod N, or in the Bluestein mode k mod RK and k / RK
+  __device__ __forceinline__ static int owner(int k) {
+    return LB ? k % RK : k / N;
+  }
+  __device__ __forceinline__ static int slot(int k) {
+    return LB ? k / RK : k % N;
+  }
 
   // the block's rank in its cluster (0 alone), read afresh at each use
   __device__ __forceinline__ static int rank() {
@@ -519,7 +598,8 @@ struct FftTile {
   }
 
   // The folded windows of hops a0 .. a0+H-1 into the plane (in a
-  // cluster of RK, the block's part f[RK·m + rank]).  x is (n_ext, 2)
+  // cluster of RK, the block's part f[RK·m + rank], m < NC and, in the
+  // Bluestein mode, RK·m + rank < M).  x is (n_ext, 2)
   // interleaved or (2, n_ext) planar, n_ext a multiple of P.  A kernel
   // instantiated for kLongT takes T > kFftChunkT, in chunks of
   // kFoldChunk taps; one without it T <= kFftChunkT, so that a long
@@ -542,18 +622,19 @@ struct FftTile {
   }
 
   // Hop-major rows n0 .. n0+H-1 of Y ((Nh, M) complex) into the plane
-  // (in a cluster of RK, the block's values k = RK·c + rank of each row), by
-  // cp.async (consecutive threads on consecutive c, all copies in flight
-  // together); rows outside [0, Nh) load as zero.  Ends with the copies
-  // landed and a barrier.
+  // (in a cluster of RK, the block's values k = RK·c + rank of each row,
+  // c < NC), by cp.async (consecutive threads on consecutive c, all
+  // copies in flight together); rows outside [0, Nh), and k >= M in the
+  // Bluestein mode, load as zero.  Ends with the copies landed and a
+  // barrier.
   __device__ __forceinline__ void load_rows(const float2* __restrict__ Y,
                                             int n0, int Nh) {
 #pragma unroll 4
-    for (int e = tid(); e < H * N; e += kFftThreads) {
-      const int l = e / N, c = e % N;
+    for (int e = tid(); e < H * NC; e += kFftThreads) {
+      const int l = e / NC, c = e % NC;
       const int k = RK > 1 ? RK * c + rank() : c;
       const int n = n0 + l;
-      const bool ok = n >= 0 && n < Nh;
+      const bool ok = n >= 0 && n < Nh && (!LB || k < M);
       cp_async<8>(S + l * HS + pad(c),
                   Y + (ok ? static_cast<size_t>(n) * M + k : 0), ok);
     }
@@ -575,9 +656,12 @@ struct FftTile {
                                             int T, int a0) {
     const long long nrow = n_ext / P;
 #pragma unroll 1
-    for (int it = threadIdx.x; it < 2 * N; it += kFftThreads) {
-      const int g = it / N, c = it % N;     // hops g, g + 2, ... of the tile
+    for (int it = threadIdx.x; it < 2 * NC; it += kFftThreads) {
+      const int g = it / NC, c = it % NC;   // hops g, g + 2, ... of the tile
       const int m = RK > 1 ? RK * c + rank() : c;  // the window's sample
+      if constexpr (LB) {
+        if (m >= M) continue;               // no sample: chirp_in zeroes it
+      }
       const int hi = m >= P ? 1 : 0, col = m - hi * P;
 #pragma unroll 1
       for (int t0 = 0; t0 < (CHUNKED ? T : 1); t0 += MT) {
@@ -775,11 +859,121 @@ struct FftTile {
 
   // The transform of the block's plane; in a cluster then the pass across
   // it: radix 2 across a pair (combine), radix RK across more (cross).
-  // Ends with a barrier (a cluster barrier in a cluster).
+  // In the Bluestein mode the chirp convolution of length LB around them
+  // (above).  Ends with a barrier (a cluster barrier in a cluster).
   __device__ __forceinline__ void fft() {
-    passes();
-    if constexpr (RK == 2) combine();
-    else if constexpr (RK > 2) cross();
+    if constexpr (LB) {
+      chirp_in();
+      passes();
+      cross();      // rank r holds A[rN + c]
+      icross();     // rank s holds the inverse's input V_s
+      passes();     // rank s holds conj(z[RK·m + s])
+      chirp_out();
+    } else {
+      passes();
+      if constexpr (RK == 2) combine();
+      else if constexpr (RK > 2) cross();
+    }
+  }
+
+  // Bluestein's input: each value f[RK·c + rank] of the plane times the
+  // chirp w[RK·c + rank], and zero at every position that holds no
+  // sample (c >= NC, or RK·c + rank >= M).  Ends with a barrier.
+  __device__ __forceinline__ void chirp_in() {
+    const float2* w = W + fft_table_size(LB) + k0 * NC;   // the rank's row
+#pragma unroll 1
+    for (int c = tid(); c < N; c += kFftThreads) {
+      const bool live = c < NC && holds(c);
+      const float2 wc = live ? ld(w + c) : make_float2(0.f, 0.f);
+#pragma unroll 1
+      for (int l = 0; l < H; ++l) {
+        float2* f = S + l * HS + pad(c);
+        *f = live ? cmul(*f, wc) : make_float2(0.f, 0.f);
+      }
+    }
+    __syncthreads();
+  }
+
+  // Bluestein's spectral product and the inverse transform's pass across
+  // the cluster, decimated in frequency.  With A_r[c] = A[rN + c] in rank
+  // r's plane (after cross) and Z_r[c] = conj(A_r[c] B[rN + c]), B the
+  // table's FFT_L of the conjugate chirp over L:
+  //   V_s[c] = W_L^{s·c} sum_r W_RK^{r·s} Z_r[c],
+  // r ascending, into rank s's plane (W_L^{s·c} and W_RK^e are cross's
+  // tables), hop by hop as cross (read every plane, hold the sums across
+  // a cluster barrier, write in place), so that FFT_N(V_s)[m] =
+  // conj(z[RK·m + s]), z the convolution.  Ends with a barrier.
+  __device__ __forceinline__ void icross() {
+    constexpr int CV = (N + kFftThreads - 1) / kFftThreads;  // values a thread
+    const int s = rank();
+    const float2* wt = W + fft_twiddle_size(N);   // W_L^{s·c}: (RK-1) x N
+    const float2* b = W + fft_table_size(LB) + RK * NC + s * N;
+#pragma unroll
+    for (int i = 0; i < CV; ++i) {
+      const int c = tid() + i * kFftThreads;
+      if (c < N) {
+        const float2 bc = ld(b + c);
+#pragma unroll 1
+        for (int l = 0; l < H; ++l) {
+          float2* f = S + l * HS + pad(c);
+          const float2 z = cmul(*f, bc);
+          *f = make_float2(z.x, -z.y);
+        }
+      }
+    }
+    float2 wc[RK];   // W_RK^{r·s}
+#pragma unroll
+    for (int r = 0; r < RK; ++r) wc[r] = ld(wt + (RK - 1) * N + r * s % RK);
+    cluster_sync();     // every plane's product written
+#pragma unroll 1
+    for (int l = 0; l < H; ++l) {
+      unsigned far[RK];
+#pragma unroll
+      for (int r = 0; r < RK; ++r) far[r] = cluster_addr(S, r);
+      float2 v[CV];
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        const int c = tid() + i * kFftThreads;
+        if (c < N) {
+          const int o = l * HS + pad(c);
+          float2 acc = s == 0 ? S[o] : ld_cluster(far[0] + 8 * o);
+#pragma unroll
+          for (int r = 1; r < RK; ++r) {
+            const float2 g = r == s ? S[o] : ld_cluster(far[r] + 8 * o);
+            const float2 w = wc[r];
+            acc.x = fmaf(g.x, w.x, fmaf(-g.y, w.y, acc.x));
+            acc.y = fmaf(g.x, w.y, fmaf(g.y, w.x, acc.y));
+          }
+          v[i] = acc;
+        }
+      }
+      cluster_sync();   // every rank has read hop l of this plane
+#pragma unroll
+      for (int i = 0; i < CV; ++i) {
+        const int c = tid() + i * kFftThreads;
+        if (c < N)
+          S[l * HS + pad(c)] = s > 0 ? cmul(v[i], ld(wt + (s - 1) * N + c))
+                                     : v[i];
+      }
+    }
+    __syncthreads();
+  }
+
+  // Bluestein's output: position c < NC of rank s holds conj(z[k]), k =
+  // RK·c + s, and channel k < M is X[k] = w[k] z[k] (zero where k >= M).
+  // Ends with a cluster barrier: K4 then reads the other planes.
+  __device__ __forceinline__ void chirp_out() {
+    const float2* w = W + fft_table_size(LB) + k0 * NC;   // the rank's row
+#pragma unroll 1
+    for (int c = tid(); c < NC; c += kFftThreads) {
+      const float2 wc = ld(w + c);
+#pragma unroll 1
+      for (int l = 0; l < H; ++l) {
+        float2* f = S + l * HS + pad(c);
+        *f = cmul(make_float2(f->x, -f->y), wc);
+      }
+    }
+    cluster_sync();
   }
 
   // y[rN + c] of every hop into this rank's plane from E (rank 0's plane)
@@ -877,11 +1071,11 @@ struct FftTile {
     cluster_sync();     // every plane done
   }
 
-  // y_k of tile hop l, the block's channel c (k = k0 + c), with the hop
-  // sign (-1)^{k(n+parity)} of stream hop n
+  // y_k of tile hop l, the block's channel at position c (k =
+  // channel(c)), with the hop sign (-1)^{k(n+parity)} of stream hop n
   __device__ __forceinline__ float2 y(int l, int c, int n, int parity) const {
     const float2 v = S[l * HS + pad(c)];
-    const int k = RK > 1 ? k0 + c : c;
+    const int k = LB ? channel(c) : (RK > 1 ? k0 + c : c);
     return ((k & 1) && ((n + parity) & 1)) ? make_float2(-v.x, -v.y) : v;
   }
 };
@@ -889,7 +1083,7 @@ struct FftTile {
 // ---- host side: the launch of a tile kernel at bank width M ----
 
 // A launch of kFftThreads-thread blocks with smem bytes of dynamic
-// shared memory, in clusters of fft_ranks(M) blocks along grid x.
+// shared memory, in clusters of fft_blocks(M) blocks along grid x.
 inline cudaLaunchConfig_t fft_config(int M, dim3 grid, int smem,
                                      cudaStream_t st,
                                      cudaLaunchAttribute* cluster) {
@@ -899,16 +1093,16 @@ inline cudaLaunchConfig_t fft_config(int M, dim3 grid, int smem,
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cluster->id = cudaLaunchAttributeClusterDimension;
-  cluster->val.clusterDim.x = fft_ranks(M);
+  cluster->val.clusterDim.x = fft_blocks(M);
   cluster->val.clusterDim.y = 1;
   cluster->val.clusterDim.z = 1;
   cfg.attrs = cluster;
-  cfg.numAttrs = fft_ranks(M) > 1 ? 1 : 0;
+  cfg.numAttrs = fft_blocks(M) > 1 ? 1 : 0;
   return cfg;
 }
 
 // Sets the kernel's shared memory to smem bytes and launches it (grid x
-// a multiple of fft_ranks(M)); returns the launch's CUDA error.
+// a multiple of fft_blocks(M)); returns the launch's CUDA error.
 template <int M, class... Params, class... Args>
 int fft_launch(void (*kernel)(Params...), dim3 grid, int smem,
                cudaStream_t st, Args&&... args) {
@@ -922,7 +1116,7 @@ int fft_launch(void (*kernel)(Params...), dim3 grid, int smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The clusters of fft_ranks(M) blocks of the kernel, smem bytes each,
+// The clusters of fft_blocks(M) blocks of the kernel, smem bytes each,
 // that the card holds at once (0: it cannot schedule one), or -(the CUDA
 // error).
 template <int M, class... Params>
@@ -932,7 +1126,7 @@ int fft_max_clusters(void (*kernel)(Params...), int smem) {
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute cluster;
   const cudaLaunchConfig_t cfg =
-      fft_config(M, dim3(fft_ranks(M)), smem, nullptr, &cluster);
+      fft_config(M, dim3(fft_blocks(M)), smem, nullptr, &cluster);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return err != cudaSuccess ? -static_cast<int>(err) : n;

@@ -34,9 +34,10 @@
 // atomics: every output element has one writer.  Past M = 4096 a
 // cluster of C blocks runs each run, block rank r holding channels
 // rN .. rN+N-1 (N = M/C; the tile's pass across the cluster,
-// analysis_fft.cuh); the grid's x is then C x the runs.  Any number of taps T: each width has
-// a kernel for T <= 16 and one that folds a longer filter in chunks of
-// 16 taps (kLongT, analysis_fft.cuh).
+// analysis_fft.cuh), or in the Bluestein mode channels 8c + r
+// (tile.channel(c)); the grid's x is then C x the runs.  Any number of
+// taps T: each width has a kernel for T <= 16 and one that folds a
+// longer filter in chunks of 16 taps (kLongT, analysis_fft.cuh).
 
 #include <cuda_runtime.h>
 
@@ -57,7 +58,7 @@ rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
   extern __shared__ __align__(16) float smem[];
   using Tile = FftTile<M, fft_wide_hops(M)>;
   constexpr int HO = Tile::H - 1;         // demod hops a block owns
-  constexpr int N = Tile::N;              // channels a block holds
+  constexpr int NC = Tile::NC;            // positions holding channels
   Tile tile(smem);
   // tile hop l is stream hop h0-1+l
   const int h0 = static_cast<int>(blockIdx.x / Tile::RK) * HO;
@@ -65,11 +66,11 @@ rx_front_kernel(const float* __restrict__ x, int planar, long long n_ext,
   tile.template fold<kLongT>(x, planar, n_ext, coef, T, h0 - 1);
   __syncthreads();
   tile.fft();
-  for (int e = threadIdx.x; e < N * HO; e += kFftThreads) {
+  for (int e = threadIdx.x; e < NC * HO; e += kFftThreads) {
     const int ch = e / HO, l = 1 + e % HO;
-    const int k = tile.k0 + ch;
+    const int k = tile.channel(ch);
     const int n = h0 - 1 + l;
-    if (n < Nh) {
+    if (n < Nh && (!Tile::LB || tile.holds(ch))) {
       const float2 c = tile.y(l, ch, n, hop0_parity);
       const float2 b = tile.y(l - 1, ch, n - 1, hop0_parity);
       const float2 p0 = prev[k];
@@ -113,7 +114,14 @@ extern "C" int rx_front_fft_radix(int M, int p) {
 }
 // blocks of a cluster at width M (-1: M not taken)
 extern "C" int rx_front_cluster_size(int M) {
-  return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
+  return with_width(M, [](auto w) { return fft_blocks(decltype(w)::value); });
+}
+// the length of the chirp transform at width M: 0, or L in the Bluestein
+// mode (-1: M not taken)
+extern "C" int rx_front_bluestein_length(int M) {
+  return with_width(M, [](auto w) {
+    return fft_bluestein(decltype(w)::value);
+  });
 }
 // clusters of the kernel (the fewer of its two instantiations) the card
 // holds at once at a cluster width M
@@ -121,7 +129,7 @@ extern "C" int rx_front_cluster_size(int M) {
 extern "C" int rx_front_max_clusters(int M) {
   return with_width(M, [](auto w) {
     constexpr int Mw = decltype(w)::value;
-    if constexpr (fft_ranks(Mw) == 1) {
+    if constexpr (fft_blocks(Mw) == 1) {
       return -1;
     } else {
       return fft_max_clusters<Mw>(rx_front_kernel<Mw, false>,

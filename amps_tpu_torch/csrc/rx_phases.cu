@@ -46,11 +46,12 @@
 // is the band, whose input and outputs lie G-major one after another.
 // Past M = 4096 a cluster of C blocks runs each run (grid x = C x the
 // runs), block rank r holding channels rN .. rN+N-1 (N = M/C; the tile's
-// pass across the cluster, analysis_fft.cuh): the discriminator, dump and
-// power above run on the block's N channels, six hops at N = 4096 and a
-// run of 3 at sps = 3.  Any number of taps T: each width has a kernel for
-// T <= 16 and one that folds a longer filter in chunks of 16 taps
-// (kLongT, analysis_fft.cuh).
+// pass across the cluster, analysis_fft.cuh), or in the Bluestein mode
+// the NC = ceil(M/8) channels 8c + r (tile.channel(c), those below M):
+// the discriminator, dump and power above run on the block's channels,
+// six hops at N = 4096 and a run of 3 at sps = 3.  Any number of taps
+// T: each width has a kernel for T <= 16 and one that folds a longer
+// filter in chunks of 16 taps (kLongT, analysis_fft.cuh).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,7 +80,7 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
   extern __shared__ __align__(16) float smem[];
   using Tile = FftTile<M, fft_wide_hops(M)>;
   constexpr int HS = Tile::HS;
-  constexpr int N = Tile::N;              // channels a block holds
+  constexpr int NC = Tile::NC;            // positions holding channels
   Tile tile(smem);
   const int R = run_hops(M, sps);
   const int run = blockIdx.x / Tile::RK;
@@ -95,18 +96,19 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 
   // discriminator and power, tile hops L-1 down to 1; a thread's CPT
   // channels run as independent chains
-  constexpr int CPT = (N + kFftThreads - 1) / kFftThreads;
-  // a thread's last chain is past the channels only where N > 256 is ragged
-  constexpr bool kRagged = N > kFftThreads && N % kFftThreads != 0;
+  constexpr int CPT = (NC + kFftThreads - 1) / kFftThreads;
+  // a thread's last chain is past the positions only where NC > 256 is
+  // ragged
+  constexpr bool kRagged = NC > kFftThreads && NC % kFftThreads != 0;
   const int L = R + sps;
   const int b0 = h0 / kRssiBlock;
-  if (CPT > 1 || threadIdx.x < N) {
+  if (CPT > 1 || threadIdx.x < NC) {
     float2 c[CPT];
     float pw0[CPT], pw1[CPT];
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int k = threadIdx.x + i * kFftThreads;
-      c[i] = (!kRagged || k < N) ? tile.y(L - 1, k, h0 + L - 2, hop0_parity)
+      c[i] = (!kRagged || k < NC) ? tile.y(L - 1, k, h0 + L - 2, hop0_parity)
                                  : make_float2(0.f, 0.f);
       pw0[i] = pw1[i] = 0.f;
     }
@@ -117,7 +119,7 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 #pragma unroll
       for (int i = 0; i < CPT; ++i) {
         const int k = threadIdx.x + i * kFftThreads;
-        if (kRagged && k >= N) continue;
+        if (kRagged && k >= NC) continue;
         const float2 b = tile.y(l - 1, k, n - 1, hop0_parity);
         const float2 q = n ? b : make_float2(0.f, 0.f);
         const float re =
@@ -134,8 +136,8 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int k = threadIdx.x + i * kFftThreads;
-      if (!kRagged || k < N)
-        pw_part[static_cast<size_t>(tile.k0 + k) * nrun + run] =
+      if ((!kRagged || k < NC) && (!Tile::LB || tile.holds(k)))
+        pw_part[static_cast<size_t>(tile.channel(k)) * nrun + run] =
             make_float2(pw0[i], pw1[i]);
     }
   }
@@ -150,15 +152,15 @@ rx_phases_kernel(const float* __restrict__ x, int planar, long long n_ext,
   const int row0 = threadIdx.x / S, drow = kFftThreads / S;
   const int dj = kFftThreads % S, dp = drow % sps, dk = drow / sps;
   int jl = threadIdx.x % S, p = row0 % sps, k = row0 / sps;
-  while (k < N) {
+  while (k < NC) {
     const int j = j0 + jl;
-    if (j < nsym) {
+    if (j < nsym && (!Tile::LB || tile.holds(k))) {
       const float2* d = tile.S + (1 + p + sps * jl) * HS + Tile::pad(k);
       float acc = 0.f;
       for (int v = 0; v < sps; ++v)
         acc = __fadd_rn(acc, __fmul_rn(d[v * HS].x, w));
       const size_t o =
-          ph0 + (static_cast<size_t>(tile.k0 + k) * sps + p) * nsym + j;
+          ph0 + (static_cast<size_t>(tile.channel(k)) * sps + p) * nsym + j;
       if (ph_bf16)
         ph_bf16[o] = __float2bfloat16_rn(acc);
       else
@@ -226,7 +228,14 @@ extern "C" int rx_phases_fft_radix(int M, int p) {
 }
 // blocks of a cluster at width M (-1: M not taken)
 extern "C" int rx_phases_cluster_size(int M) {
-  return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
+  return with_width(M, [](auto w) { return fft_blocks(decltype(w)::value); });
+}
+// the length of the chirp transform at width M: 0, or L in the Bluestein
+// mode (-1: M not taken)
+extern "C" int rx_phases_bluestein_length(int M) {
+  return with_width(M, [](auto w) {
+    return fft_bluestein(decltype(w)::value);
+  });
 }
 // clusters of the kernel (the fewer of its two instantiations) the card
 // holds at once at a cluster width M
@@ -234,7 +243,7 @@ extern "C" int rx_phases_cluster_size(int M) {
 extern "C" int rx_phases_max_clusters(int M) {
   return with_width(M, [](auto w) {
     constexpr int Mw = decltype(w)::value;
-    if constexpr (fft_ranks(Mw) == 1) {
+    if constexpr (fft_blocks(Mw) == 1) {
       return -1;
     } else {
       return fft_max_clusters<Mw>(rx_phases_kernel<Mw, false>,

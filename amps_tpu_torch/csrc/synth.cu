@@ -55,7 +55,11 @@
 //     split, analysis_fft.cuh; C = 2 up to 8192, 3 .. 8 past it): rank
 //     r loads the values k = C·c + r of each hop-major row, the cluster
 //     computes F = FFT_M(Y_n), and rank r's plane holds F[rN + c] (N =
-//     M/C), so F[k] lies in rank k / N at position k mod N.  A thread
+//     M/C), so F[k] lies in rank k / N at position k mod N (in the
+//     Bluestein mode, a cluster of 8 at the unsplit widths past 8192,
+//     rank k mod 8 at position k / 8: Tile::owner, Tile::slot; K4's
+//     park, groups and passes are those of M = 32768, the transform
+//     running twice while the ring waits).  A thread
 //     computes the rank and position of column p's two reads, F[(M - p)
 //     mod M] and F[P - p], once a pass and reads both through the
 //     shared::cluster window (distributed shared memory).  At C = 2 (N
@@ -115,28 +119,28 @@ namespace {
 // block's ceil(P/256) (P/C a block in a cluster of C), but at most 2 at
 // MT = 8 and 1 at MT = 16
 __host__ __device__ constexpr int synth_thread_columns(int M, int MT) {
-  return (M / 2 / fft_ranks(M) + kFftThreads - 1) / kFftThreads <
+  return (M / 2 / fft_blocks(M) + kFftThreads - 1) / kFftThreads <
                  (MT <= 8 ? 2 : 1)
-             ? (M / 2 / fft_ranks(M) + kFftThreads - 1) / kFftThreads
+             ? (M / 2 / fft_blocks(M) + kFftThreads - 1) / kFftThreads
              : (MT <= 8 ? 2 : 1);
 }
 // column groups of a pass (the grid's first axis; 1 up to M = 1024 at
 // MT = 8, up to 512 at MT = 16), each a block or, past 4096, a cluster
 __host__ __device__ constexpr int synth_groups(int M, int MT) {
-  return (M / 2 + fft_ranks(M) * kFftThreads * synth_thread_columns(M, MT) -
+  return (M / 2 + fft_blocks(M) * kFftThreads * synth_thread_columns(M, MT) -
           1) /
-         (fft_ranks(M) * kFftThreads * synth_thread_columns(M, MT));
+         (fft_blocks(M) * kFftThreads * synth_thread_columns(M, MT));
 }
 // a thread's ring past 4096: thread_columns · 2·MT = 32 running sums at
 // both rings, parked in shared memory while the tile transforms a pass
 constexpr int kSynthParkValues = 32;
 __host__ __device__ constexpr int synth_park_bytes(int M) {
-  return fft_ranks(M) > 1 ? 8 * kSynthParkValues * kFftThreads : 0;
+  return fft_blocks(M) > 1 ? 8 * kSynthParkValues * kFftThreads : 0;
 }
 // hops a pass transforms: the tile's fft_wide_hops, or past 4096 the most
 // even hops whose plane fits beside the parked ring (4 at N = 4096)
 __host__ __device__ constexpr int synth_hops(int M) {
-  return fft_ranks(M) == 1
+  return fft_blocks(M) == 1
              ? fft_wide_hops(M)
              : ((kFftMaxSmem - synth_park_bytes(M)) /
                     (8 * fft_hop_stride(fft_width(M))) & ~1);
@@ -157,7 +161,7 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
              int T, int Nh, int hop0_parity, int R) {
   extern __shared__ __align__(16) float smem[];
   constexpr int G = synth_groups(M, MT);
-  constexpr int RK = fft_ranks(M);
+  constexpr int RK = fft_blocks(M);
   constexpr int B = G * RK;                 // blocks of a run
   // a power of two in one group keeps the ring's fast form: gains in
   // registers, the tile's index arithmetic hoisted out of the pass loop.
@@ -173,7 +177,7 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
   // spilled up to 1.5 KB at M = 6144 and 8190)
   constexpr bool kPark = RK > 1;
   using Tile = FftTile<M, synth_hops(M), kFrugal>;
-  constexpr int H = Tile::H, P = M / 2, N = Tile::N;
+  constexpr int H = Tile::H, P = M / 2;
   constexpr int RING = 2 * MT;
   constexpr int PC = (P + B - 1) / B;       // columns of a block
   constexpr int CPT = (PC + kFftThreads - 1) / kFftThreads;   // columns a thread
@@ -237,8 +241,10 @@ synth_kernel(const float2* __restrict__ Y,          // (Nh, M) complex
       if constexpr (RK > 1) {
         const int p = pg + threadIdx.x + c * kFftThreads;
         const int ka = p > 0 && p < P ? M - p : 0, kb = p < P ? P - p : 0;
-        Fa[c] = cluster_addr(tile.S, ka / N) + 8 * Tile::pad(ka % N);
-        Fb[c] = cluster_addr(tile.S, kb / N) + 8 * Tile::pad(kb % N);
+        Fa[c] = cluster_addr(tile.S, Tile::owner(ka)) +
+                8 * Tile::pad(Tile::slot(ka));
+        Fb[c] = cluster_addr(tile.S, Tile::owner(kb)) +
+                8 * Tile::pad(Tile::slot(kb));
       } else {
         Fa[c] = Fb[c] = 0;
       }
@@ -357,13 +363,13 @@ int launch_width(const void* Y, const void* tw, const void* gm,
                  int Nh, int hop0_parity, cudaStream_t st) {
   constexpr int H = synth_hops(M), smem = synth_smem(M);
   constexpr int G = synth_groups(M, MT);
-  constexpr int B = G * fft_ranks(M);   // blocks of a run
+  constexpr int B = G * fft_blocks(M);   // blocks of a run
   // run-slots the card holds at once: its blocks, or past 4096 its
   // clusters, over the run's blocks or clusters (0 where a run needs more
   // clusters than the card holds at once: the run's G clusters then take
   // turns, and the launch still has one run, below)
   int slots = 0;
-  if constexpr (fft_ranks(M) > 1) {
+  if constexpr (fft_blocks(M) > 1) {
     const int n = fft_max_clusters<M>(synth_kernel<M, MT>, smem);
     if (n < 0) return -n;
     if (n == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -383,7 +389,7 @@ int launch_width(const void* Y, const void* tw, const void* gm,
     slots = sms * per_sm / G;
   }
   // one wave: output hops split evenly over the runs, but at least a pass
-  // of them a run; a run is B blocks, G column groups of fft_ranks(M)
+  // of them a run; a run is B blocks, G column groups of fft_blocks(M)
   const int NO = Nh + 2 * T - 1;
   const int G0 = std::max(1, slots);
   const int R = std::max((NO + G0 - 1) / G0, H);
@@ -438,7 +444,14 @@ extern "C" int synth_fft_radix(int M, int p) {
 }
 // blocks of a cluster at width M (-1: M not taken)
 extern "C" int synth_cluster_size(int M) {
-  return with_width(M, [](auto w) { return fft_ranks(decltype(w)::value); });
+  return with_width(M, [](auto w) { return fft_blocks(decltype(w)::value); });
+}
+// the length of the chirp transform at width M: 0, or L in the Bluestein
+// mode (-1: M not taken)
+extern "C" int synth_bluestein_length(int M) {
+  return with_width(M, [](auto w) {
+    return fft_bluestein(decltype(w)::value);
+  });
 }
 // clusters the card holds at once at a cluster width M, the fewer of the
 // two rings' kernels (-1: M not taken or not a cluster width; below -1:
@@ -446,7 +459,7 @@ extern "C" int synth_cluster_size(int M) {
 extern "C" int synth_max_clusters(int M) {
   return with_width(M, [](auto w) {
     constexpr int Mw = decltype(w)::value;
-    if constexpr (fft_ranks(Mw) == 1) {
+    if constexpr (fft_blocks(Mw) == 1) {
       return -1;
     } else {
       return fft_max_clusters<Mw>(synth_kernel<Mw, 8>,

@@ -17,15 +17,22 @@ a thread block folds each of its hops once, any number of taps T (past
 transforms them with an f32 Stockham FFT whose radices are
 ``fft_radices(M)`` (mixed radix: 16, then 2, 4 or 8, then the odd prime
 factors of M) and whose twiddles are the table of ``_tables``; M is any
-width in ``FFT_WIDTHS``: every even M from 2 to 8192, and past it M = C·N
-with C <= 8 and N <= 4096, up to 32768.  Past ``BLOCK_WIDTH`` (4096) a
-cluster of ``fft_cluster_size(M)`` = C thread blocks (the smallest
+width in ``FFT_WIDTHS``: every even M from 2 to 16384, and past it M =
+C·N with C <= 8 and N <= 4096, up to 32768.  Past ``BLOCK_WIDTH`` (4096)
+a cluster of ``fft_cluster_size(M)`` = C thread blocks (the smallest
 divisor of M from 2 to ``CLUSTER_SIZE`` with M/C <= 4096) shares each
 hop: each block transforms its part at ``fft_plan_width(M)`` = M/C and a
 radix-C pass across the cluster, through distributed shared memory,
-leaves each block a contiguous range of M/C channels.  The powers of two
-up to 4096 live in the main library; any other width, every cluster
-width among them, builds a library of its own at first use
+leaves each block a contiguous range of M/C channels.  The even widths
+in (8192, 16384] that no such cluster splits (937 of them, 8194 the
+first: ``bluestein_length(M)`` = 32768) run Bluestein's chirp transform,
+a circular convolution of length 32768 on a cluster of
+``cluster_blocks(M)`` = 8 blocks of 4096 points (the split width 32768's
+transform, forward and, decimated in frequency, inverse), block r
+holding the ``fft_block_channels(M)`` channels 8c + r < M; its tables
+(``bluestein_tables``) follow the twiddles of length 32768.  The powers
+of two up to 4096 live in the main library; any other width, every
+cluster width among them, builds a library of its own at first use
 (``kernels.build``).  The analysis kernel takes ``FFT_TILE_HOPS[M]``
 hops a block, the receive front ends (``kernels.rx_front``,
 ``kernels.rx_phases``) and the synthesis ``FFT_WIDE_HOPS[M]``; a block's
@@ -84,17 +91,45 @@ def fft_cluster_size(M: int) -> int:
                  if M % C == 0 and M // C <= BLOCK_WIDTH), 0)
 
 
+def bluestein_length(M: int) -> int:
+    """The length L of Bluestein's chirp transform at width M (csrc
+    fft_bluestein): MAX_FFT_WIDTH (32768 >= 2M - 1) for every even M up
+    to MAX_FFT_WIDTH / 2 that no cluster splits (``fft_cluster_size(M)``
+    0: 937 widths in (8192, 16384], 8194 the first), else 0."""
+    return MAX_FFT_WIDTH if (M % 2 == 0 and 2 <= M <= MAX_FFT_WIDTH // 2
+                             and not fft_cluster_size(M)) else 0
+
+
+def cluster_blocks(M: int) -> int:
+    """Blocks of the cluster that runs width M (csrc fft_blocks): the
+    split's ``fft_cluster_size(M)``, or in the Bluestein mode those of its
+    length L (CLUSTER_SIZE)."""
+    L = bluestein_length(M)
+    return fft_cluster_size(L) if L else fft_cluster_size(M)
+
+
 def fft_plan_width(M: int) -> int:
-    """The width of one block's transform, and its channels (csrc
-    fft_width): M, or M/C in a cluster of C."""
-    return M // fft_cluster_size(M)
+    """The width of one block's transform (csrc fft_width): M, or M/C in
+    a cluster of C, or in the Bluestein mode L/C (BLOCK_WIDTH)."""
+    return (bluestein_length(M) or M) // cluster_blocks(M)
 
 
-# M the FFT tile takes: every even width from 2 to 8192 (245.76 Msps),
-# and past it the M = C·N that a cluster of C <= 8 blocks of N <= 4096
-# channels splits, up to 32768 (983.04 Msps)
+def fft_block_channels(M: int) -> int:
+    """Plane positions of a block that hold channels (csrc
+    fft_channels): ``fft_plan_width(M)``, or in the Bluestein mode
+    ceil(M/C), position c of rank r holding channel C·c + r where that
+    is below M."""
+    C = cluster_blocks(M)
+    return -(-M // C) if bluestein_length(M) else fft_plan_width(M)
+
+
+# M the FFT tile takes: every even width from 2 to 16384 (491.46 Msps at
+# 16382) -- up to 8192 split or whole, past it the M = C·N that a cluster
+# of C <= 8 blocks of N <= 4096 channels splits and, for the rest,
+# Bluestein's chirp transform of length 32768 on a cluster of 8 --, and
+# past 16384 the split widths up to 32768 (983.04 Msps)
 FFT_WIDTHS = tuple(M for M in range(2, MAX_FFT_WIDTH + 1, 2)
-                   if fft_cluster_size(M))
+                   if fft_cluster_size(M) or bluestein_length(M))
 
 
 def _fit_hops(M: int) -> int:
@@ -237,8 +272,10 @@ FFT_HEAD = ((16, (1, 2, 3)), (3, (1,)), (5, (1, 2)), (7, (1, 2, 3)))
 
 def fft_twiddle_exponents(M: int) -> np.ndarray:
     """The exponents e of the FFT tile's twiddle table W_M^e (csrc
-    fft_twiddle_offset, fft_table_size).  In a cluster of C (M past
-    BLOCK_WIDTH): the table of the block's width N = M/C, its W_N^e as
+    fft_twiddle_offset, fft_table_size).  In the Bluestein mode: those of
+    its length L, as W_L^e (the chirp and the convolution's transform
+    follow them in the table: ``bluestein_tables``).  In a cluster of C
+    (M past BLOCK_WIDTH): the table of the block's width N = M/C, its W_N^e as
     W_M^{Ce}, then the pass across the cluster's W_M^{s·c} for 1 <= s <
     C, c < N (s-major; at C = 2 the combine's W_M^c), and past C = 2 the
     constants W_C^e = W_M^{eN}, e < C.  Otherwise: the head,
@@ -249,6 +286,8 @@ def fft_twiddle_exponents(M: int) -> np.ndarray:
     the first, with Ns the product of the earlier radices, the
     (R-1) x Ns block jm·r·M/(Ns·R) for r = 1 .. R-1, jm < Ns; where the
     plan has a generic pass, every e < M last."""
+    if bluestein_length(M):
+        return fft_twiddle_exponents(bluestein_length(M))
     C = fft_cluster_size(M)
     if C > 1:
         N = M // C
@@ -278,11 +317,44 @@ def fft_smem_bytes(M: int, H: int) -> int:
     return 8 * (H * fft_hop_stride(fft_plan_width(M)) + table)
 
 
+def bluestein_exponents(M: int) -> np.ndarray:
+    """n² mod 2M for n < M, in exact integers (int64): the chirp w[n] =
+    e^{-jπn²/M} = e^{-jπ(n² mod 2M)/M}."""
+    n = np.arange(M, dtype=np.int64)
+    return n * n % (2 * M)
+
+
+def bluestein_tables(M: int):
+    """Bluestein's tables at width M in float64 (csrc FftTile::chirp_in,
+    icross, chirp_out): the chirp w[n] = e^{-jπn²/M}, n < M, its angle
+    from n² mod 2M in exact integers (n² reaches 2.7e8, past f32's 2^24),
+    laid out in the C rows of ``fft_block_channels(M)`` of the ranks
+    (row r: w[C·c + r], zero past M); and B = FFT_L(b) / L of the
+    conjugate chirp b[n] = conj(w[|n|]), |n| < M, wrapped to L - n, so
+    that the M-point DFT is X[k] = w[k] sum_n x[n] w[n] b[k - n]."""
+    L, C, NC = bluestein_length(M), cluster_blocks(M), fft_block_channels(M)
+    n = np.arange(M, dtype=np.int64)
+    w = np.exp(-1j * np.pi * bluestein_exponents(M) / M)
+    rows = np.zeros(C * NC, np.complex128)
+    rows[(n % C) * NC + n // C] = w
+    b = np.zeros(L, np.complex128)
+    b[:M] = np.conj(w)
+    b[L - n[1:]] = np.conj(w[1:])
+    return rows, np.fft.fft(b) / L
+
+
 @functools.cache
 def _fft_twiddles(M: int) -> np.ndarray:
     """(n, 2) float32 twiddle table W_M^e = e^{-j2πe/M} at the exponents
     of ``fft_twiddle_exponents``: the angle in float64 from e reduced mod
-    M, cast to f32, as ``_dft_mats`` builds its tables."""
+    M, cast to f32, as ``_dft_mats`` builds its tables.  In the Bluestein
+    mode: the table of its length L, then the chirp's rows and B of
+    ``bluestein_tables``, each cast from float64 to f32."""
+    L = bluestein_length(M)
+    if L:
+        parts = [np.stack([z.real, z.imag], axis=-1)
+                 for z in bluestein_tables(M)]
+        return np.concatenate([_fft_twiddles(L), *parts]).astype(np.float32)
     ang = 2.0 * np.pi * (fft_twiddle_exponents(M) % M) / M
     return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
 
@@ -300,14 +372,18 @@ def _tables(M: int, T: int, device: torch.device):
 
 
 def check_fft_width(M: int) -> None:
-    """The FFT tile takes any even M from 2 to 2·BLOCK_WIDTH (8192) and
-    past it M = C·N with C <= CLUSTER_SIZE and N <= BLOCK_WIDTH, up to
-    MAX_FFT_WIDTH (32768): ``FFT_WIDTHS``."""
-    if M % 2 or not 2 <= M <= MAX_FFT_WIDTH or not fft_cluster_size(M):
+    """The FFT tile takes any even M from 2 to MAX_FFT_WIDTH / 2 (16384):
+    up to 8192 and, past it, where a cluster splits M = C·N (C <=
+    CLUSTER_SIZE, N <= BLOCK_WIDTH), by the split, else by Bluestein's
+    chirp transform of length MAX_FFT_WIDTH; and past 16384 the split
+    widths, up to MAX_FFT_WIDTH (32768): ``FFT_WIDTHS``."""
+    if M % 2 or not 2 <= M <= MAX_FFT_WIDTH or not (
+            fft_cluster_size(M) or bluestein_length(M)):
         raise ValueError(
-            f"kernel needs an even M from 2 to {2 * BLOCK_WIDTH}, or M = C·N "
-            f"with C <= {CLUSTER_SIZE} and N <= {BLOCK_WIDTH} up to "
-            f"{MAX_FFT_WIDTH} (M={M})")
+            f"kernel needs an even M from 2 to {MAX_FFT_WIDTH // 2} (past "
+            f"{2 * BLOCK_WIDTH} split, or Bluestein's chirp transform of "
+            f"length {MAX_FFT_WIDTH}), or M = C·N with C <= {CLUSTER_SIZE} "
+            f"and N <= {BLOCK_WIDTH} up to {MAX_FFT_WIDTH} (M={M})")
 
 
 def card_block(x_ext: torch.Tensor, M: int, T: int):
@@ -337,9 +413,11 @@ def bind(prefix: str, argtypes, M: int, hops: int, smem: int, **consts):
     (``{prefix}_tile_hops``), a block's shared memory
     (``{prefix}_smem_bytes``), its FFT plan at ``fft_plan_width(M)``,
     pass by pass (``{prefix}_fft_passes``, ``{prefix}_fft_radix``), its
-    cluster size (``{prefix}_cluster_size``), and each of ``consts``
+    cluster size (``{prefix}_cluster_size``), its chirp transform's length
+    (``{prefix}_bluestein_length``), and each of ``consts``
     (name: {int arguments: value} of ``{prefix}_{name}``).  At a cluster
-    width (a cluster of 2 to 8 blocks) the card must hold at least one
+    width (a cluster of 2 to 8 blocks, the Bluestein widths among them)
+    the card must hold at least one
     cluster of the kernel
     (``{prefix}_max_clusters``, cudaOccupancyMaxActiveClusters), or this
     raises: such a width never falls back."""
@@ -355,22 +433,24 @@ def bind(prefix: str, argtypes, M: int, hops: int, smem: int, **consts):
 
     want = {"tile_hops": hops, "smem_bytes": smem,
             "plan": fft_radices(fft_plan_width(M)),
-            "cluster_size": fft_cluster_size(M), **consts}
+            "cluster_size": cluster_blocks(M),
+            "bluestein_length": bluestein_length(M), **consts}
     got = {"tile_hops": const("tile_hops", M),
            "smem_bytes": const("smem_bytes", M),
            "plan": tuple(const("fft_radix", M, p)
                          for p in range(const("fft_passes", M))),
            "cluster_size": const("cluster_size", M),
+           "bluestein_length": const("bluestein_length", M),
            **{name: {args: const(name, *args) for args in values}
               for name, values in consts.items()}}
     if got != want:
         raise RuntimeError(f"{prefix} kernel built for M={M} has the tile "
                            f"constants {got}, the wrapper's {want}")
-    if fft_cluster_size(M) > 1:
+    if cluster_blocks(M) > 1:
         n = max_clusters(prefix, M)
         if n <= 0:
             raise RuntimeError(f"{prefix} kernel at M={M}: the card holds "
-                               f"no cluster of {fft_cluster_size(M)} blocks "
+                               f"no cluster of {cluster_blocks(M)} blocks "
                                f"of {smem} bytes (cudaOccupancyMaxActive"
                                f"Clusters: {n})")
     return fn
@@ -383,6 +463,18 @@ def max_clusters(prefix: str, M: int) -> int:
     f = getattr(lib, f"{prefix}_max_clusters")
     f.argtypes, f.restype = [ctypes.c_int], ctypes.c_int
     return f(M)
+
+
+def probe_clusters(M: int, blocks: int) -> int:
+    """Clusters of ``blocks`` blocks of the analysis kernel at width M (its
+    shared memory a block) that the current card holds at once with
+    cluster sizes past the portable 8 allowed (``analysis_probe_clusters``,
+    cudaOccupancyMaxActiveClusters): a probe of the card's limit for a
+    chirp transform longer than a cluster of 8 holds.  Launches
+    nothing."""
+    f = build.load(None if M in LIBRARY_WIDTHS else M).analysis_probe_clusters
+    f.argtypes, f.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return f(M, blocks)
 
 
 def launch(name: str, fn, device: torch.device, *args) -> None:

@@ -15,11 +15,13 @@ thread's ring of running sums would outgrow its registers, so the P =
 M/2 columns split into ``column_groups(M, T)`` groups, a grid axis, each
 of which transforms the pass's hops itself (``thread_columns``: at most
 2 columns a thread).  Past M = 4096 a group is a cluster of C blocks
-(``kernels.analysis.fft_cluster_size``: 2 up to 8192, up to 8 past it)
-that share each hop's transform and split the group's columns, each
-block a contiguous range; each thread reads its columns' two values of
-the forward FFT from whichever ranks hold them (through distributed
-shared memory).  The groups stay as many as at 4096, and each thread's
+(``kernels.analysis.cluster_blocks``: 2 up to 8192, up to 8 past it, 8
+at a Bluestein width) that share each hop's transform and split the
+group's columns, each block a contiguous range; each thread reads its
+columns' two values of the forward FFT from whichever ranks hold them
+(through distributed shared memory: at a split width channel k at rank
+k // N, position k mod N; at a Bluestein width at rank k mod 8,
+position k // 8).  The groups stay as many as at 4096, and each thread's
 ring (32 running sums) waits in shared memory while the tile transforms
 a pass, so a pass takes ``SYNTH_HOPS[M]`` hops (4 at 8192 and 16384),
 fewer than the other kernels' ``FFT_WIDE_HOPS[M]``.
@@ -45,10 +47,9 @@ from amps_tpu_torch.kernels import build
 from amps_tpu_torch.kernels.analysis import (CHUNK_TAPS, FFT_WIDE_HOPS,
                                              FFT_WIDTHS, LIBRARY_WIDTHS,
                                              SMEM_BYTES, _tables, bind,
-                                             check_fft_width,
-                                             fft_cluster_size, fft_hop_stride,
-                                             fft_plan_width, fft_smem_bytes,
-                                             launch)
+                                             check_fft_width, cluster_blocks,
+                                             fft_hop_stride, fft_plan_width,
+                                             fft_smem_bytes, launch)
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -63,14 +64,14 @@ PARK_VALUES = 32
 def park_bytes(M: int) -> int:
     """Shared memory of a block's parked ring (csrc synth_park_bytes):
     8 bytes a sum, 256 threads, past 4096 only."""
-    return 8 * PARK_VALUES * 256 if fft_cluster_size(M) > 1 else 0
+    return 8 * PARK_VALUES * 256 if cluster_blocks(M) > 1 else 0
 
 
 def _synth_hops(M: int) -> int:
     """Hops a pass transforms (csrc synth_hops): FFT_WIDE_HOPS[M], or
     past 4096 the most even hops whose plane fits beside the parked
     ring."""
-    if fft_cluster_size(M) == 1:
+    if cluster_blocks(M) == 1:
         return FFT_WIDE_HOPS[M]
     return (SMEM_BYTES - park_bytes(M)) \
         // (8 * fft_hop_stride(fft_plan_width(M))) & ~1
@@ -113,16 +114,16 @@ def thread_columns(M: int, T: int) -> int:
     and 1 with that of 16 (2·16), which T <= 16 and every full chunk of
     a longer filter run (a last chunk of at most 8 taps runs the ring of
     8: ``thread_columns(M, taps)`` of its ``tap_chunks`` entry)."""
-    return min(-(-(M // 2 // fft_cluster_size(M)) // 256), 2 if T <= 8 else 1)
+    return min(-(-(M // 2 // cluster_blocks(M)) // 256), 2 if T <= 8 else 1)
 
 
 def column_groups(M: int, T: int) -> int:
     """Column groups of a pass, the grid's first axis (csrc
     synth_groups): ceil(P / (ranks · 256 · thread_columns)), 1 up to M =
     1024 at T <= 8 (512 with the ring of 16, T > 8), each group's block
-    (or cluster of ``fft_cluster_size(M)`` blocks past 4096)
+    (or cluster of ``cluster_blocks(M)`` blocks past 4096)
     transforming the pass's hops itself."""
-    return -(-(M // 2) // (fft_cluster_size(M) * 256 * thread_columns(M, T)))
+    return -(-(M // 2) // (cluster_blocks(M) * 256 * thread_columns(M, T)))
 
 
 def tap_chunks(T: int):

@@ -31,7 +31,7 @@ M = 24, 160, 448, 768, 1458 and 2038, their times at 768, 1536 and 2038
 beside 1024, and the station's main path at M=768 (a 23.04 Msps radio:
 the one-shot block, the receiver, the transmitter read back, the closed
 loop under its graph, the mobile's analysis) --; banks past 2048
-channels -- every wrapper refusing M = 8194, 16384, an odd width and 6,
+channels -- every wrapper refusing M = 16388, 32770, an odd width and 16396,
 every kernel against its plain version at M = 2304, 3072, 4000, 4094
 and 4096, their times at 2048, 3072 and 4096 beside 1024, the same main
 path at M=4096 (a 122.88 Msps radio) and a short call of the station
@@ -45,10 +45,18 @@ plain version at T = 17, 24, 32, 33 and 64 and M = 8 to 8192, their
 times at M=1024 for T = 8 to 64, the main path and one sharded step at
 M=1024, T=32 --; banks past 8192 channels, each hop shared by a cluster
 of 3 to 8 blocks with a radix-C pass across it -- every wrapper refusing
-M = 8195, 8194 and 32770, every kernel against its plain version at
+M = 8195, 16388 and 32770, every kernel against its plain version at
 M = 8196, 12288, 16384, 20480, 12294, 28672, 32768 and 16424, their
 times at 12288 and 16384 beside 8192, the same main path and short app
-call at M=16384 (a 491.52 Msps radio), the peak device memory --; and
+call at M=16384 (a 491.52 Msps radio), the peak device memory --; the
+even widths past 8192 that no cluster splits, each a chirp convolution
+of length 32768 (Bluestein) on a cluster of 8 blocks -- every wrapper
+refusing M = 16388, 16396, 32770 and 8193, every kernel against its
+plain version and float64 at M = 8194, 8198, 13334, 16378 and 16382
+(and at 8194 with T=32), their times at 8194 and 16382 beside 8192 and
+16384, the clusters of 16 the card would hold, the same main path and
+short app call at M=16382 (a 491.46 Msps radio), the peak device
+memory --; and
 times kernels and paths against their plain versions,
 their bounds and a cuFFT yardstick, with profiler windows of one
 one-shot block, one receiver push, one transmitter superframe, one
@@ -73,13 +81,14 @@ bounds and cuFFT yardsticks at 768, 1024, 1536 and 2038 (``widths_*``),
 and the same at phase 30's (``wide_*``), phase 31's (``widest_*``) and
 phase 33's (``wider_*``, with K1's, K2's and K4's errors against
 float64 references of their functions, the kernel's beside its plain
-version's, in ``wider_vs_float64``), and
+version's, in ``wider_vs_float64``) and phase 34's (``bluestein_*``,
+``bluestein_vs_float64`` by M and T), and
 phase 32's errors by M and times by T (``taps_*``);
 ``launches_by_path`` counts each kernel's launches on every path it
 runs, the soaks', the paced legs', the two processes' of the
-cross-process station and the M=768, M=4096, M=8192 and M=16384
-paths' (``m768_*``, ``m4096_*``, ``m8192_*``, ``m16384_*``) and the T=32
-paths' (``t32_*``)
+cross-process station and the M=768, M=4096, M=8192, M=16384 and
+M=16382 paths' (``m768_*``, ``m4096_*``, ``m8192_*``, ``m16384_*``,
+``m16382_*``) and the T=32 paths' (``t32_*``)
 among them.  Without a CUDA card it exits non-zero.
 
     python3 chip_smoke.py --digest TREE
@@ -337,19 +346,35 @@ def synth_f64(Y, M, T, parity, carry):
     2), carry ((2T - 1)·P, 2)) float64."""
     from amps_tpu_torch.dsp.polyphase import _hop_sign, prototype_taps
     P, Nh = M // 2, Y.shape[0]
-    y = torch.complex(Y[..., 0].double(), Y[..., 1].double()) \
-        * _hop_sign(M, Nh, parity, Y.device).double().T
-    u = M * torch.fft.ifft(y, dim=-1)
+    sign = _hop_sign(M, Nh, parity, Y.device).double().T
     g = torch.as_tensor(prototype_taps(M, T), device=Y.device).double() \
         .reshape(T, M) * P
     out = torch.zeros((Nh + 2 * T - 1, P), dtype=torch.complex128,
                       device=Y.device)
-    for j in range(2 * T):
-        h = (j & 1) * P
-        out[j: j + Nh] += g[j // 2, h: h + P] * u[:, h: h + P]
-    out = torch.view_as_real(out.reshape(-1)).clone()
+    step = max(1, (1 << 26) // M)      # hops a chunk: ~1 GB of complex128
+    for a in range(0, Nh, step):
+        b = min(a + step, Nh)
+        y = torch.complex(Y[a:b, :, 0].double(), Y[a:b, :, 1].double()) \
+            * sign[a:b]
+        u = M * torch.fft.ifft(y, dim=-1)
+        for j in range(2 * T):
+            h = (j & 1) * P
+            out[a + j: b + j] += g[j // 2, h: h + P] * u[:, h: h + P]
+        del y, u
+    out = torch.view_as_real(out.reshape(-1))
     out[: carry.shape[0]] += carry.double()
     return out[: Nh * P], out[Nh * P:]
+
+
+def synth_f64_f32(Y, M, T, parity, carry):
+    """``synth_f64`` rounded once to float32, in the wrapper's terms: a
+    reference synthesis whose only error is that rounding.  Phases 7 and
+    13 run their reference paths on it at widths where the plain
+    synthesis is a dense f32 DFT past 8192 (phase 34): there its sums of
+    16382 coherent terms (FOCC on every channel) stray from float64 by
+    ~8e-5 of the band's peak, four times TX_PEAK_RTOL, on the H100."""
+    out, tail = synth_f64(Y, M, T, parity, carry)
+    return out.float(), tail.float()
 
 
 def compare_synth(S, M, T, Nh, dev, seed, rtol=SYNTH_RTOL, witness=None):
@@ -542,10 +567,11 @@ def phase_rx_front(dev, widths, T):
     return errs
 
 
-def phase_tx(dev, M, T, n_random=60):
+def phase_tx(dev, M, T, n_random=60, witness=False):
     """Phase 7: MultichannelTransmitter, all M channels FOCC, a page on
     channel 1; two superframes through the synth kernel, held against
-    the plain synthesis and read back through the rx_phases kernel.
+    the plain synthesis (with ``witness``, the float64 one,
+    ``synth_f64_f32``) and read back through the rx_phases kernel.
     Returns the synth kernel's launches in the two next_block calls."""
     from amps_tpu_torch.codec import words as W
     from amps_tpu_torch.kernels import rx_phases as K3
@@ -562,8 +588,10 @@ def phase_tx(dev, M, T, n_random=60):
     page = [W.focc_word1(True, 0, 0x5A5A5A).numpy(),
             W.focc_word2_general(0x2D3, 0, 0, 0).numpy()]
     tx = MultichannelTransmitter(prod, device=dev)
+    against = "float64" if witness else "plain"
     tx_plain = MultichannelTransmitter(
-        prod, device=dev, synthesize=S.synthesize_block_reference)
+        prod, device=dev, synthesize=synth_f64_f32 if witness
+        else S.synthesize_block_reference)
     mirror = FoccStream(sps=sps)
     for st in (tx.focc[1], tx_plain.focc[1], mirror):
         st.push_words(STREAM_BOTH, page, repeats=2)
@@ -578,7 +606,7 @@ def phase_tx(dev, M, T, n_random=60):
         rms = ref.pow(2).mean().sqrt().item()
         peak = ref.abs().max().item()
         e = (x - ref).abs().max().item()
-        log(f"  superframe {i}: {tuple(x.shape)}, max|err| vs plain "
+        log(f"  superframe {i}: {tuple(x.shape)}, max|err| vs {against} "
             f"synthesis {e:.3e} ({e / peak:.2e} of the peak, {e / rms:.2e} "
             f"of RMS)")
         assert torch.isfinite(x).all() and e <= TX_PEAK_RTOL * peak
@@ -1266,8 +1294,9 @@ def phase_small_widths(dev, Nh=4001, widths=SMALL_WIDTHS, Ts=(4, 8),
         log(f"  M={M}, Nh={Nt}, kernel / plain ms: " + ", ".join(
             f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in
             ((k, ms[k][M]) for k in ms)))
-    # odd, no split into a cluster of <= 8 blocks, past 32768: refused
-    for M in (13, 8198, 8194, 32770):
+    # odd, past 16384 with no split into a cluster of <= 8 blocks, past
+    # 32768: refused
+    for M in (13, 16388, 16396, 32770):
         try:
             KA.analyze_block(torch.zeros(((100 + 15) * (M // 2), 2),
                                          device=dev), M, 8)
@@ -1291,7 +1320,7 @@ def loop_pairs(M, frames, seed=None):
         0, 2, (M, frames, 2, 28)).astype(np.uint8)
 
 
-def phase_loop_checks(dev, M, T, nblocks=4, frames=2):
+def phase_loop_checks(dev, M, T, nblocks=4, frames=2, witness=False):
     """Phase 13: the fused closed loop.  Graph = eager bit for bit; the
     kernel path against the plain path; a planted reverse burst across
     the boundary of blocks 1 and 2.  Past M = 4096 the forward band,
@@ -1303,8 +1332,10 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2):
     planes are compared, as its demod is, past block 0's ramp-up: a
     candidate whose trigger window reaches into the first hops after
     the zero history (angles of values under that floor) is left out.
-    Returns ((K4, K2) launches of the graph run, {kernel: max abs error
-    against the plain path's state})."""
+    With ``witness`` the plain path synthesizes in float64
+    (``synth_f64_f32``), as phase 7 then does.  Returns ((K4, K2)
+    launches of the graph run, {kernel: max abs error against the plain
+    path's state})."""
     from amps_tpu_torch.dsp.fm import fm_modulate_symbols
     from amps_tpu_torch.kernels import rx_front as R
     from amps_tpu_torch.kernels import synth as S
@@ -1313,6 +1344,7 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2):
     from amps_tpu_torch.rx.correlator import TRIGGER_SYMBOLS
     from amps_tpu_torch.tx import recc_ms
     coherent_floor = M > 4096
+    ref_synth = synth_f64_f32 if witness else S.synthesize_block_reference
     prod = pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank",
                                io_bf16=True, corr_bf16=True,
                                transform_bf16=True)
@@ -1350,13 +1382,13 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2):
     kern = st.make_closed_loop_stream(f32, nblocks, frames, graph=False)[0](wp)
     S.LAUNCHES = R.LAUNCHES = 0
     plain = st.make_closed_loop_stream(
-        f32, nblocks, frames, graph=False,
-        synthesize=S.synthesize_block_reference,
+        f32, nblocks, frames, graph=False, synthesize=ref_synth,
         front_end=R.analyze_demod_reference)[0](wp)
     sync(dev)
     assert (S.LAUNCHES, R.LAUNCHES) == (0, 0)
     dq = abs(float(kern[1]) - float(plain[1]))
-    log(f"  f32 spec, kernel path vs plain path (eager): n_valid "
+    log(f"  f32 spec, kernel path vs plain path (eager"
+        + (", float64 synthesis" if witness else "") + "): n_valid "
         f"{int(kern[0])} / {int(plain[0])}, quality_max {float(kern[1]):.5f} "
         f"/ {float(plain[1]):.5f} (|diff| {dq:.2e}), n_word_ok "
         f"{int(kern[2])} / {int(plain[2])} (every candidate slot counts: "
@@ -1381,7 +1413,7 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2):
     for b in range(nblocks):
         sk, pk = st.closed_loop_block(Y0, sk, f32)
         sp, pp = st.closed_loop_block(
-            Y0, sp, f32, synthesize=S.synthesize_block_reference,
+            Y0, sp, f32, synthesize=ref_synth,
             front_end=R.analyze_demod_reference)
         # hist is the tail of the synthesized band, carry the whole of the
         # block's demod plane (carry_hops = n_hops): every sample of both
@@ -1486,11 +1518,14 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2):
     return launches, loop_err
 
 
-def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5):
+def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5,
+                     plain=None):
     """Phase 14: the closed loop's times.  Graph against eager and the
     kernel path against the plain path, interleaved in one process, CUDA
-    events around whole runs; a profiler window of one graph run.
-    Returns a dict of the readings."""
+    events around whole runs; a profiler window of one graph run.  Each
+    kernel alone beside its plain version: 10 turns of KERNEL_REPS calls,
+    or with ``plain`` = (turns, calls) the plain versions apart in that
+    many (as ``width_rows``).  Returns a dict of the readings."""
     from amps_tpu_torch.kernels import rx_front as R
     from amps_tpu_torch.kernels import synth as S
     from amps_tpu_torch.parallel import pipeline as pl
@@ -1601,14 +1636,21 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5):
         f"{SERIES_RTOL}, last {last_e:.2e} of RMS <= {LAST_RTOL}")
     assert blk_rel <= SERIES_RTOL and last_e <= LAST_RTOL
     del x, c, rx, rc, xf, d, rd, pw, rpw
-    k = timed({
+    fns = {
         "synth": lambda: S.synthesize_block(Y, M, T, 0, carry),
         "synth_plain": lambda: S.synthesize_block_reference(Y, M, T, 0,
                                                             carry),
         "rx_front": lambda: R.analyze_demod(x_ext, M, T, 0, prev),
         "rx_front_plain": lambda: R.analyze_demod_reference(
             x_ext, M, T, 0, prev),
-    }, 10, KERNEL_REPS)
+    }
+    if plain is None:
+        k = timed(fns, 10, KERNEL_REPS)
+    else:
+        k = timed({n: f for n, f in fns.items() if "plain" not in n}, 10,
+                  KERNEL_REPS)
+        k.update(timed({n: f for n, f in fns.items() if "plain" in n},
+                       *plain))
     out.update(k)
     out["synth_bound"], _ = bound(
         M, T, n_hops, 2 * nbytes(carry) + nbytes(Y) + n_hops * P * 8)
@@ -2912,12 +2954,12 @@ WIDEST_M = 8192
 
 
 def width_libraries():
-    """The widths of phases 12 and 29-33 that build a library of their
+    """The widths of phases 12 and 29-34 that build a library of their
     own."""
     from amps_tpu_torch.kernels import analysis as KA
     return sorted(set(SMALL_WIDTHS + WIDTH_CHECKS + WIDTH_TIMES + WIDE_CHECKS
                       + WIDE_TIMES + WIDEST_CHECKS + WIDEST_TIMES
-                      + WIDER_CHECKS + WIDER_TIMES)
+                      + WIDER_CHECKS + WIDER_TIMES + BLUESTEIN_CHECKS)
                   - set(KA.LIBRARY_WIDTHS))
 
 
@@ -2992,7 +3034,8 @@ def width_times(dev, card, widths, T, base=1024, plain=None):
     return rows
 
 
-def station_paths(dev, card, M, T=8, sps=3, loop_runs=3):
+def station_paths(dev, card, M, T=8, sps=3, loop_runs=3, witness=False,
+                  loop_plain=None):
     """The station's main path at width M through the entry points -- the
     one-shot block (K3, n = Nh·M/2 at Nh=8192, 8 planted bursts), the
     streaming receiver (K2, phase 8's stream in pushes of at least 8192
@@ -3001,7 +3044,9 @@ def station_paths(dev, card, M, T=8, sps=3, loop_runs=3):
     blocks, phase 14's times at 32) and the mobile's analysis (K1,
     ``dsp.channelizer.analyze``) -- each path with its kernel's count set
     to 0 just before it and read just after; the loop's times are the
-    median of ``loop_runs`` runs.  Returns the readings."""
+    median of ``loop_runs`` runs (its plain kernels timed as
+    ``loop_plain`` says, ``phase_loop_times``); ``witness`` goes to
+    phases 7 and 13.  Returns the readings."""
     from amps_tpu_torch.dsp import channelizer as chz
     from amps_tpu_torch.eval.traffic import (synthesize_reverse_band,
                                              unit_channel_band)
@@ -3050,10 +3095,12 @@ def station_paths(dev, card, M, T=8, sps=3, loop_runs=3):
     launches["receiver"], _ = phase_rx(dev, M, T,
                                        push=max(RX_PUSH, 8192 * (M // 2)))
     stamp(f"  M={M}: the transmitter")
-    launches["transmitter"] = phase_tx(dev, M, T)
+    launches["transmitter"] = phase_tx(dev, M, T, witness=witness)
     stamp(f"  M={M}: the closed loop")
-    launches["loop_checks"], out["loop_err"] = phase_loop_checks(dev, M, T)
-    out["loop"] = phase_loop_times(dev, M, T, card, n_runs=loop_runs)
+    launches["loop_checks"], out["loop_err"] = phase_loop_checks(
+        dev, M, T, witness=witness)
+    out["loop"] = phase_loop_times(dev, M, T, card, n_runs=loop_runs,
+                                   plain=loop_plain)
     launches["loop"] = out["loop"]["launches"]
     torch.cuda.empty_cache()
     stamp(f"  M={M}: the mobile's analysis")
@@ -3128,29 +3175,14 @@ def phase_widths(dev, card, T=8, sps=3):
     return out
 
 
-def phase_wide(dev, card, T=8, sps=3):
-    """Phase 30: banks past 2048 channels.  Every wrapper refuses M = 8194,
-    32770, an odd width and 8198 on the card; each kernel is held to its
-    plain version at WIDE_CHECKS (phase 12's checks, T=8) and timed at
-    WIDE_TIMES beside M=1024; the station's main path runs at WIDE_M
-    (``station_paths``), then the station app's short call (``bs
-    --channels WIDE_M``, K4 on its TX thread, K2 on its RX thread).
-    Returns the readings."""
+def assert_refused(dev, widths, T=8, sps=3):
+    """Every wrapper raises ValueError on the card at each of ``widths``,
+    before it launches anything."""
     from amps_tpu_torch.kernels import analysis as KA
     from amps_tpu_torch.kernels import rx_front as R
     from amps_tpu_torch.kernels import rx_phases as K
     from amps_tpu_torch.kernels import synth as S
-    log(f"phase 30: banks past 2048 channels (the twiddles read from device "
-        f"memory, K4's columns in groups), on {card}")
-    for M in sorted(set(WIDE_CHECKS + WIDE_TIMES)):
-        H = KA.FFT_WIDE_HOPS[M]
-        log(f"  M={M}: radices {KA.fft_radices(M)}, hops a block "
-            f"{KA.FFT_TILE_HOPS[M]} (K1) / {H}, {KA.fft_smem_bytes(M, H)} "
-            f"bytes of shared memory a K2-K4 block, K3 owns "
-            f"{K.run_hops(M, sps)} hops a block at sps={sps}, K4 in "
-            f"{S.column_groups(M, T)} column groups of at most "
-            f"{S.thread_columns(M, T)} columns a thread")
-    for M in (8194, 32770, 4095, 8198):
+    for M in widths:
         x = torch.zeros(((100 + 2 * T - 1) * max(M // 2, 1), 2), device=dev)
         Y = torch.zeros((4, M, 2), device=dev)
         calls = (lambda: KA.analyze_block(x, M, T),
@@ -3166,7 +3198,31 @@ def phase_wide(dev, card, T=8, sps=3):
                 continue
             raise AssertionError(f"M={M} was not refused")
         del x, Y
-    log("  M = 8194, 32770, 4095 and 8198 raise ValueError in all four "
+
+
+def phase_wide(dev, card, T=8, sps=3):
+    """Phase 30: banks past 2048 channels.  Every wrapper refuses M =
+    16388, 32770, an odd width and 16396 on the card; each kernel is held
+    to its plain version at WIDE_CHECKS (phase 12's checks, T=8) and
+    timed at WIDE_TIMES beside M=1024; the station's main path runs at WIDE_M
+    (``station_paths``), then the station app's short call (``bs
+    --channels WIDE_M``, K4 on its TX thread, K2 on its RX thread).
+    Returns the readings."""
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import rx_phases as K
+    from amps_tpu_torch.kernels import synth as S
+    log(f"phase 30: banks past 2048 channels (the twiddles read from device "
+        f"memory, K4's columns in groups), on {card}")
+    for M in sorted(set(WIDE_CHECKS + WIDE_TIMES)):
+        H = KA.FFT_WIDE_HOPS[M]
+        log(f"  M={M}: radices {KA.fft_radices(M)}, hops a block "
+            f"{KA.FFT_TILE_HOPS[M]} (K1) / {H}, {KA.fft_smem_bytes(M, H)} "
+            f"bytes of shared memory a K2-K4 block, K3 owns "
+            f"{K.run_hops(M, sps)} hops a block at sps={sps}, K4 in "
+            f"{S.column_groups(M, T)} column groups of at most "
+            f"{S.thread_columns(M, T)} columns a thread")
+    assert_refused(dev, (16388, 32770, 4095, 16396), T, sps)
+    log("  M = 16388, 32770, 4095 and 16396 raise ValueError in all four "
         "wrappers")
     out = {}
     out["errs"], _ = phase_small_widths(
@@ -3364,7 +3420,7 @@ def block_by_taps(dev, card, M, Ts, Nh=8192):
 # are dense: 8.6 GB of matrices at 32768); WIDER_TIMES times them beside
 # 8192; WIDER_M is a 491.52 Msps station (a USRP X410's top master clock
 # rate), whose main path runs end to end
-WIDER_REFUSED = (8195, 8194, 32770)
+WIDER_REFUSED = (8195, 16388, 32770)
 WIDER_CHECKS = (8196, 12288, 16384, 20480, 12294, 28672, 32768, 16424)
 WIDER_NH = 501
 WIDER_TIMES = (8192, 12288, 16384)
@@ -3406,31 +3462,15 @@ def phase_wider(dev, card, T=8, sps=3):
     station app's short call there, with the peak device memory of the
     paths.  Returns the readings."""
     from amps_tpu_torch.kernels import analysis as KA
-    from amps_tpu_torch.kernels import rx_front as R
     from amps_tpu_torch.kernels import rx_phases as K
     from amps_tpu_torch.kernels import synth as S
     t0 = time.perf_counter()
     log(f"phase 33: banks past 8192 channels (a cluster of up to 8 blocks a "
         f"hop, a radix-C pass across it), on {card}")
-    for M in WIDER_REFUSED:
-        x = torch.zeros(((100 + 2 * T - 1) * (M // 2), 2), device=dev)
-        Y = torch.zeros((4, M, 2), device=dev)
-        calls = (lambda: KA.analyze_block(x, M, T),
-                 lambda: R.analyze_demod(x, M, T, 0, torch.zeros(
-                     (M, 2), device=dev)),
-                 lambda: K.analyze_phases(x, M, T, sps),
-                 lambda: S.synthesize_block(Y, M, T, 0, torch.zeros(
-                     (M * T - M // 2, 2), device=dev)))
-        for call in calls:
-            try:
-                call()
-            except ValueError:
-                continue
-            raise AssertionError(f"M={M} was not refused")
-        del x, Y
-    log(f"  M = {', '.join(map(str, WIDER_REFUSED))} (odd, no cluster of "
-        f"at most 8 blocks of at most 4096 channels, past 32768) raise "
-        f"ValueError in all four wrappers")
+    assert_refused(dev, WIDER_REFUSED, T, sps)
+    log(f"  M = {', '.join(map(str, WIDER_REFUSED))} (odd, past 16384 with "
+        f"no cluster of at most 8 blocks of at most 4096 channels, past "
+        f"32768) raise ValueError in all four wrappers")
     out = {"clusters": {}, "errs": {
         k: {} for k in ("analysis", "rx_front", "rx_phases", "synth")},
         "f64": {k: {} for k in TAPS_TOL}}
@@ -3478,7 +3518,8 @@ def phase_wider(dev, card, T=8, sps=3):
         f"(plain versions: median of {WIDER_PLAIN_TURNS[0]} turns of "
         f"{WIDER_PLAIN_TURNS[1]} call)")
     torch.cuda.reset_peak_memory_stats(dev)
-    out.update(station_paths(dev, card, WIDER_M, T, sps, loop_runs=1))
+    out.update(station_paths(dev, card, WIDER_M, T, sps, loop_runs=1,
+                             loop_plain=WIDER_PLAIN_TURNS))
     free_dense_tables()
     out["app"] = station_app_call(dev, card, WIDER_M)
     out["launches"]["app"] = out["app"]["launches"]
@@ -3489,7 +3530,139 @@ def phase_wider(dev, card, T=8, sps=3):
     return out
 
 
-DIGEST_WIDTHS = (8, 1024, 2038, 4098, 8192)
+# phase 34: the even widths in (8192, 16384] that no cluster of at most 8
+# blocks splits (937 of the 4096), each computed as Bluestein's chirp
+# convolution of length 32768 on a cluster of 8 blocks of 4096 points.
+# BLUESTEIN_REFUSED stay refused (past 16384 unsplit, past 32768, odd).
+# BLUESTEIN_CHECKS holds each kernel to its plain version and to float64
+# (8194 = 2·17·241 and 8198 = 2·4099, the first two, whose blocks hold
+# 1025 or 1024 channels; 13334 = 2·59·113; 16378 = 2·19·431, whose last
+# position holds a channel in two ranks of eight; 16382 = 2·8191, the
+# widest, in six), and BLUESTEIN_LONG does so at T = 32 (the chunked fold
+# and K4's chunk launches); BLUESTEIN_TIMES times them beside phase 33's
+# 8192 and 16384 (``BLUESTEIN_BESIDE``); BLUESTEIN_M is a 491.46 Msps
+# station, whose main path runs end to end; BLUESTEIN_PROBE is the
+# cluster a chirp transform of 65536 points would need (the unsplit
+# widths past 16384), whose count the card holds is read, not launched
+BLUESTEIN_REFUSED = (16388, 16396, 32770, 8193)
+BLUESTEIN_CHECKS = (8194, 8198, 13334, 16378, 16382)
+BLUESTEIN_LONG = ((8194,), 32)
+BLUESTEIN_TIMES = (8194, 16382)
+BLUESTEIN_BESIDE = {8194: 8192, 16382: 16384}
+BLUESTEIN_M = 16382
+BLUESTEIN_PROBE = 16
+
+
+def bluestein_bounds(M):
+    """The kernel-vs-plain bounds of phase 34 at width M: TAPS_TOL plus
+    ``wider_bounds(M)``.  Each kernel is held to float64 within TAPS_TOL
+    itself; the plain versions' dense f32 sums at these widths (no
+    multiple of 128) stray from float64 by up to about ``wider_bounds``
+    (K1 3.7e-6, K4 1.7e-5 of RMS at 8194 on the H100), so by the triangle
+    inequality the two differ by at most the sum."""
+    return {k: TAPS_TOL[k] + v for k, v in wider_bounds(M).items()}
+
+
+def phase_bluestein(dev, card, wider_rows, T=8, sps=3):
+    """Phase 34: the unsplit widths past 8192 (Bluestein's chirp
+    transform).  Every wrapper refuses BLUESTEIN_REFUSED; prints each
+    checked width's mode, length, cluster, block plan, channels a block,
+    hops, shared memory, K4's groups and the clusters the card holds at
+    once (each kernel), and the clusters of BLUESTEIN_PROBE it would hold
+    (``probe_clusters``); holds each kernel to its plain version at
+    BLUESTEIN_CHECKS (phase 12's checks, T=8: both parities, riq and
+    planar, chained = one bit for bit) within ``bluestein_bounds``, and K1,
+    K2 and K4 to float64 within TAPS_TOL, then the same at
+    BLUESTEIN_LONG; times each kernel at BLUESTEIN_TIMES beside phase
+    33's ``wider_rows`` at BLUESTEIN_BESIDE; runs the station's main path
+    at BLUESTEIN_M (``station_paths``) and the station app's short call
+    there, with the peak device memory of the paths.  Returns the
+    readings."""
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import rx_phases as K
+    from amps_tpu_torch.kernels import synth as S
+    t0 = time.perf_counter()
+    log(f"phase 34: the unsplit widths past 8192 (Bluestein's chirp "
+        f"transform of length 32768 on a cluster of 8 blocks), on {card}")
+    assert_refused(dev, BLUESTEIN_REFUSED, T, sps)
+    log(f"  M = {', '.join(map(str, BLUESTEIN_REFUSED))} (past 16384 with "
+        f"no split, past 32768, odd) raise ValueError in all four wrappers")
+    out = {"clusters": {}, "errs": {
+        k: {} for k in ("analysis", "rx_front", "rx_phases", "synth")},
+        "f64": {k: {} for k in TAPS_TOL},
+        "f64_long": {k: {} for k in TAPS_TOL}}
+    for M in BLUESTEIN_CHECKS:
+        L, C, N, H = (KA.bluestein_length(M), KA.cluster_blocks(M),
+                      KA.fft_plan_width(M), KA.FFT_WIDE_HOPS[M])
+        n = out["clusters"][M] = {
+            p: KA.max_clusters(p, M)
+            for p in ("analysis", "rx_front", "rx_phases", "synth")}
+        assert L == 32768 and C == 8 and min(n.values()) > 0, (M, L, C, n)
+        log(f"  M={M}: Bluestein, L={L} on clusters of {C} blocks, each "
+            f"block's plan {KA.fft_radices(N)} at N={N} (twice a hop), "
+            f"{KA.fft_block_channels(M)} channels a block, hops a block "
+            f"{KA.FFT_TILE_HOPS[M]} (K1) / {H}, {KA.fft_smem_bytes(M, H)} "
+            f"bytes of shared memory a K1-K3 block, K3 owns "
+            f"{K.run_hops(M, sps)} hops a cluster at sps={sps}, K4 in "
+            f"{S.column_groups(M, T)} column groups of {C} blocks, "
+            f"{S.SYNTH_HOPS[M]} hops a pass, at most "
+            f"{S.thread_columns(M, T)} columns a thread; clusters the card "
+            f"holds at once {n}")
+    probe = out["probe"] = {b: KA.probe_clusters(BLUESTEIN_M, b)
+                            for b in (8, BLUESTEIN_PROBE)}
+    assert probe[8] > 0, probe
+    log(f"  clusters of the analysis kernel at M={BLUESTEIN_M} the card "
+        f"holds at once with non-portable sizes allowed (a probe, nothing "
+        f"launched): {probe}")
+    for widths, Tc, key in ([((M,), T, "f64") for M in BLUESTEIN_CHECKS]
+                            + [BLUESTEIN_LONG + ("f64_long",)]):
+        M = widths[0]
+        b = bluestein_bounds(M)
+        errs, _ = phase_small_widths(
+            dev, Nh=WIDER_NH, widths=widths, Ts=(Tc,),
+            label=f"phase 34: each kernel vs plain (bounds K1 "
+                  f"{b['analysis']:.2e}, K2 {b['rx_front']:.2e} rad, K4 "
+                  f"{b['synth']:.2e} of RMS)",
+            times=False, seam=True, bounds=b, witness=out[key])
+        if Tc == T:
+            for k, v in errs.items():
+                out["errs"][k].update(v)
+        f = {k: out[key][k][M] for k in TAPS_TOL}
+        log(f"  M={M}, T={Tc} against float64 (both parities, riq and "
+            f"planar), kernel | plain: K1 "
+            f"{f['analysis'][0]:.3e} | {f['analysis'][1]:.3e}, K2 "
+            f"{f['rx_front'][0]:.3e} | {f['rx_front'][1]:.3e} rad, K4 "
+            f"{f['synth'][0]:.2e} | {f['synth'][1]:.2e} of RMS (kernels' "
+            f"bounds K1 {TAPS_TOL['analysis']:.0e}, K2 "
+            f"{TAPS_TOL['rx_front']:.0e}, K4 {TAPS_TOL['synth']:.0e})")
+        assert all(f[k][0] <= TAPS_TOL[k] for k in TAPS_TOL), (M, Tc, f)
+        free_dense_tables()
+    log(f"  checks done at {time.perf_counter() - t0:.1f} s into the phase")
+    out["rows"] = width_times(dev, card, BLUESTEIN_TIMES, T,
+                              base=BLUESTEIN_TIMES[0],
+                              plain=WIDER_PLAIN_TURNS)
+    free_dense_tables()
+    for M, base in BLUESTEIN_BESIDE.items():
+        r, w = out["rows"][M], wider_rows[base]
+        log(f"  M={M} against M={base} (phase 33), kernel ms: " + "; ".join(
+            f"{k} {r[k]['kernel']:.3f} vs {w[k]['kernel']:.3f} "
+            f"({r[k]['kernel'] / w[k]['kernel']:.2f}x, bound "
+            f"{r[k]['bound']:.3f})" for k in r if k != "fft"))
+    log(f"  times done at {time.perf_counter() - t0:.1f} s into the phase")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out.update(station_paths(dev, card, BLUESTEIN_M, T, sps, loop_runs=1,
+                             witness=True, loop_plain=WIDER_PLAIN_TURNS))
+    free_dense_tables()
+    out["app"] = station_app_call(dev, card, BLUESTEIN_M)
+    out["launches"]["app"] = out["app"]["launches"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  peak device memory of the M={BLUESTEIN_M} paths: "
+        f"{out['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated); phase "
+        f"34 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+DIGEST_WIDTHS = (8, 1024, 2038, 4098, 8192, 16384, 32768)
 
 
 def digest(tree, widths=DIGEST_WIDTHS, Ts=(8, 32)):
@@ -3775,6 +3948,11 @@ def main() -> int:
     stamp("phase 33: banks past 8192 channels, the main path at M=16384")
     wider = phase_wider(dev, card)
 
+    # -- phase 34: the unsplit widths past 8192, the main path at 16382 ---
+    stamp("phase 34: the unsplit widths past 8192 (Bluestein), the main "
+          "path at M=16382")
+    blue = phase_bluestein(dev, card, wider["rows"])
+
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
@@ -3837,6 +4015,21 @@ def main() -> int:
                 "wider_max_clusters": {
                     str(m): n[name] for m, n in wider["clusters"].items()},
                 "wider_peak_memory_gb": wider["peak_gb"],
+                "bluestein_max_abs_err": {
+                    str(m): e for m, e in blue["errs"][name].items()},
+                "bluestein_vs_float64": {
+                    f"{m}/T{t}": {"kernel": e[0], "plain": e[1]}
+                    for key, t in (("f64", 8), ("f64_long",
+                                                BLUESTEIN_LONG[1]))
+                    for m, e in blue[key].get(name, {}).items()},
+                **{f"bluestein_{key}_ms": {
+                    str(m): r[name][key] for m, r in blue["rows"].items()}
+                   for key in ("kernel", "plain", "bound")},
+                "bluestein_fft_ms": {
+                    str(m): r["fft"] for m, r in blue["rows"].items()},
+                "bluestein_max_clusters": {
+                    str(m): n[name] for m, n in blue["clusters"].items()},
+                "bluestein_peak_memory_gb": blue["peak_gb"],
                 **more}
 
     # the one-shot block (K3) at T=8 and T=32 on one band
@@ -3867,6 +4060,8 @@ def main() -> int:
                                     widest["launches"]["analysis"],
                                 "m16384_analyze":
                                     wider["launches"]["analysis"],
+                                "m16382_analyze":
+                                    blue["launches"]["analysis"],
                                 "t32_analyze": taps["launches"]["analysis"],
                                 "t32_sharded_step":
                                     taps["launches"]["sharded_step"][0],
@@ -3876,7 +4071,9 @@ def main() -> int:
               sharded_max_abs_err=mesh["analysis_err"],
               sharded_ms=mesh["analysis"],
               sharded_plain_ms=mesh["analysis_plain"],
-              sharded_bound_ms=mesh["analysis_bound"]),
+              sharded_bound_ms=mesh["analysis_bound"],
+              bluestein_probe_clusters={
+                  str(b): n for b, n in blue["probe"].items()}),
         # launches_by_path: each path driven with the count set to 0 just
         # before it; the loop's are those of one graph run of 32 blocks,
         # loop_graph_spans the kernel's spans the profiler saw in such a run
@@ -3889,6 +4086,7 @@ def main() -> int:
                                 "m4096_block": wide["launches"]["block"],
                                 "m8192_block": widest["launches"]["block"],
                                 "m16384_block": wider["launches"]["block"],
+                                "m16382_block": blue["launches"]["block"],
                                 "t32_block": taps["launches"]["block"]},
               entry_ms=entry_t["kernel"], entry_plain_ms=entry_t["plain"],
               **k3_more,
@@ -3921,6 +4119,12 @@ def main() -> int:
                                     wider["launches"]["loop"][1],
                                 "m16384_station_app":
                                     wider["launches"]["app"][1],
+                                "m16382_receiver":
+                                    blue["launches"]["receiver"],
+                                "m16382_closed_loop":
+                                    blue["launches"]["loop"][1],
+                                "m16382_station_app":
+                                    blue["launches"]["app"][1],
                                 "t32_receiver": taps["launches"]["receiver"],
                                 "t32_loop": taps["launches"]["loop"][1],
                                 "supervision": sup_launches,
@@ -3963,6 +4167,12 @@ def main() -> int:
                                     wider["launches"]["loop"][0],
                                 "m16384_station_app":
                                     wider["launches"]["app"][0],
+                                "m16382_transmitter":
+                                    blue["launches"]["transmitter"],
+                                "m16382_closed_loop":
+                                    blue["launches"]["loop"][0],
+                                "m16382_station_app":
+                                    blue["launches"]["app"][0],
                                 "t32_transmitter":
                                     taps["launches"]["transmitter"],
                                 "t32_loop": taps["launches"]["loop"][0],

@@ -87,11 +87,14 @@ def test_cluster_size_is_the_rule_at_every_even_width():
 
 def test_check_fft_width_takes_exactly_the_rule():
     """check_fft_width takes every even M from 2 to 8192 and, past it,
-    exactly the M = C·N the rule splits, up to 32768; every other width
-    raises, naming the rule; FFT_WIDTHS lists the taken widths."""
+    exactly the M = C·N the rule splits, up to 32768, and the even
+    widths up to 16384 it does not split (Bluestein's,
+    tests/test_torch_bluestein.py); every other width raises, naming the
+    rule; FFT_WIDTHS lists the taken widths."""
     taken = []
     for M in range(-2, 32800):
-        ok = M > 0 and M % 2 == 0 and M <= 32768 and _rule(M) > 0
+        ok = M > 0 and M % 2 == 0 and M <= 32768 and (_rule(M) > 0
+                                                      or M <= 16384)
         if ok:
             KA.check_fft_width(M)
             taken.append(M)
@@ -108,11 +111,13 @@ def test_block_shared_memory_and_hops_past_8192():
     afresh (H hops, one value of padding every 32, plus one; the twiddle
     table in device memory), fits the 232,448 bytes a Hopper block may
     opt in to, and two more hops would not (or H is the cap of 16);
-    every N = 4096 (16384, 32768, ...) holds six hops, as M = 4096 does."""
+    every N = 4096 (16384, 32768, ...) holds six hops, as M = 4096 does,
+    and so does the 4096-point block of an unsplit width (Bluestein's
+    32768 points on 8 blocks)."""
     for M in KA.FFT_WIDTHS:
         if M <= 4096:
             continue
-        N = M // _rule(M)
+        N = M // _rule(M) if _rule(M) else 4096
         H = KA.FFT_WIDE_HOPS[M]
         row = 8 * (N + N // 32 + 1)
         assert H == KA.FFT_TILE_HOPS[M] and H % 2 == 0, M

@@ -221,9 +221,9 @@ def test_analysis_kernel_rejects_what_it_cannot_run(cuda_device):
     with pytest.raises(ValueError):            # odd M
         KA.analyze_block(torch.zeros(((Nh + 15) * 48, 2), device=cuda_device),
                          97, T)
-    with pytest.raises(ValueError):            # no cluster of <= 8 splits it
-        KA.analyze_block(torch.zeros(((Nh + 15) * 4097, 2),
-                                     device=cuda_device), 8194, T)
+    with pytest.raises(ValueError):            # unsplit past 16384
+        KA.analyze_block(torch.zeros(((Nh + 15) * 8194, 2),
+                                     device=cuda_device), 16388, T)
     with pytest.raises(ValueError):            # rows that are no (n, 2) block
         KA.analyze_block(torch.zeros((2, n, 3), device=cuda_device), M, T)
     with pytest.raises(ValueError):
@@ -270,10 +270,10 @@ def test_synth_kernel_chained_calls_equal_one(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_cannot_run(cuda_device):
-    Y = torch.zeros((10, 8194, 2), device=cuda_device)
-    with pytest.raises(ValueError):            # no cluster of <= 8 splits it
-        K4.synthesize_block(Y, 8194, 8, 0, torch.zeros(
-            (8194 * 8 - 4097, 2), device=cuda_device))
+    Y = torch.zeros((10, 16396, 2), device=cuda_device)
+    with pytest.raises(ValueError):            # unsplit past 16384
+        K4.synthesize_block(Y, 16396, 8, 0, torch.zeros(
+            (16396 * 8 - 8198, 2), device=cuda_device))
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):            # odd M
         K2.analyze_demod(x, 95, 8, 0, torch.zeros((95, 2), device=cuda_device))
@@ -571,18 +571,24 @@ def test_small_width_synth_kernel(cuda_device, M, T, parity):
 
 
 @pytest.mark.cuda
-def test_widths_the_tile_cannot_take_raise(cuda_device):
-    """Odd M, M past 32768 and the widths past 8192 that no cluster of
+def test_widths_the_tile_cannot_take_raise(cuda_device, mixed_libraries):
+    """Odd M, M past 32768 and the widths past 16384 that no cluster of
     at most 8 blocks of at most 4096 channels splits raise on the card,
-    naming the rule; no width reaches the plain version."""
-    for M in (13, 8198, 4097, 8194, 32770):
+    naming both rules; no width reaches the plain version.  The unsplit
+    widths up to 16384 (8194, 8198) run the kernels."""
+    for M in (13, 16396, 4097, 16388, 32770):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
         with pytest.raises(ValueError):
             KA.analyze_block(x, M, 8)
         with pytest.raises(ValueError):
             K.analyze_phases(x, M, 8)
-    rule = "even M from 2 to 8192, or M = C"
-    for M in (8198, 8194, 32770):
+    for M in (8194, 8198):
+        x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
+        before = KA.LAUNCHES
+        assert torch.isfinite(KA.analyze_block(x, M, 8)).all()
+        assert KA.LAUNCHES == before + 1
+    rule = "even M from 2 to 16384 .past 8192 split, or Bluestein"
+    for M in (16396, 16388, 32770):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
         with pytest.raises(ValueError, match=rule):
             KA.analyze_block(x, M, 8)
@@ -615,17 +621,23 @@ WIDEST = [(M, parity, planar) for M in (4098, 6144, 8190, 8192)
 # 16384 = 4·4096 (491.52 Msps)
 WIDER = [(M, parity, planar) for M in (12294, 16384)
          for parity, planar in ((0, False), (1, True))]
+# the unsplit widths past 8192, each a chirp convolution of length 32768
+# (Bluestein) on a cluster of 8 blocks: 8194 = 2·17·241 (the first),
+# 8198 = 2·4099 and 16382 = 2·8191 (the widest, 491.46 Msps)
+BLUESTEIN = [(M, parity, planar) for M in (8194, 8198, 16382)
+             for parity, planar in ((0, False), (1, True))]
 
 
 @pytest.fixture(scope="module")
 def mixed_libraries():
-    """Every MIXED, WIDE, WIDEST and WIDER width's own library, built at
-    once (one nvcc a source and width, all in parallel) before the first test
-    needs one."""
+    """Every MIXED, WIDE, WIDEST, WIDER and BLUESTEIN width's own
+    library, built at once (one nvcc a source and width, all in parallel)
+    before the first test needs one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the GPU machine)")
     from amps_tpu_torch.kernels import build
-    build.build(widths=[M for M, _, _ in MIXED + WIDE + WIDEST + WIDER
+    build.build(widths=[M for M, _, _ in
+                        MIXED + WIDE + WIDEST + WIDER + BLUESTEIN
                         if M not in KA.LIBRARY_WIDTHS])
 
 
@@ -661,7 +673,8 @@ def _held_to_phase_atol(err, ref, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST + WIDER)
+@pytest.mark.parametrize("M,parity,planar",
+                         MIXED + WIDE + WIDEST + WIDER + BLUESTEIN)
 def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K1 at a width that is not a power of two: atol 2e-4 on
@@ -680,7 +693,8 @@ def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST + WIDER)
+@pytest.mark.parametrize("M,parity,planar",
+                         MIXED + WIDE + WIDEST + WIDER + BLUESTEIN)
 def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K2 on FSK in every channel: demod within 1e-3 (fast_atan2's seam
@@ -705,7 +719,8 @@ def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,parity,planar", MIXED + WIDE + WIDEST + WIDER)
+@pytest.mark.parametrize("M,parity,planar",
+                         MIXED + WIDE + WIDEST + WIDER + BLUESTEIN)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
                                       parity, planar, bf16):
@@ -739,7 +754,7 @@ def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,parity",
                          [(M, p) for M, p, _ in
-                          MIXED + WIDE + WIDEST + WIDER])
+                          MIXED + WIDE + WIDEST + WIDER + BLUESTEIN])
 def test_mixed_width_synth_kernel(cuda_device, mixed_libraries, M, parity):
     """K4 with a carry in: 1e-4 of the output RMS."""
     T, Nh = 8, 333
@@ -766,13 +781,14 @@ def test_chained_calls_equal_one_at_768(cuda_device, mixed_libraries):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [4098, 6144, 8190, 8192, 16384])
+@pytest.mark.parametrize("M", [4098, 6144, 8190, 8192, 16384, 8194, 16382])
 def test_chained_calls_equal_one_at_cluster_widths(cuda_device,
                                                    mixed_libraries, M):
     """Past 4096, where a cluster of blocks shares each hop (two up to
-    8192, four at 16384, with the radix-4 pass across them): two
-    chained calls equal one call, K1 and K2 bit for bit, K4 within 1e-4
-    of the output RMS, as at 768."""
+    8192, four at 16384, with the radix-4 pass across them, eight at
+    8194 and 16382 in the Bluestein mode): two chained calls equal one
+    call, K1 and K2 bit for bit, K4 within 1e-4 of the output RMS, as at
+    768."""
     _chained_calls_equal_one(cuda_device, M)
 
 

@@ -109,27 +109,34 @@ def test_fft_plan_and_twiddles_every_width():
             assert 8 * (wide + 2) * KA.fft_hop_stride(M) > SMEM_BYTES, M
 
 
-@pytest.mark.parametrize("M", [7, 8198, 32770, 4097, 8194, 16388, 1023])
+@pytest.mark.parametrize("M", [7, 16396, 32770, 4097, 16402, 16388, 1023])
 def test_widths_the_tile_refuses(M):
-    """Only odd M, M past 32768 and the widths past 8192 that no cluster
-    of at most 8 blocks of at most 4096 channels splits (8194 = 2·17·241,
-    8198 = 2·4099, 16388 = 4·17·241) are refused, naming the rule."""
+    """Only odd M, M past 32768 and the widths past 16384 that no
+    cluster of at most 8 blocks of at most 4096 channels splits (16388 =
+    4·17·241, 16396 = 4·4099, 16402 = 2·59·139) are refused, naming both
+    rules; the unsplit widths up to 16384 (8194 = 2·17·241, 8198 =
+    2·4099) are taken, by Bluestein's chirp transform."""
     with pytest.raises(ValueError,
-                       match="even M from 2 to 8192, or M = C·N with C <= 8"):
+                       match="even M from 2 to 16384 .past 8192 split, or "
+                             "Bluestein's chirp transform of length 32768.,"
+                             " or M = C·N with C <= 8"):
         KA.check_fft_width(M)
+    for taken in (8194, 8198):
+        KA.check_fft_width(taken)
 
 
 def test_every_even_width_is_taken():
     for M in (2, 4, 6, 8, 10, 12, 22, 96, 384, 768, 1458, 1536, 2038, 2046,
               2048, 2050, 2304, 3072, 4000, 4094, 4096, 4098, 4100, 6144,
-              8190, 8192, 8196, 12288, 12294, 16384, 16424, 20480, 28672,
-              32768):
+              8190, 8192, 8194, 8196, 8198, 12288, 12294, 13334, 16382,
+              16384, 16424, 20480, 28672, 32768):
         KA.check_fft_width(M)
-    # every even M up to 8192, then the M = C·N (C <= 8, N <= 4096)
+    # every even M up to 16384 (past 8192 split or by Bluestein), then
+    # the M = C·N (C <= 8, N <= 4096)
     assert KA.FFT_WIDTHS == tuple(
         M for M in range(2, 32769, 2)
-        if M <= 8192 or any(M % C == 0 and M // C <= 4096
-                            for C in range(2, 9)))
+        if M <= 16384 or any(M % C == 0 and M // C <= 4096
+                             for C in range(2, 9)))
     assert 4096 in KA.LIBRARY_WIDTHS and 8192 not in KA.LIBRARY_WIDTHS
 
 
@@ -140,11 +147,13 @@ def _smem(M, H):
     """A block's shared memory, counted afresh: H hops of the padded plane
     of its channels (M, or M/C past 4096, where a cluster of C blocks
     shares each hop, C the smallest divisor of M from 2 to 8 with M/C <=
-    4096; 8 bytes a value, one value of padding every 32, plus one), and
-    the twiddle table beside it up to M = 2048."""
+    4096, or where there is none 32768/8 = 4096 points of Bluestein's
+    transform; 8 bytes a value, one value of padding every 32, plus one),
+    and the twiddle table beside it up to M = 2048."""
     table = len(KA.fft_twiddle_exponents(M)) if M <= 2048 else 0
-    C = M if M <= 4096 else M // min(
-        c for c in range(2, 9) if M % c == 0 and M // c <= 4096)
+    split = min((c for c in range(2, 9) if M % c == 0 and M // c <= 4096),
+                default=0)
+    C = M if M <= 4096 else M // split if split else 4096
     return 8 * (H * (C + C // 32 + 1) + table)
 
 
@@ -177,11 +186,12 @@ def test_k4_thread_columns_at_most_two_every_width():
     """K4 at every even M and both rings (T <= 8: 2·8 sums, T <= 16: 2·16):
     a thread holds at most 2 columns and at most 3·2·8·2 = 96 registers of
     ring (sums and gains), the column groups -- each one block, or past
-    4096 a cluster of two that split its columns -- cover the P = M/2
-    columns, one group up to M = 1024 at T = 8 (512 at T = 16)."""
+    4096 a cluster of blocks (8 where Bluestein's transform runs) that
+    split its columns -- cover the P = M/2 columns, one group up to M =
+    1024 at T = 8 (512 at T = 16)."""
     for M in KA.FFT_WIDTHS:
         P = M // 2
-        ranks = KA.fft_cluster_size(M)
+        ranks = KA.fft_cluster_size(M) or 8
         for T in (8, 16):
             cols, G = K4.thread_columns(M, T), K4.column_groups(M, T)
             assert 1 <= cols <= 2, (M, T)

@@ -1,7 +1,8 @@
 """Two source trees of the port, kernel against kernel, on one CUDA card.
 
 Builds each tree's main kernel library (the powers of two) and its
-library of the cluster width 8192, compares the SASS of every kernel
+libraries of the cluster widths 8192 (two blocks) and 16384 (four, the
+radix-C pass), compares the SASS of every kernel
 instantiation in the two (``cuobjdump -sass``, instruction text without
 addresses and encodings, the first 4096 instructions of each function),
 each function paired with the other tree's by
@@ -82,17 +83,18 @@ print("PROF " + json.dumps(out))
 
 
 def libraries(tree):
-    """The tree's main library and its 8192 library, built by the tree's
-    own kernels.build."""
+    """The tree's main library and its 8192 and 16384 libraries, built by
+    the tree's own kernels.build."""
     r = subprocess.run([sys.executable, "-c",
                         "import sys; sys.path.insert(0, sys.argv[1]);"
                         "from amps_tpu_torch.kernels import build;"
-                        "print(build.build(widths=[8192])[0]);"
-                        "print(build.library_path(8192))", tree],
+                        "print(build.build(widths=[8192, 16384])[0]);"
+                        "print(build.library_path(8192));"
+                        "print(build.library_path(16384))", tree],
                        capture_output=True, text=True, timeout=900)
     if r.returncode:
         raise RuntimeError(r.stderr[-3000:])
-    return r.stdout.strip().splitlines()[-2:]
+    return r.stdout.strip().splitlines()[-3:]
 
 
 def demangle(names):
