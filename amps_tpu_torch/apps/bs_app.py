@@ -70,10 +70,10 @@ def _station_config(args):
 def build_parser():
     p = argparse.ArgumentParser(description="amps_tpu_torch BS-in-a-box")
     p.add_argument("--channels", type=int, default=8,
-                   help="channelizer bank size M (even; on the card 2 .. "
-                        "16384 -- past 8192 split across a cluster, or "
-                        "Bluestein's chirp transform --, and M = C*N with "
-                        "C <= 8, N <= 4096 up to 32768; M x 30 kHz is the "
+                   help="channelizer bank size M (any even M >= 2 on "
+                        "the card: up to 16384 and M = C*N with C <= 8, "
+                        "N <= 4096 up to 32768 in shared memory, every "
+                        "other M through device memory; M x 30 kHz is the "
                         "radio's sample rate)")
     p.add_argument("--control-slot", type=int, default=1,
                    help="bank slot carrying the FOCC")

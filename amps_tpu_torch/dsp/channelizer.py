@@ -21,7 +21,10 @@ on the receive path the analysis runs fused with the discriminator in
 ``kernels.rx_phases`` and ``kernels.rx_front``, and the transmitter's
 synthesis runs in ``kernels.synth``, whose plain version is
 ``_synthesize_block`` here.  ``synthesize`` stays plain: it builds test
-traffic independently of the kernels.
+traffic independently of the kernels.  Past ``DENSE_MAX_WIDTH`` (32768)
+the plain synthesis transform is a float64 inverse FFT
+(``dsp.polyphase.fft_rows``) instead of the dense or two-stage matrices,
+whose tables would take 8·M² bytes.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.device import as_tensor, resolve_device
-from amps_tpu_torch.dsp.polyphase import (_dft_mats_on, _dft_split_mats,
-                                          _hop_sign, prototype_taps)
+from amps_tpu_torch.dsp.polyphase import (DENSE_MAX_WIDTH, _dft_mats_on,
+                                          _dft_split_mats, _hop_sign,
+                                          fft_rows, prototype_taps)
 from amps_tpu_torch.kernels.analysis import analyze_block
 
 
@@ -85,7 +89,10 @@ def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 def _transform_hopmajor(yr, yi, M: int, split: int):
     """u[n, m] = sum_k y[n, k] E+[k, m] on hop-major (..., Nh, M) planes.
-    split=0: dense (M, M) matmul pair; split=M2: two-stage Cooley-Tukey."""
+    split=0: dense (M, M) matmul pair; split=M2: two-stage Cooley-Tukey;
+    past DENSE_MAX_WIDTH, whatever split, a float64 inverse FFT."""
+    if M > DENSE_MAX_WIDTH:
+        return fft_rows(yr, yi, inverse=True)
     if not split:
         C, S = _dft_mats_on(M, yr.device)
         return yr @ C - yi @ S, yr @ S + yi @ C

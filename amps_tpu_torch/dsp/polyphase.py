@@ -6,6 +6,10 @@ exactly as ``amps_tpu.dsp.channelizer`` builds them.
 This module sits below both ``dsp.channelizer`` (the streaming analysis
 and the plain synthesis) and ``kernels.analysis`` (the analysis kernel
 and its plain version), so neither imports the other's internals.
+
+The dense tables take 8·M² bytes (8.6 GB at M = 32768, 34 GB at 65536),
+so past ``DENSE_MAX_WIDTH`` the plain transforms are float64 FFTs of the
+same sums instead (``fft_rows``), cast to f32 at the output.
 """
 
 from __future__ import annotations
@@ -17,6 +21,32 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.dsp.windows import _window
+
+
+# the widest M whose plain transforms use the dense tables; past it they
+# are float64 FFTs (``fft_rows``)
+DENSE_MAX_WIDTH = 32768
+
+
+def fft_rows(re: torch.Tensor, im: torch.Tensor, inverse: bool = False):
+    """The M-point DFT of each row (the last axis) of re + j·im, in
+    float64 on their device, cast to f32 at the output: forward,
+    sum_m z[m] e^{-j2πkm/M}, or inverse, sum_k z[k] e^{+j2πkm/M}
+    (unscaled).  Rows go in chunks of at most 2^26 values (1 GB of
+    complex128).  Returns (re, im) float32 of the input's shape."""
+    M, shape = re.shape[-1], re.shape
+    re2, im2 = re.reshape(-1, M), im.reshape(-1, M)
+    out_r = torch.empty(re2.shape, dtype=torch.float32, device=re.device)
+    out_i = torch.empty_like(out_r)
+    step = max(1, (1 << 26) // M)
+    for a in range(0, re2.shape[0], step):
+        z = torch.complex(re2[a:a + step].double(), im2[a:a + step].double())
+        z = torch.fft.ifft(z, dim=-1, norm="forward") if inverse else \
+            torch.fft.fft(z, dim=-1)
+        out_r[a:a + step] = z.real
+        out_i[a:a + step] = z.imag
+        del z
+    return out_r.reshape(shape), out_i.reshape(shape)
 
 
 @functools.cache

@@ -18,7 +18,14 @@ transforms them with an f32 Stockham FFT whose radices are
 ``fft_radices(M)`` (mixed radix: 16, then 2, 4 or 8, then the odd prime
 factors of M) and whose twiddles are the table of ``_tables``; M is any
 width in ``FFT_WIDTHS``: every even M from 2 to 16384, and past it M =
-C·N with C <= 8 and N <= 4096, up to 32768.  Past ``BLOCK_WIDTH`` (4096)
+C·N with C <= 8 and N <= 4096, up to 32768.  Every other even M (the
+4432 unsplit widths in (16384, 32768] and every M past 32768) runs the
+device-memory route of ``kernels.route`` (csrc/route.cu): the hops of a
+chunk folded into a scratch plane, a Stockham FFT of length
+``route_length(M)`` in passes of radix ``route_radices(L)`` between two
+planes (direct at a power of two, Bluestein's chirp convolution
+elsewhere), then each kernel's epilogue; ``check_fft_width`` refuses
+only odd M and M < 2.  Past ``BLOCK_WIDTH`` (4096)
 a cluster of ``fft_cluster_size(M)`` = C thread blocks (the smallest
 divisor of M from 2 to ``CLUSTER_SIZE`` with M/C <= 4096) shares each
 hop: each block transforms its part at ``fft_plan_width(M)`` = M/C and a
@@ -51,8 +58,8 @@ import functools
 import numpy as np
 import torch
 
-from amps_tpu_torch.dsp.polyphase import (_analysis_consts, _hop_sign,
-                                         prototype_taps)
+from amps_tpu_torch.dsp.polyphase import (DENSE_MAX_WIDTH, _analysis_consts,
+                                         _hop_sign, fft_rows, prototype_taps)
 from amps_tpu_torch.kernels import build
 
 # taps per phase one chunk of the fold holds in registers, and the gain
@@ -131,6 +138,34 @@ def fft_block_channels(M: int) -> int:
 FFT_WIDTHS = tuple(M for M in range(2, MAX_FFT_WIDTH + 1, 2)
                    if fft_cluster_size(M) or bluestein_length(M))
 
+# the device-memory route (``kernels.route``, csrc/route.cu): the radices
+# of its passes run from ROUTE_MIN_RADIX to ROUTE_MAX_RADIX (csrc
+# kRouteMinRadix, kRouteMaxRadix)
+ROUTE_MIN_RADIX = 256
+ROUTE_MAX_RADIX = 4096
+
+
+def route_length(M: int) -> int:
+    """The length L of the device-memory route's FFT at width M (csrc
+    route.cu), for every even M >= 2 that no in-shared-memory mode takes
+    (not in ``FFT_WIDTHS``: the 4432 unsplit even widths in (16384, 32768]
+    and every M past 32768): M itself where M is a power of two (direct),
+    else the least power of two >= 2M - 1 (Bluestein's chirp transform:
+    65536 up to 32768, 131072 at 32770); 0 for every other M."""
+    if M % 2 or M < 2 or fft_cluster_size(M) or bluestein_length(M):
+        return 0
+    return M if M & (M - 1) == 0 else 1 << (2 * M - 2).bit_length()
+
+
+def route_radices(L: int, max_radix: int = ROUTE_MAX_RADIX):
+    """The radices of the route's Stockham passes at length L = 2^k (csrc
+    route_radix): ceil(k / log2(max_radix)) passes, the k bits split as
+    evenly as they go, the larger shares first (two passes up to 2^24 at
+    4096, three past it; (256, 256) at L = 65536)."""
+    k, b = L.bit_length() - 1, max_radix.bit_length() - 1
+    n = -(-k // b)
+    return tuple(1 << (k // n + (p < k % n)) for p in range(n))
+
 
 def _fit_hops(M: int) -> int:
     """csrc fft_fit_hops: the most even hops (up to 16) whose plane fits
@@ -206,7 +241,8 @@ def _fold_banks(x_ext: torch.Tensor, M: int, T: int, planar_in: bool):
     else:
         xpl = x_ext[..., : nblk * P, :].transpose(-1, -2)
     bl = xpl.reshape(batch + (2, nblk, P)).to(torch.float32)
-    coef = _analysis_consts(M, T, bl.device)[0]
+    coef = fold_coef(M, T, bl.device) if M > DENSE_MAX_WIDTH else \
+        _analysis_consts(M, T, bl.device)[0]
     ke, ko = coef[:, :P], coef[:, P:]
     acc_e = ke[0] * bl[..., 0:Nh, :]
     acc_o = ko[0] * bl[..., 1:1 + Nh, :]
@@ -222,8 +258,20 @@ def analyze_reference(x_ext, M: int, T: int, hop0_parity: int = 0,
     (..., L-P+N, 2) riq with the history prepended (N = Nh*P), or
     (..., 2, L-P+N) planar planes when ``planar_in``.  Returns Y
     (..., M, Nh, 2) channel-major, or (..., 2, M, Nh) when ``planar``.
-    The transform runs in float32."""
+    The transform runs in float32 on the dense tables; past
+    DENSE_MAX_WIDTH it is the float64 FFT of the folded windows f_n =
+    (even bank, odd bank) (``fft_rows``), cast to f32, then the hop sign:
+    y_k[n] = (-1)^{k(n+parity)} sum_m f_n[m] e^{-j2πkm/M}."""
     acc_e, acc_o, Nh = _fold_banks(x_ext, M, T, planar_in)
+    if M > DENSE_MAX_WIDTH:
+        f = torch.cat([acc_e, acc_o], dim=-1)              # (..., 2, Nh, M)
+        yr2, yi2 = (t.transpose(-1, -2)
+                    for t in fft_rows(f[..., 0, :, :], f[..., 1, :, :]))
+        del f
+        sgn = _hop_sign(M, Nh, int(hop0_parity) % 2, acc_e.device)
+        if planar:
+            return torch.stack([yr2 * sgn, yi2 * sgn], dim=-3)
+        return torch.stack([yr2 * sgn, yi2 * sgn], dim=-1)
     er, ei = acc_e[..., 0, :, :], acc_e[..., 1, :, :]
     or_, oi = acc_o[..., 0, :, :], acc_o[..., 1, :, :]
     _, Co, So, Ce, Se, rc, rs = _analysis_consts(M, T, acc_e.device)
@@ -360,30 +408,39 @@ def _fft_twiddles(M: int) -> np.ndarray:
 
 
 @functools.cache
+def fold_coef(M: int, T: int, device: torch.device) -> torch.Tensor:
+    """The fold coefficients coef[t, m] = h[M·T - 1 - (tM + m)] (T, M) on
+    device: the prototype's taps reversed, as the FFT tile's fold
+    (``_tables``) and the device-memory route's read them."""
+    return torch.as_tensor(np.ascontiguousarray(
+        prototype_taps(M, T)[::-1]).reshape(T, M), device=device)
+
+
+@functools.cache
 def _tables(M: int, T: int, device: torch.device):
     """The FFT tile's tables on device: fold coefficients coef[t, m] =
     h[M·T - 1 - (tM + m)] (T, M), the prototype's taps reversed as
     ``dsp.polyphase._analysis_consts`` takes them (without the plain
-    version's dense matrices), and the twiddle table of
+    version's dense matrices; ``fold_coef``), and the twiddle table of
     ``_fft_twiddles``."""
-    coef = np.ascontiguousarray(prototype_taps(M, T)[::-1]).reshape(T, M)
-    return (torch.as_tensor(coef, device=device),
+    return (fold_coef(M, T, device),
             torch.as_tensor(_fft_twiddles(M), device=device))
 
 
 def check_fft_width(M: int) -> None:
-    """The FFT tile takes any even M from 2 to MAX_FFT_WIDTH / 2 (16384):
-    up to 8192 and, past it, where a cluster splits M = C·N (C <=
-    CLUSTER_SIZE, N <= BLOCK_WIDTH), by the split, else by Bluestein's
-    chirp transform of length MAX_FFT_WIDTH; and past 16384 the split
-    widths, up to MAX_FFT_WIDTH (32768): ``FFT_WIDTHS``."""
-    if M % 2 or not 2 <= M <= MAX_FFT_WIDTH or not (
-            fft_cluster_size(M) or bluestein_length(M)):
+    """The kernels take every even M >= 2: ``FFT_WIDTHS`` in shared
+    memory (every even M from 2 to 16384 -- past 8192 split, or else
+    Bluestein's chirp transform of length MAX_FFT_WIDTH --, and past 16384
+    M = C·N with C <= CLUSTER_SIZE and N <= BLOCK_WIDTH up to
+    MAX_FFT_WIDTH), and every other even M on the device-memory route
+    (``route_length``).  Odd M and M < 2 raise ValueError."""
+    if M % 2 or M < 2:
         raise ValueError(
             f"kernel needs an even M from 2 to {MAX_FFT_WIDTH // 2} (past "
             f"{2 * BLOCK_WIDTH} split, or Bluestein's chirp transform of "
             f"length {MAX_FFT_WIDTH}), or M = C·N with C <= {CLUSTER_SIZE} "
-            f"and N <= {BLOCK_WIDTH} up to {MAX_FFT_WIDTH} (M={M})")
+            f"and N <= {BLOCK_WIDTH} up to {MAX_FFT_WIDTH}, in shared memory, "
+            f"or any other even M >= 2 through device memory (M={M})")
 
 
 def card_block(x_ext: torch.Tensor, M: int, T: int):
@@ -496,7 +553,8 @@ def _launcher(M: int):
 
 def analyze_block(x_ext, M: int, T: int, hop0_parity: int = 0,
                   planar: bool = False, planar_in: bool = False):
-    """Analysis of one streaming block.
+    """Analysis of one streaming block (on the card any even M: the FFT
+    tile, or past its widths the device-memory route).
 
     x_ext: (..., (Nh + 2T - 1) * M/2, 2) float32 riq, or (..., 2, ...)
     planar planes when ``planar_in``, with the analyzer history already
@@ -516,12 +574,18 @@ def analyze_block(x_ext, M: int, T: int, hop0_parity: int = 0,
               for r in rows.unbind(0)]
         return torch.stack(ys).reshape(tuple(x_ext.shape[:-2])
                                        + tuple(ys[0].shape))
-    is_planar, n_ext, Nh = card_block(x_ext, M, T)
     check_fft_width(M)
+    is_planar, n_ext, Nh = card_block(x_ext, M, T)
     if is_planar != planar_in:
         raise ValueError(f"x_ext of shape {tuple(x_ext.shape)} with "
                          f"planar_in={planar_in}")
     dev = x_ext.device
+    if route_length(M):
+        from amps_tpu_torch.kernels import route
+        y = route.analysis(x_ext, fold_coef(M, T, dev), M, T, Nh, n_ext,
+                           planar_in, planar, hop0_parity)
+        LAUNCHES += 1
+        return y
     coef, tw = _tables(M, T, dev)
     y = torch.empty((2, M, Nh) if planar else (M, Nh, 2),
                     dtype=torch.float32, device=dev)

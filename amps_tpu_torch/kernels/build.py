@@ -4,10 +4,12 @@ Every ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 (``sm_90a``) into an object file, all sources at once in parallel
 processes; the objects link into one shared library with a plain C
 interface.  The main library instantiates the FFT tile at every power of
-two from 2 to 4096; any other width M the tile takes (8192 and the other
-cluster widths past 4096 among them) compiles into a small library of
-its own, from the same sources with ``-DAMPS_FFT_WIDTH=M``
-(``build(widths=...)`` builds several in one parallel run).  The libraries
+two from 2 to 4096 and holds the device-memory route (``route.cu``,
+whose widths are runtime arguments); any other width M the tile takes
+(8192 and the other cluster widths past 4096 among them) compiles into a
+small library of its own, from the same sources but the route's with
+``-DAMPS_FFT_WIDTH=M`` (``build(widths=...)`` builds several in one
+parallel run).  The libraries
 land in ``amps_tpu_torch/build/`` (git-ignored) under names that carry
 a hash of the sources, the shared headers, the flags and the width, so
 an edited source rebuilds and concurrent processes never load a
@@ -48,11 +50,17 @@ def _nvcc() -> str:
                        "(put the CUDA toolkit's bin directory on PATH)")
 
 
-def _sources():
+# the source of the device-memory route: the main library's alone
+ROUTE_SOURCE = "route.cu"
+
+
+def _sources(width=None):
+    """The sources of the main library (width None), or of one width's:
+    all but the route's."""
     srcs = sorted(CSRC.glob("*.cu"))
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    return srcs
+    return [s for s in srcs if width is None or s.name != ROUTE_SOURCE]
 
 
 def _flags(width):
@@ -108,10 +116,10 @@ def _build(widths, extra_flags):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = {w: [os.path.join(tmpdir, f"{w or 'main'}_{src.stem}.o")
-                    for src in _sources()] for w in todo}
+                    for src in _sources(w)] for w in todo}
         log = _run([[nvcc, *_flags(w), *extra_flags, "-c", "-o", obj,
                      str(src)]
-                    for w in todo for src, obj in zip(_sources(), objs[w])])
+                    for w in todo for src, obj in zip(_sources(w), objs[w])])
         tmps = {w: os.path.join(tmpdir, paths[w].name) for w in todo}
         log += _run([[nvcc, *LINK_FLAGS, "-o", tmps[w], *objs[w]]
                      for w in todo])

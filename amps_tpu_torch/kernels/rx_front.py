@@ -24,11 +24,12 @@ import functools
 import torch
 
 from amps_tpu_torch.dsp.fm import quadrature_demod_planar
+from amps_tpu_torch.kernels import route
 from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, _tables,
                                              analyze_reference, bind,
                                              block_geometry, card_block,
                                              check_fft_width, fft_smem_bytes,
-                                             launch)
+                                             fold_coef, launch, route_length)
 
 # demod hops a thread block owns, by M (csrc fft_wide_hops - 1)
 TILE_HOPS = {M: h - 1 for M, h in FFT_WIDE_HOPS.items()}
@@ -81,15 +82,20 @@ def analyze_demod(x_ext, M: int, T: int, hop0_parity: int, prev_iq):
         raise TypeError("x_ext and prev_iq must be torch.Tensors")
     if x_ext.device.type == "cpu":
         return analyze_demod_reference(x_ext, M, T, hop0_parity, prev_iq)
-    planar, n_ext, Nh = card_block(x_ext, M, T)
     check_fft_width(M)
+    planar, n_ext, Nh = card_block(x_ext, M, T)
     if prev_iq.device != x_ext.device or prev_iq.dtype != torch.float32:
         raise ValueError(f"prev_iq must be float32 on {x_ext.device}, got "
                          f"{prev_iq.dtype} on {prev_iq.device}")
     _check_prev(prev_iq, M)
     dev = x_ext.device
-    coef, tw = _tables(M, T, dev)
     prev = prev_iq.contiguous()
+    if route_length(M):
+        out = route.front(x_ext, fold_coef(M, T, dev), prev, M, T, Nh,
+                          n_ext, planar, hop0_parity)
+        LAUNCHES += 1
+        return out
+    coef, tw = _tables(M, T, dev)
     demod = torch.empty((M, Nh), dtype=torch.float32, device=dev)
     pw = torch.empty((M, Nh), dtype=torch.float32, device=dev)
     last = torch.empty((M, 2), dtype=torch.float32, device=dev)

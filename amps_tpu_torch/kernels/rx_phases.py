@@ -26,11 +26,12 @@ import functools
 import torch
 
 from amps_tpu_torch.dsp.fm import quadrature_demod_planar
+from amps_tpu_torch.kernels import route
 from amps_tpu_torch.kernels.analysis import (FFT_WIDE_HOPS, _tables,
                                              analyze_reference, bind,
                                              block_geometry, card_block,
                                              check_fft_width, fft_smem_bytes,
-                                             launch)
+                                             fold_coef, launch, route_length)
 from amps_tpu_torch.rx.correlator import (RSSI_BLOCK, power_from_blocks,
                                           symbol_phase_streams,
                                           window_power_blocks)
@@ -101,7 +102,11 @@ def analyze_phases(x_ext, M: int, T: int, sps: int = 3,
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype} not float32/bfloat16")
     check_fft_width(M)
-    if sps < 1 or run_hops(M, sps) < sps:
+    on_route = route_length(M) > 0
+    if on_route and not 1 <= sps <= route.MAX_SPS:
+        raise ValueError(f"the device-memory route needs 1 <= sps <= "
+                         f"{route.MAX_SPS} at M={M} (sps={sps})")
+    if not on_route and (sps < 1 or run_hops(M, sps) < sps):
         raise ValueError(f"kernel needs 1 <= sps <= "
                          f"{FFT_WIDE_HOPS[M] // 2} at M={M} (sps={sps})")
     if x_ext.ndim == 3:
@@ -115,13 +120,18 @@ def analyze_phases(x_ext, M: int, T: int, sps: int = 3,
         planar, n_ext, Nh = card_block(x_ext, M, T)
     nsym = _nsym(Nh, sps)
     dev = x_ext.device
-    coef, tw = _tables(M, T, dev)
-    nrun = -(-Nh // run_hops(M, sps))
     phases = torch.empty(lead + (M, sps, nsym), dtype=out_dtype, device=dev)
-    pw_part = torch.empty(lead + (M, nrun, 2), dtype=torch.float32,
-                          device=dev)
     pw_blk = torch.empty(lead + (M, -(-Nh // RSSI_BLOCK)),
                          dtype=torch.float32, device=dev)
+    if on_route:
+        route.phases(x_ext, fold_coef(M, T, dev), phases, pw_blk, M, T, sps,
+                     Nh, nsym, n_ext, planar, hop0_parity)
+        LAUNCHES += 1
+        return phases, power_from_blocks(pw_blk, Nh), pw_blk
+    coef, tw = _tables(M, T, dev)
+    nrun = -(-Nh // run_hops(M, sps))
+    pw_part = torch.empty(lead + (M, nrun, 2), dtype=torch.float32,
+                          device=dev)
     launch("rx_phases", _launcher(M), dev, x_ext.data_ptr(), int(planar),
            n_ext, coef.data_ptr(), tw.data_ptr(), phases.data_ptr(),
            int(out_dtype == torch.bfloat16), pw_part.data_ptr(),

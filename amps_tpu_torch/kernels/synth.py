@@ -43,13 +43,14 @@ import numpy as np
 import torch
 
 from amps_tpu_torch.dsp import channelizer as chz
-from amps_tpu_torch.kernels import build
+from amps_tpu_torch.kernels import build, route
 from amps_tpu_torch.kernels.analysis import (CHUNK_TAPS, FFT_WIDE_HOPS,
                                              FFT_WIDTHS, LIBRARY_WIDTHS,
                                              SMEM_BYTES, _tables, bind,
                                              check_fft_width, cluster_blocks,
                                              fft_hop_stride, fft_plan_width,
-                                             fft_smem_bytes, launch)
+                                             fft_smem_bytes, launch,
+                                             route_length)
 
 # kernel launches since import (or since the caller last reset it);
 # incremented only where the kernel is launched
@@ -200,8 +201,12 @@ def synthesize_block(Y, M: int, T: int, hop0_parity: int, carry):
         raise ValueError("Y and carry must be 8-byte aligned")
     dev = Y.device
     Nh = Y.shape[0]
-    _, tw = _tables(M, T, dev)
     gm = _gain_taps(M, T, dev)
+    if route_length(M):
+        out = route.synth(Y, gm, carry, M, T, Nh, hop0_parity)
+        LAUNCHES += 1
+        return out
+    _, tw = _tables(M, T, dev)
     out = torch.empty((Nh * (M // 2), 2), dtype=torch.float32, device=dev)
     new_carry = torch.empty_like(carry)
     n = scratch_values(M, T, Nh)

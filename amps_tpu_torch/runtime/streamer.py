@@ -75,13 +75,26 @@ def _rx_stream_block(x, hist, demod_carry, prev_iq, pw_carry,
     M, T, sps = spec.num_channels, spec.taps_per_phase, spec.chan_sps
     x_ext = torch.cat([hist, x], dim=0).contiguous()
     demod_new, last, pw_new = front_end(x_ext, M, T, hop_parity, prev_iq)
+    # each (M, Nh) plane goes once it is used (gigabytes at a wide bank):
+    # the new history, the power carry and the new demod (a view of the
+    # window) are taken first
+    new_hist = x_ext[x_ext.shape[0] - (M * T - M // 2):].clone()
+    del x_ext
     Nh = demod_new.shape[-1]
+    ovr = demod_carry.shape[-1]
     chan_power = torch.sqrt(torch.mean(pw_new, dim=-1))
     demod = torch.cat([demod_carry, demod_new], dim=-1)
+    demod_new = demod[:, ovr:]
     pw_blk = correlator.window_power_blocks([pw_carry, pw_new])
+    if Nh >= ovr:
+        new_pw_carry = pw_new[:, Nh - ovr:].clone()
+    else:
+        new_pw_carry = torch.cat([pw_carry[:, Nh:], pw_new], dim=-1)
+    del pw_new
     # io_bf16: bf16 phase-stream plane; the carried demod stays f32
     dsp = demod.to(torch.bfloat16) if spec.io_bf16 else demod
     phases = correlator.symbol_phase_streams(dsp, sps)
+    del dsp
     starts, valid, quality = correlator.find_bursts_phases(
         phases, sps, max_bursts, threshold, out_bf16=spec.corr_bf16)
     # only bursts whose whole capture fits this window; one cut off by
@@ -97,18 +110,12 @@ def _rx_stream_block(x, hist, demod_carry, prev_iq, pw_carry,
     if spec.max_trigger_errors >= 0:
         valid = correlator.apply_trigger_gate_soft(
             valid, ext[2], spec.max_trigger_errors, starts, sps)
-    ovr = demod_carry.shape[-1]
-    if Nh >= ovr:
-        new_pw_carry = pw_new[:, Nh - ovr:]
-    else:
-        new_pw_carry = torch.cat([pw_carry[:, Nh:], pw_new], dim=-1)
     return {
         "starts": starts, "valid": valid, "quality": quality,
         "hard": ext[0], "rssi": rssi, "chan_power": chan_power,
-        "demod_new": demod_new,
-        "hist": x_ext[x_ext.shape[0] - (M * T - M // 2):].clone(),
+        "demod_new": demod_new, "hist": new_hist,
         "carry": demod[:, demod.shape[-1] - ovr:].clone(),
-        "prev": last, "pw_carry": new_pw_carry.clone(),
+        "prev": last, "pw_carry": new_pw_carry,
     }
 
 
@@ -684,8 +691,10 @@ class MultichannelTransmitter:
                                           self.spec.fm_sensitivity, acc0)
         self._accum.update(zip(ks, acc.cpu().tolist()))
         n_hops = bb.shape[1]
+        # copied in place from the transposed view: no hop-major copy of
+        # the basebands beside the plane (13 GB each at M = 32766)
         Y = torch.zeros((n_hops, self.M, 2), device=dev)
-        Y[:, torch.as_tensor(ks, device=dev)] = bb.transpose(0, 1)
+        Y.index_copy_(1, torch.as_tensor(ks, device=dev), bb.transpose(0, 1))
         if self._sources:
             sk = sorted(self._sources)
             src = np.stack([np.asarray(self._sources[k](n_hops), np.float32)

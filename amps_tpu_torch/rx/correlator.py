@@ -156,29 +156,45 @@ def find_bursts_phases(phases, sps: int, max_bursts: int = 4,
     def mm(a, W):   # data-dtype operands, f32 accumulation, acc_t result
         return (a.to(torch.float32) @ W).to(acc_t)
 
-    out = mm(p0, T0) + mm(p1, T1)
-    een = mm(p0 * p0, E0) + mm(p1 * p1, E1)
-
+    # each plane goes as soon as it is used (at a wide bank each is
+    # gigabytes); the in-place sums are the same additions
     def unblk(a):
         return a.reshape(x.shape[:-1] + (nblk * O,))[..., :no]
 
+    out = mm(p0, T0)
+    out += mm(p1, T1)
     corr, ws_corr = unblk(out[..., :O]), unblk(out[..., O:])
+    del out
+    een = mm(p0 * p0, E0)
+    sq = p1 * p1
+    del xp, p0, p1
+    een += mm(sq, E1)
+    del sq
     energy, ws_energy = unblk(een[..., :O]), unblk(een[..., O:])
+    del een
 
     def c(v):   # a constant in the accumulation dtype
         return torch.full((), v, dtype=acc_t, device=x.device)
 
-    q_full = corr / (torch.sqrt(torch.maximum(energy, c(1e-9))) * c(tnorm))
-    q_ws = ws_corr / (torch.sqrt(torch.maximum(ws_energy, c(1e-9)))
-                      * c(wsnorm))
-    quality = torch.minimum(q_full, q_ws)          # (..., sps, no)
+    def norm(cr, en, tn):   # cr / (sqrt(max(en, 1e-9)) * tn), one plane
+        q = torch.maximum(en, c(1e-9))
+        q.sqrt_()
+        q.mul_(c(tn))
+        return torch.div(cr, q, out=q)
+
+    q_full = norm(corr, energy, tnorm)
+    del corr, energy
+    q_ws = norm(ws_corr, ws_energy, wsnorm)
+    del ws_corr, ws_energy
+    quality = torch.minimum(q_full, q_ws, out=q_full)   # (..., sps, no)
+    del q_full, q_ws
     batch = x.shape[:-2]
-    qf = quality.reshape(batch + (sps * no,))
+    q = quality.reshape(batch + (sps * no,))
+    del quality
     pos = (torch.arange(sps, device=x.device)[:, None]
            + sps * torch.arange(no, device=x.device)[None, :]).reshape(-1)
     neg_inf = c(float("-inf"))
     spos_l, peaks_l = [], []
-    q = qf
     for k in range(max_bursts):
         idx = torch.argmax(q, dim=-1)
         peak = torch.gather(q, -1, idx[..., None])[..., 0]

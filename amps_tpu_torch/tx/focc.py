@@ -15,8 +15,9 @@ replace filler slots of the next superframe's (F, 2, 28) word array.
 from __future__ import annotations
 
 import collections
+import functools
 import threading
-from typing import Iterable, List, Optional
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -132,6 +133,21 @@ def symbols_from_bitfile(path: str, sps: int = 1) -> np.ndarray:
     return manchester_encode_symbols(torch.as_tensor(bits), sps).numpy()
 
 
+@functools.cache
+def _stream_template(system: SystemConfig) -> Tuple[np.ndarray, Tuple[int, ...]]:
+    """A stream's superframe template (read-only) and its filler slots,
+    built once a system: a transmitter of M control channels makes M
+    streams (about 1.5 ms each to build on the host)."""
+    if system.aggressive_registration:
+        template = registration_superframe_word_pairs(system)
+    else:
+        template = superframe_word_pairs(system)
+    template.setflags(write=False)
+    return template, tuple(
+        i for i in range(template.shape[0])
+        if np.array_equal(template[i, 0], W.CONTROL_FILLER))
+
+
 class FoccStream:
     """Host-side FOCC word queue and superframe producer.
 
@@ -146,13 +162,8 @@ class FoccStream:
                  debug_limit: int = 500000):
         self.system = system or SystemConfig()
         self.sps = sps
-        if self.system.aggressive_registration:
-            self._template = registration_superframe_word_pairs(self.system)
-        else:
-            self._template = superframe_word_pairs(self.system)
-        self._filler_slots = [
-            i for i in range(self._template.shape[0])
-            if np.array_equal(self._template[i, 0], W.CONTROL_FILLER)]
+        self._template, slots = _stream_template(self.system)
+        self._filler_slots = list(slots)
         self._queue: collections.deque = collections.deque()
         # (remaining repeats, pair), re-queued one per later superframe
         self._deferred: List = []

@@ -31,7 +31,7 @@ M = 24, 160, 448, 768, 1458 and 2038, their times at 768, 1536 and 2038
 beside 1024, and the station's main path at M=768 (a 23.04 Msps radio:
 the one-shot block, the receiver, the transmitter read back, the closed
 loop under its graph, the mobile's analysis) --; banks past 2048
-channels -- every wrapper refusing M = 16388, 32770, an odd width and 16396,
+channels -- every wrapper refusing the odd M = 4095, 8193, 32769 and M = 0,
 every kernel against its plain version at M = 2304, 3072, 4000, 4094
 and 4096, their times at 2048, 3072 and 4096 beside 1024, the same main
 path at M=4096 (a 122.88 Msps radio) and a short call of the station
@@ -45,18 +45,26 @@ plain version at T = 17, 24, 32, 33 and 64 and M = 8 to 8192, their
 times at M=1024 for T = 8 to 64, the main path and one sharded step at
 M=1024, T=32 --; banks past 8192 channels, each hop shared by a cluster
 of 3 to 8 blocks with a radix-C pass across it -- every wrapper refusing
-M = 8195, 16388 and 32770, every kernel against its plain version at
+M = 8195, 16389 and 32769, every kernel against its plain version at
 M = 8196, 12288, 16384, 20480, 12294, 28672, 32768 and 16424, their
 times at 12288 and 16384 beside 8192, the same main path and short app
 call at M=16384 (a 491.52 Msps radio), the peak device memory --; the
 even widths past 8192 that no cluster splits, each a chirp convolution
 of length 32768 (Bluestein) on a cluster of 8 blocks -- every wrapper
-refusing M = 16388, 16396, 32770 and 8193, every kernel against its
+refusing M = 8193, 16383, 32769 and 0, every kernel against its
 plain version and float64 at M = 8194, 8198, 13334, 16378 and 16382
 (and at 8194 with T=32), their times at 8194 and 16382 beside 8192 and
 16384, the clusters of 16 the card would hold, the same main path and
 short app call at M=16382 (a 491.46 Msps radio), the peak device
-memory --; and
+memory --; every other even width through device memory (a Stockham FFT
+of passes of radix 256-4096 between scratch planes, direct at a power of
+two, Bluestein's chirp convolution elsewhere) -- every wrapper refusing
+M = 8193, 32769 and 0, every kernel against its plain version and
+float64 at M = 16388, 32766, 32770, 65536, 1048574 and 8388610 (and at
+16388 with T=32), their times at 32766 and 65536 beside 32768, each
+wrapper's CUDA launches in one call (profiler spans, held to the
+route's count), the same main path and short app call at M=32766 (a
+982.98 Msps radio), the peak device memory --; and
 times kernels and paths against their plain versions,
 their bounds and a cuFFT yardstick, with profiler windows of one
 one-shot block, one receiver push, one transmitter superframe, one
@@ -82,13 +90,17 @@ and the same at phase 30's (``wide_*``), phase 31's (``widest_*``) and
 phase 33's (``wider_*``, with K1's, K2's and K4's errors against
 float64 references of their functions, the kernel's beside its plain
 version's, in ``wider_vs_float64``) and phase 34's (``bluestein_*``,
-``bluestein_vs_float64`` by M and T), and
+``bluestein_vs_float64`` by M and T) and phase 35's (``route_*``: its
+source, errors, float64 witness, times at 32766 and 65536, the split
+cluster's at 32768 beside them, the CUDA launches of a call the
+profiler saw at each checked M and Nh, and the peak memory), and
 phase 32's errors by M and times by T (``taps_*``);
 ``launches_by_path`` counts each kernel's launches on every path it
 runs, the soaks', the paced legs', the two processes' of the
 cross-process station and the M=768, M=4096, M=8192, M=16384 and
-M=16382 paths' (``m768_*``, ``m4096_*``, ``m8192_*``, ``m16384_*``,
-``m16382_*``) and the T=32 paths' (``t32_*``)
+M=16382 and M=32766 paths' (``m768_*``, ``m4096_*``, ``m8192_*``,
+``m16384_*``, ``m16382_*``, ``m32766_*``; on the device-memory route a
+wrapper call counts one) and the T=32 paths' (``t32_*``)
 among them.  Without a CUDA card it exits non-zero.
 
     python3 chip_smoke.py --digest TREE
@@ -346,7 +358,6 @@ def synth_f64(Y, M, T, parity, carry):
     2), carry ((2T - 1)·P, 2)) float64."""
     from amps_tpu_torch.dsp.polyphase import _hop_sign, prototype_taps
     P, Nh = M // 2, Y.shape[0]
-    sign = _hop_sign(M, Nh, parity, Y.device).double().T
     g = torch.as_tensor(prototype_taps(M, T), device=Y.device).double() \
         .reshape(T, M) * P
     out = torch.zeros((Nh + 2 * T - 1, P), dtype=torch.complex128,
@@ -354,8 +365,9 @@ def synth_f64(Y, M, T, parity, carry):
     step = max(1, (1 << 26) // M)      # hops a chunk: ~1 GB of complex128
     for a in range(0, Nh, step):
         b = min(a + step, Nh)
+        # the chunk's hop sign, (b - a, M): its hops keep their parity
         y = torch.complex(Y[a:b, :, 0].double(), Y[a:b, :, 1].double()) \
-            * sign[a:b]
+            * _hop_sign(M, b - a, (parity + a) % 2, Y.device).double().T
         u = M * torch.fft.ifft(y, dim=-1)
         for j in range(2 * T):
             h = (j & 1) * P
@@ -506,13 +518,18 @@ def check_forward_band(K3, band, M, T, sps, want_bits, chans, page):
 def rx_duplex_events(M: int, T: int, total_hops: int, seed: int):
     """10 planted bursts of 2..7 random words, DCC 0, at channels 0, 1,
     M/2-1, M/2, M-1 and five others; the last ends 4 hops before the
-    stream does."""
+    stream does.  The others start at hops 300 .. 34001 of a stream of
+    49152 hops or more (six pushes of 8192), and in a shorter one (phase
+    35's pushes of 4096 hops) in proportion to the hops left before the
+    last."""
     from amps_tpu_torch.eval.traffic import BurstEvent
     rng = np.random.default_rng(seed)
     chans = [0, 1, M // 2 - 1, M // 2, M - 1, 200 % M, 700 % M, 3, 900 % M,
              64 % M]
-    starts = [300, 5000, 9001, 12002, 15000, 20001, 26002, 30000, 34001,
-              total_hops - 4 - BURST_HOPS]
+    scale = min(1.0, (total_hops - 4 - BURST_HOPS) / (49152 - 4 - BURST_HOPS))
+    starts = [int(h * scale) for h in (300, 5000, 9001, 12002, 15000, 20001,
+                                       26002, 30000, 34001)] \
+        + [total_hops - 4 - BURST_HOPS]
     return [BurstEvent(c, h, rng.integers(0, 2, (int(rng.integers(2, 8)),
                                                  36)).astype(np.uint8))
             for c, h in zip(chans, starts)]
@@ -610,6 +627,7 @@ def phase_tx(dev, M, T, n_random=60, witness=False):
             f"synthesis {e:.3e} ({e / peak:.2e} of the peak, {e / rms:.2e} "
             f"of RMS)")
         assert torch.isfinite(x).all() and e <= TX_PEAK_RTOL * peak
+    del x, ref                  # (a superframe is 6.5 GB at M=32766)
     mirror.next_word_pairs()
     rng = np.random.default_rng(M)
     fixed = [0, 1, M // 2 - 1, M // 2, M - 1]
@@ -621,6 +639,7 @@ def phase_tx(dev, M, T, n_random=60, witness=False):
     want = {c: idle for c in chans}
     want[1] = focc_frame_bits(mirror.next_word_pairs())
     band = torch.cat(xs + [tx._state.carry])
+    del xs
     n = check_forward_band(K3, band, M, T, sps, want, chans,
                            (1, 4, page[0]))
     log(f"  read back through the rx_phases kernel after the bank delay: "
@@ -1237,7 +1256,10 @@ def phase_small_widths(dev, Nh=4001, widths=SMALL_WIDTHS, Ts=(4, 8),
                             (M, T, parity, planar, dt, e)
                         if dt == torch.float32:
                             e3 = max(e3, e)
-                        rel = ((pb - rpb).abs() / rpb)[:, 1:].max().item()
+                        # past the first block (the ramp-up), or the one
+                        # block of a short run
+                        rel = ((pb - rpb).abs() / rpb)[
+                            :, 1 if rpb.shape[1] > 1 else 0:].max().item()
                         assert rel <= POWER_RTOL, (M, T, rel)
             sync(dev)
             assert e1 <= ANALYSIS_ATOL and e2 <= PHASE_ATOL, (M, T, e1, e2)
@@ -1294,9 +1316,8 @@ def phase_small_widths(dev, Nh=4001, widths=SMALL_WIDTHS, Ts=(4, 8),
         log(f"  M={M}, Nh={Nt}, kernel / plain ms: " + ", ".join(
             f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in
             ((k, ms[k][M]) for k in ms)))
-    # odd, past 16384 with no split into a cluster of <= 8 blocks, past
-    # 32768: refused
-    for M in (13, 16388, 16396, 32770):
+    # odd widths and M = 0: refused
+    for M in (13, 16389, 32769, 0):
         try:
             KA.analyze_block(torch.zeros(((100 + 15) * (M // 2), 2),
                                          device=dev), M, 8)
@@ -1519,13 +1540,16 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2, witness=False):
 
 
 def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5,
-                     plain=None):
+                     plain=None, plain_blocks=None):
     """Phase 14: the closed loop's times.  Graph against eager and the
     kernel path against the plain path, interleaved in one process, CUDA
     events around whole runs; a profiler window of one graph run.  Each
     kernel alone beside its plain version: 10 turns of KERNEL_REPS calls,
     or with ``plain`` = (turns, calls) the plain versions apart in that
-    many (as ``width_rows``).  Returns a dict of the readings."""
+    many (as ``width_rows``).  ``plain_blocks``: the plain path's runs
+    take that many blocks (a depth cut where its dense transforms take
+    seconds a block), its ms a block from them.  Returns a dict of the
+    readings."""
     from amps_tpu_torch.kernels import rx_front as R
     from amps_tpu_torch.kernels import synth as S
     from amps_tpu_torch.parallel import pipeline as pl
@@ -1547,7 +1571,7 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5,
         "eager": st.make_closed_loop_stream(prod, nblocks, frames,
                                             graph=False)[0],
         "plain": st.make_closed_loop_stream(
-            prod, nblocks, frames, graph=False,
+            prod, plain_blocks or nblocks, frames, graph=False,
             synthesize=S.synthesize_block_reference,
             front_end=R.analyze_demod_reference)[0],
     }
@@ -1568,7 +1592,7 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5,
     t = timed({k: (lambda f=f: f(wp)) for k, f in runs.items()}, n_runs)
     out = {"launches": launches}
     for k, ms in t.items():
-        per = ms / nblocks
+        per = ms / (plain_blocks or nblocks if k == "plain" else nblocks)
         msps = block_samples / per / 1e3
         out[k] = per
         log(f"  {k}: {ms:.2f} ms a run, {per:.3f} ms a block, {msps:.1f} "
@@ -1581,28 +1605,48 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5,
     # windows, each shortfall logged: the profiler drops records (on the
     # H100 the M=16384 loop's window has lost about 40 of its 5608 device
     # ops, one span of each kernel among them, while every block ran);
-    # more spans than launches fail at once
-    kernels = (("synth", "synth_kernel"), ("rx_front", "rx_front_kernel"))
+    # more spans than launches fail at once.  On the device-memory route a
+    # call is chunks of kernels: its epilogue's spans (one a chunk) are
+    # counted, its load or fold and epilogue timed as the kernel's own, the
+    # passes the two share apart
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import route
+    if KA.route_length(M):
+        kernels = (("synth", "route_synth_out", ("route_load_kernel",)),
+                   ("rx_front", "route_front_out", ("route_fold_kernel",)))
+        per_call = (route.chunks(M, n_hops, 0), route.chunks(M, n_hops, 1))
+    else:
+        kernels = (("synth", "synth_kernel", ()),
+                   ("rx_front", "rx_front_kernel", ()))
+        per_call = (1, 1)
+    want = [n * c for n, c in zip(out["launches"], per_call)]
     for attempt in range(PROFILE_TRIES):
         busy, wall, ops = profile_window(
             f"one run of the closed loop under the graph ({nblocks} blocks)",
             lambda: runs["graph"](wp), dev, top=8)
         spans = [sum(c for k, (_, c) in ops.items() if pat in k)
-                 for _, pat in kernels]
-        if all(n >= want for n, want in zip(spans, out["launches"])) or \
+                 for _, pat, _ in kernels]
+        if all(n >= w for n, w in zip(spans, want)) or \
                 attempt + 1 == PROFILE_TRIES:
             break
-        log(f"  the trace holds {spans} spans of {[p for _, p in kernels]} "
-            f"against {list(out['launches'])} launches (try "
+        log(f"  the trace holds {spans} spans of "
+            f"{[p for _, p, _ in kernels]} against {want} (try "
             f"{attempt + 1} of {PROFILE_TRIES})")
     out["busy"], out["wall"] = busy / nblocks, wall / nblocks
-    for key, pat in kernels:
-        ms = sum(v for k, (v, _) in ops.items() if pat in k) / nblocks
+    for (key, pat, more), n in zip(kernels, want):
+        ms = sum(v for k, (v, _) in ops.items()
+                 if any(p in k for p in (pat, *more))) / nblocks
         calls = sum(c for k, (_, c) in ops.items() if pat in k)
         out[key + "_dev"], out[key + "_spans"] = ms, calls
         log(f"  {pat} inside the graph: {calls} spans in the run, {ms:.3f} "
             f"ms a block ({ms / (busy / nblocks):.1%} of the device time)")
-        assert calls == out["launches"][key == "rx_front"], (pat, calls)
+        assert calls == n, (pat, calls, n)
+    if KA.route_length(M):
+        ms = sum(v for k, (v, _) in ops.items()
+                 if "route_pass_kernel" in k) / nblocks
+        out["route_passes_dev"] = ms
+        log(f"  the route's passes (K4's and K2's) inside the graph: {ms:.3f} "
+            f"ms a block ({ms / (busy / nblocks):.1%} of the device time)")
     # the two kernels alone at the loop's shape, element by element against
     # their plain versions (the front end on an all-channel FSK band: no
     # branch cut, so every demod sample is held), then their times
@@ -1655,7 +1699,7 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5,
     out["synth_bound"], _ = bound(
         M, T, n_hops, 2 * nbytes(carry) + nbytes(Y) + n_hops * P * 8)
     out["rx_front_bound"], _ = bound(
-        M, T, n_hops, nbytes(x_ext, prev, *R._tables(M, T, dev))
+        M, T, n_hops, nbytes(x_ext, prev, *kernel_tables(M, T, dev))
         + 2 * M * n_hops * 4 + nbytes(prev))
     log(f"  alone at Nh={n_hops}: synth {k['synth']:.3f} ms (plain "
         f"{k['synth_plain']:.3f}, bound {out['synth_bound']:.3f}); rx_front "
@@ -2970,8 +3014,8 @@ def width_rows(dev, M, T, Nh, sps=3, plain=None):
     turns with the kernels; or, with ``plain`` = (turns, calls), the
     kernels so and then the plain versions apart in that many turns of
     that many calls, where a dense plain version takes a large share of
-    a second), with its bound and the cuFFT time of the (Nh, M)
-    transform.  Returns {kernel: {"kernel", "plain", "bound",
+    a second; ``plain`` False: the kernels alone, plain None), with its
+    bound and the cuFFT time of the (Nh, M) transform.  Returns {kernel: {"kernel", "plain", "bound",
     "bound_by"}, "fft": ms}."""
     from amps_tpu_torch.kernels import analysis as KA
     from amps_tpu_torch.kernels import rx_front as R
@@ -3002,9 +3046,10 @@ def width_rows(dev, M, T, Nh, sps=3, plain=None):
     else:
         t = timed({k: f for k, f in fns.items() if "plain" not in k}, 10,
                   KERNEL_REPS)
-        t.update(timed({k: f for k, f in fns.items() if "plain" in k},
-                       *plain))
-    tables = nbytes(*KA._tables(M, T, dev))
+        if plain:
+            t.update(timed({k: f for k, f in fns.items() if "plain" in k},
+                           *plain))
+    tables = nbytes(*kernel_tables(M, T, dev))
     nsym = (Nh - sps + 1) // sps
     moved = {"analysis": nbytes(x) + tables + M * Nh * 8,
              "rx_front": nbytes(x, prev) + tables + 2 * M * Nh * 4 + M * 8,
@@ -3013,9 +3058,21 @@ def width_rows(dev, M, T, Nh, sps=3, plain=None):
              "synth": nbytes(Y) + 2 * nbytes(carry) + Nh * P * 8 + tables}
     rows = {"fft": fft_ms(M, Nh, dev)}
     for k, b in moved.items():
-        rows[k] = {"kernel": t[k], "plain": t[k + "_plain"]}
+        rows[k] = {"kernel": t[k], "plain": t.get(k + "_plain")}
         rows[k]["bound"], rows[k]["bound_by"] = bound(M, T, Nh, b)
     return rows
+
+
+def kernel_tables(M, T, dev):
+    """The tables a kernel at width M reads: the FFT tile's (``_tables``),
+    or on the device-memory route the fold coefficients and the route's
+    (W_L, the tile tables, and in the Bluestein mode the chirp and B̂)."""
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import route
+    if KA.route_length(M):
+        return [KA.fold_coef(M, T, dev)] + [
+            t for t in route.tables(M, dev)[1:] if t is not None]
+    return list(KA._tables(M, T, dev))
 
 
 def width_times(dev, card, widths, T, base=1024, plain=None):
@@ -3035,7 +3092,8 @@ def width_times(dev, card, widths, T, base=1024, plain=None):
 
 
 def station_paths(dev, card, M, T=8, sps=3, loop_runs=3, witness=False,
-                  loop_plain=None):
+                  loop_plain=None, push=None, ear_hops=50004,
+                  plain_blocks=None):
     """The station's main path at width M through the entry points -- the
     one-shot block (K3, n = Nh·M/2 at Nh=8192, 8 planted bursts), the
     streaming receiver (K2, phase 8's stream in pushes of at least 8192
@@ -3046,7 +3104,10 @@ def station_paths(dev, card, M, T=8, sps=3, loop_runs=3, witness=False,
     to 0 just before it and read just after; the loop's times are the
     median of ``loop_runs`` runs (its plain kernels timed as
     ``loop_plain`` says, ``phase_loop_times``); ``witness`` goes to
-    phases 7 and 13.  Returns the readings."""
+    phases 7 and 13.  The depth of each path: the block's plain path
+    timed in ``loop_plain``'s turns where that is given, the receiver's ``push`` (default max(RX_PUSH, 8192·M/2)), the ear's
+    ``ear_hops`` (a superframe), the loop's plain path timed on
+    ``plain_blocks`` blocks (default the loop's).  Returns the readings."""
     from amps_tpu_torch.dsp import channelizer as chz
     from amps_tpu_torch.eval.traffic import (synthesize_reverse_band,
                                              unit_channel_band)
@@ -3077,10 +3138,16 @@ def station_paths(dev, card, M, T=8, sps=3, loop_runs=3, witness=False,
     launches["block"] = K.LAUNCHES
     assert launches["block"] == 1, launches
     check_planted(got, events)
-    out["block"] = timed({
+    block_fns = {
         "kernel": lambda: pl.rx_multichannel_block(x, prod, max_bursts=2),
         "plain": lambda: pl._rx_block(x, prod, 2, 0.55, "first_ok",
-                                      K.analyze_phases_reference)}, 10)
+                                      K.analyze_phases_reference)}
+    if loop_plain is None:
+        out["block"] = timed(block_fns, 10)
+    else:
+        out["block"] = timed({"kernel": block_fns["kernel"]}, 10)
+        out["block"].update(timed({"plain": block_fns["plain"]},
+                                  *loop_plain))
     busy, wall, _ = profile_window(
         f"rx_multichannel_block at M={M}, {Nh * M // 2} samples", lambda:
         pl.rx_multichannel_block(x, prod, max_bursts=2), dev)
@@ -3092,22 +3159,25 @@ def station_paths(dev, card, M, T=8, sps=3, loop_runs=3, witness=False,
 
     # the streaming receiver (K2), the transmitter (K4), the closed loop
     stamp(f"  M={M}: the receiver")
-    launches["receiver"], _ = phase_rx(dev, M, T,
-                                       push=max(RX_PUSH, 8192 * (M // 2)))
+    launches["receiver"], _ = phase_rx(
+        dev, M, T, push=push or max(RX_PUSH, 8192 * (M // 2)))
+    free_dense_tables()         # the plain front end's; the loop rebuilds them
     stamp(f"  M={M}: the transmitter")
     launches["transmitter"] = phase_tx(dev, M, T, witness=witness)
+    torch.cuda.empty_cache()
     stamp(f"  M={M}: the closed loop")
     launches["loop_checks"], out["loop_err"] = phase_loop_checks(
         dev, M, T, witness=witness)
     out["loop"] = phase_loop_times(dev, M, T, card, n_runs=loop_runs,
-                                   plain=loop_plain)
+                                   plain=loop_plain,
+                                   plain_blocks=plain_blocks)
     launches["loop"] = out["loop"]["launches"]
     torch.cuda.empty_cache()
     stamp(f"  M={M}: the mobile's analysis")
 
     # the mobile's analysis (K1): dsp.channelizer.analyze on a CUDA state
     spec = chz.ChannelizerSpec(M, T)
-    xs = unit_channel_band(M, T, 50004, M, dev)[M * T - M // 2:]
+    xs = unit_channel_band(M, T, ear_hops, M, dev)[M * T - M // 2:]
     KA.LAUNCHES = 0
     y, st = chz.analyze(xs, spec, chz.analyzer_init(spec, device=dev),
                         chmajor=True)
@@ -3118,14 +3188,14 @@ def station_paths(dev, card, M, T=8, sps=3, loop_runs=3, witness=False,
     sync(dev)
     out["analysis_err"] = (y - yr).abs().max().item()
     del yr
-    n1 = 25001 * M // 2
+    n1 = ((ear_hops // 2 - 1) | 1) * (M // 2)      # an odd first block
     ya, sa = chz.analyze(xs[:n1], spec, chz.analyzer_init(spec, device=dev),
                          chmajor=True)
     yb, sb = chz.analyze(xs[n1:], spec, sa, chmajor=True)
     sync(dev)
     assert launches["analysis"] == 1 and out["analysis_err"] <= ANALYSIS_ATOL
     assert torch.equal(torch.cat([ya, yb], 1), y) and sb.hop_idx == st.hop_idx
-    log(f"  M={M}: dsp.channelizer.analyze of a superframe (50004 hops) on "
+    log(f"  M={M}: dsp.channelizer.analyze of {ear_hops} hops on "
         f"the card: analysis launches {launches['analysis']}, max|err| vs "
         f"the plain block analysis {out['analysis_err']:.3e}; two chained "
         f"calls (odd first block) equal one bit for bit")
@@ -3201,8 +3271,8 @@ def assert_refused(dev, widths, T=8, sps=3):
 
 
 def phase_wide(dev, card, T=8, sps=3):
-    """Phase 30: banks past 2048 channels.  Every wrapper refuses M =
-    16388, 32770, an odd width and 16396 on the card; each kernel is held
+    """Phase 30: banks past 2048 channels.  Every wrapper refuses the odd
+    M = 4095, 8193 and 32769 and M = 0 on the card; each kernel is held
     to its plain version at WIDE_CHECKS (phase 12's checks, T=8) and
     timed at WIDE_TIMES beside M=1024; the station's main path runs at WIDE_M
     (``station_paths``), then the station app's short call (``bs
@@ -3221,8 +3291,8 @@ def phase_wide(dev, card, T=8, sps=3):
             f"{K.run_hops(M, sps)} hops a block at sps={sps}, K4 in "
             f"{S.column_groups(M, T)} column groups of at most "
             f"{S.thread_columns(M, T)} columns a thread")
-    assert_refused(dev, (16388, 32770, 4095, 16396), T, sps)
-    log("  M = 16388, 32770, 4095 and 16396 raise ValueError in all four "
+    assert_refused(dev, (4095, 8193, 32769, 0), T, sps)
+    log("  M = 4095, 8193, 32769 and 0 raise ValueError in all four "
         "wrappers")
     out = {}
     out["errs"], _ = phase_small_widths(
@@ -3246,7 +3316,10 @@ def station_app_call(dev, card, M):
     from amps_tpu_torch.kernels import synth as S
     from amps_tpu_torch.tx import recc_ms
     argv = ["bs", "--channels", str(M), *WIDE_APP_ARGS]
-    log(f"  the station app, python -m amps_tpu_torch {' '.join(argv)}")
+    log(f"  the station app, python -m amps_tpu_torch {' '.join(argv)} "
+        f"(card memory before it: {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
+        f"reserved)")
     result = {}
     S.LAUNCHES = R.LAUNCHES = 0
     sync(dev)
@@ -3420,11 +3493,14 @@ def block_by_taps(dev, card, M, Ts, Nh=8192):
 # are dense: 8.6 GB of matrices at 32768); WIDER_TIMES times them beside
 # 8192; WIDER_M is a 491.52 Msps station (a USRP X410's top master clock
 # rate), whose main path runs end to end
-WIDER_REFUSED = (8195, 16388, 32770)
+WIDER_REFUSED = (8195, 16389, 32769)
 WIDER_CHECKS = (8196, 12288, 16384, 20480, 12294, 28672, 32768, 16424)
 WIDER_NH = 501
 WIDER_TIMES = (8192, 12288, 16384)
 WIDER_PLAIN_TURNS = (3, 1)    # turns and calls of the dense plain versions
+# blocks of the closed loop's plain path in phases 33-35 (its dense
+# transforms take a large share of a second a block past 8192)
+WIDER_PLAIN_BLOCKS = 4
 WIDER_M = 16384
 
 
@@ -3441,10 +3517,14 @@ def wider_bounds(M):
 
 def free_dense_tables():
     """Drop the plain analysis's cached dense DFT matrices
-    (``_analysis_consts``, on the card): phase 33 holds one width's at a
-    time."""
+    (``_analysis_consts``, on the card) and release the allocator's
+    cache, after a garbage collection (a closed loop's CUDA graph and its
+    memory pool go with their stream): phase 33 holds one width's tables
+    at a time, and ``station_paths`` none while the transmitter runs."""
+    import gc
     from amps_tpu_torch.dsp import polyphase as pp
     pp._analysis_consts.cache_clear()
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -3468,9 +3548,8 @@ def phase_wider(dev, card, T=8, sps=3):
     log(f"phase 33: banks past 8192 channels (a cluster of up to 8 blocks a "
         f"hop, a radix-C pass across it), on {card}")
     assert_refused(dev, WIDER_REFUSED, T, sps)
-    log(f"  M = {', '.join(map(str, WIDER_REFUSED))} (odd, past 16384 with "
-        f"no cluster of at most 8 blocks of at most 4096 channels, past "
-        f"32768) raise ValueError in all four wrappers")
+    log(f"  M = {', '.join(map(str, WIDER_REFUSED))} (odd) raise "
+        f"ValueError in all four wrappers")
     out = {"clusters": {}, "errs": {
         k: {} for k in ("analysis", "rx_front", "rx_phases", "synth")},
         "f64": {k: {} for k in TAPS_TOL}}
@@ -3519,7 +3598,8 @@ def phase_wider(dev, card, T=8, sps=3):
         f"{WIDER_PLAIN_TURNS[1]} call)")
     torch.cuda.reset_peak_memory_stats(dev)
     out.update(station_paths(dev, card, WIDER_M, T, sps, loop_runs=1,
-                             loop_plain=WIDER_PLAIN_TURNS))
+                             loop_plain=WIDER_PLAIN_TURNS,
+                             plain_blocks=WIDER_PLAIN_BLOCKS))
     free_dense_tables()
     out["app"] = station_app_call(dev, card, WIDER_M)
     out["launches"]["app"] = out["app"]["launches"]
@@ -3542,9 +3622,11 @@ def phase_wider(dev, card, T=8, sps=3):
 # and K4's chunk launches); BLUESTEIN_TIMES times them beside phase 33's
 # 8192 and 16384 (``BLUESTEIN_BESIDE``); BLUESTEIN_M is a 491.46 Msps
 # station, whose main path runs end to end; BLUESTEIN_PROBE is the
-# cluster a chirp transform of 65536 points would need (the unsplit
-# widths past 16384), whose count the card holds is read, not launched
-BLUESTEIN_REFUSED = (16388, 16396, 32770, 8193)
+# cluster a chirp transform of 65536 points would have needed on the
+# clusters' route (the unsplit widths past 16384, which phase 35 runs
+# through device memory instead), whose count the card holds is read, not
+# launched
+BLUESTEIN_REFUSED = (8193, 16383, 32769, 0)
 BLUESTEIN_CHECKS = (8194, 8198, 13334, 16378, 16382)
 BLUESTEIN_LONG = ((8194,), 32)
 BLUESTEIN_TIMES = (8194, 16382)
@@ -3585,8 +3667,8 @@ def phase_bluestein(dev, card, wider_rows, T=8, sps=3):
     log(f"phase 34: the unsplit widths past 8192 (Bluestein's chirp "
         f"transform of length 32768 on a cluster of 8 blocks), on {card}")
     assert_refused(dev, BLUESTEIN_REFUSED, T, sps)
-    log(f"  M = {', '.join(map(str, BLUESTEIN_REFUSED))} (past 16384 with "
-        f"no split, past 32768, odd) raise ValueError in all four wrappers")
+    log(f"  M = {', '.join(map(str, BLUESTEIN_REFUSED))} (odd, 0) raise "
+        f"ValueError in all four wrappers")
     out = {"clusters": {}, "errs": {
         k: {} for k in ("analysis", "rx_front", "rx_phases", "synth")},
         "f64": {k: {} for k in TAPS_TOL},
@@ -3651,7 +3733,8 @@ def phase_bluestein(dev, card, wider_rows, T=8, sps=3):
     log(f"  times done at {time.perf_counter() - t0:.1f} s into the phase")
     torch.cuda.reset_peak_memory_stats(dev)
     out.update(station_paths(dev, card, BLUESTEIN_M, T, sps, loop_runs=1,
-                             witness=True, loop_plain=WIDER_PLAIN_TURNS))
+                             witness=True, loop_plain=WIDER_PLAIN_TURNS,
+                             plain_blocks=WIDER_PLAIN_BLOCKS))
     free_dense_tables()
     out["app"] = station_app_call(dev, card, BLUESTEIN_M)
     out["launches"]["app"] = out["app"]["launches"]
@@ -3662,7 +3745,235 @@ def phase_bluestein(dev, card, wider_rows, T=8, sps=3):
     return out
 
 
-DIGEST_WIDTHS = (8, 1024, 2038, 4098, 8192, 16384, 32768)
+# phase 35: every other even width, through device memory (the route of
+# csrc/route.cu: the hops of a chunk folded or loaded into a scratch
+# plane, a Stockham FFT of length L = 2^k as passes of radix 256 .. 4096
+# between two planes, directly where M is a power of two, Bluestein's
+# chirp convolution elsewhere, and each kernel's epilogue).  ROUTE_REFUSED
+# stay refused (odd, 0).  ROUTE_CHECKS holds each kernel to its plain
+# version and to float64 at ROUTE_NH hops (16388 = 4·17·241 the first
+# unsplit width past 16384 and 32766 = 2·3·43·127 the last, L = 65536;
+# 32770 the first past 32768, L = 131072; 65536 a power of two, direct),
+# ROUTE_FAR at a few hops (1048574 = 2·524287, L = 2^21; 8388610 = 2^23 +
+# 2, L = 2^25, three passes a transform), ROUTE_LONG at T = 32;
+# ROUTE_TIMES times them beside the split cluster of 8 at ROUTE_BESIDE;
+# ROUTE_M is a 982.98 Msps station, whose main path runs end to end with
+# the receiver's pushes of
+# ROUTE_PUSH_HOPS (the plain synthesis of its six pushes' band at 8192
+# hops a push ran out of the card's memory), the ear at ROUTE_EAR_HOPS
+# and the loop's plain path timed on WIDER_PLAIN_BLOCKS blocks
+ROUTE_REFUSED = (8193, 32769, 0)
+ROUTE_CHECKS = (16388, 32766, 32770, 65536)
+ROUTE_NH = 501
+ROUTE_FAR = ((1048574, 41), (8388610, 25))
+ROUTE_LONG = ((16388,), 32)
+ROUTE_TIMES = (32766, 65536)
+ROUTE_BESIDE = 32768
+ROUTE_M = 32766
+ROUTE_PUSH_HOPS = 4096
+ROUTE_EAR_HOPS = 16670
+# the plain versions' own error past 32768 (a float64 FFT between f32
+# folds or overlap-adds, cast once to f32), added to TAPS_TOL there
+ROUTE_PLAIN_F32 = {"analysis": 1e-6, "rx_front": 2e-6, "synth": 2e-6}
+
+
+def route_bounds(M):
+    """The kernel-vs-plain bounds of phase 35 at width M: up to 32768,
+    where the plain versions are dense f32 sums, phase 34's
+    ``bluestein_bounds``; past it TAPS_TOL plus ROUTE_PLAIN_F32, the
+    plain versions there being float64 inside.  Each kernel is held to
+    float64 within TAPS_TOL itself."""
+    if M <= 32768:
+        return bluestein_bounds(M)
+    return {k: TAPS_TOL[k] + ROUTE_PLAIN_F32[k] for k in TAPS_TOL}
+
+
+# the hop behind a chunk that each wrapper's route keeps (route.launches)
+ROUTE_BEHIND = {"analysis": 0, "rx_front": 1, "rx_phases": 1, "synth": 0}
+
+
+def route_geometry(M):
+    """The route's layout at width M: mode, L, the radices of a transform,
+    the passes a call runs a chunk, the scratch's rows a plane and
+    bytes."""
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import route
+    L = KA.route_length(M)
+    rad = KA.route_radices(L)
+    rows = route.scratch_rows(L)
+    return {"mode": "direct" if L == M else "bluestein", "L": L,
+            "radices": list(rad), "passes": len(rad) * (1 if L == M else 2),
+            "rows": rows, "scratch_bytes": 2 * rows * L * 8}
+
+
+def route_launches_seen(dev, M, Nh, T=8, sps=3):
+    """The CUDA launches of one call of each wrapper on the route at width
+    M over Nh hops, as the profiler sees them: the spans of csrc/route.cu's
+    kernels (``route_*``) that start in a window around the one call, on
+    zero inputs.  Each count is held to ``route.launches(M, Nh, behind)``
+    (fold or load, the passes, the epilogue, a chunk); a window short of
+    it is taken again, up to PROFILE_TRIES windows, each shortfall logged
+    (the profiler drops records: ``phase_loop_times``), and one past it
+    fails at once.  Returns {kernel: launches seen}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import route
+    from amps_tpu_torch.kernels import rx_front as R
+    from amps_tpu_torch.kernels import rx_phases as K
+    from amps_tpu_torch.kernels import synth as S
+    P = M // 2
+    x = torch.zeros(((Nh + 2 * T - 1) * P, 2), device=dev)
+    prev = torch.zeros((M, 2), device=dev)
+    Y = torch.zeros((Nh, M, 2), device=dev)
+    carry = torch.zeros((M * T - P, 2), device=dev)
+    calls = {"analysis": lambda: KA.analyze_block(x, M, T, 0),
+             "rx_front": lambda: R.analyze_demod(x, M, T, 0, prev),
+             "rx_phases": lambda: K.analyze_phases(x, M, T, sps, 0,
+                                                   torch.bfloat16),
+             "synth": lambda: S.synthesize_block(Y, M, T, 0, carry)}
+    seen = {}
+    for name, fn in calls.items():
+        want = route.launches(M, Nh, ROUTE_BEHIND[name])
+        for attempt in range(PROFILE_TRIES):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.zeros(1, device=dev)      # the window's first launch
+                sync(dev)
+                with record_function("route_window"):
+                    fn()
+                    sync(dev)
+            t_win = min(e.time_range.start for e in prof.events()
+                        if e.name == "route_window")
+            n = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and e.time_range.start >= t_win
+                    and not e.is_user_annotation and "route_" in e.name)
+            assert n <= want, (M, Nh, name, n, want)
+            if n == want:
+                break
+            log(f"  M={M}, Nh={Nh}: {n} route spans of {name} in the trace "
+                f"against {want} (try {attempt + 1} of {PROFILE_TRIES})")
+        assert n == want, (M, Nh, name, n, want)
+        seen[name] = n
+    del x, prev, Y, carry
+    torch.cuda.empty_cache()
+    log(f"  M={M}, Nh={Nh}: route kernels launched by one call (profiler "
+        f"spans, each = route.launches): {seen} in "
+        f"{route.chunks(M, Nh, 0)} / {route.chunks(M, Nh, 1)} chunks "
+        f"(K1, K4 / K2, K3)")
+    return seen
+
+
+def phase_route(dev, card, T=8, sps=3):
+    """Phase 35: every even width that no in-shared-memory mode takes,
+    through device memory.  Every wrapper refuses ROUTE_REFUSED; prints
+    each width's route (``route_geometry``); holds each kernel to its
+    plain version at ROUTE_CHECKS and ROUTE_FAR (phase 12's checks: both
+    parities, riq and planar, chained = one, K1 and K2 bit for bit) within
+    ``route_bounds`` and K1, K2 and K4 to float64 within TAPS_TOL, then
+    the same at ROUTE_LONG; times each kernel at ROUTE_TIMES (Nh=8192)
+    beside the split cluster at ROUTE_BESIDE (kernels alone); counts each
+    wrapper's CUDA launches in one call at each checked width and at
+    ROUTE_TIMES (``route_launches_seen``); runs the station's main path
+    at ROUTE_M (``station_paths``, phases 7 and 13 against float64) and
+    the station app's short call there, with the peak device memory of
+    each.  Returns the readings."""
+    from amps_tpu_torch.kernels import analysis as KA
+    from amps_tpu_torch.kernels import route
+    t0 = time.perf_counter()
+    log(f"phase 35: every other even width, through device memory (a "
+        f"Stockham FFT of passes of radix 256-4096 between scratch planes, "
+        f"direct at a power of two, Bluestein elsewhere), on {card}")
+    assert_refused(dev, ROUTE_REFUSED, T, sps)
+    log(f"  M = {', '.join(map(str, ROUTE_REFUSED))} (odd, 0) raise "
+        f"ValueError in all four wrappers")
+    out = {"geometry": {}, "errs": {
+        k: {} for k in ("analysis", "rx_front", "rx_phases", "synth")},
+        "f64": {k: {} for k in TAPS_TOL},
+        "f64_long": {k: {} for k in TAPS_TOL}}
+    for M in sorted(set(ROUTE_CHECKS + ROUTE_TIMES
+                        + tuple(M for M, _ in ROUTE_FAR))):
+        g = out["geometry"][M] = route_geometry(M)
+        assert g["L"] and M not in KA.FFT_WIDTHS, M
+        log(f"  M={M}: {g['mode']}, L={g['L']}, radices {g['radices']}, "
+            f"{g['passes']} passes a chunk, scratch of 2 x {g['rows']} rows "
+            f"({g['scratch_bytes'] / 2 ** 30:.2f} GiB)")
+    out["launches_seen"] = {}
+    checks = ([((M,), T, ROUTE_NH, "f64") for M in ROUTE_CHECKS]
+              + [((M,), T, nh, "f64") for M, nh in ROUTE_FAR]
+              + [ROUTE_LONG + (ROUTE_NH, "f64_long")])
+    for widths, Tc, nh, key in checks:
+        M = widths[0]
+        b = route_bounds(M)
+        t1 = time.perf_counter()
+        errs, _ = phase_small_widths(
+            dev, Nh=nh, widths=widths, Ts=(Tc,),
+            label=f"phase 35: each kernel vs plain (bounds K1 "
+                  f"{b['analysis']:.2e}, K2 {b['rx_front']:.2e} rad, K4 "
+                  f"{b['synth']:.2e} of RMS)",
+            times=False, seam=True, bounds=b, witness=out[key])
+        if Tc == T:
+            for k, v in errs.items():
+                out["errs"][k].update(v)
+        f = {k: out[key][k][M] for k in TAPS_TOL}
+        log(f"  M={M}, T={Tc}, Nh={nh} against float64 (both parities, riq "
+            f"and planar), kernel | plain: K1 "
+            f"{f['analysis'][0]:.3e} | {f['analysis'][1]:.3e}, K2 "
+            f"{f['rx_front'][0]:.3e} | {f['rx_front'][1]:.3e} rad, K4 "
+            f"{f['synth'][0]:.2e} | {f['synth'][1]:.2e} of RMS (kernels' "
+            f"bounds K1 {TAPS_TOL['analysis']:.0e}, K2 "
+            f"{TAPS_TOL['rx_front']:.0e}, K4 {TAPS_TOL['synth']:.0e}); "
+            f"{time.perf_counter() - t1:.1f} s")
+        assert all(f[k][0] <= TAPS_TOL[k] for k in TAPS_TOL), (M, Tc, f)
+        free_dense_tables()
+        if Tc == T:
+            out["launches_seen"][M, nh] = route_launches_seen(dev, M, nh, T,
+                                                              sps)
+        route.tables.cache_clear()
+        torch.cuda.empty_cache()
+    log(f"  checks done at {time.perf_counter() - t0:.1f} s into the phase")
+    out["rows"] = width_times(dev, card, ROUTE_TIMES, T,
+                              base=ROUTE_TIMES[0], plain=WIDER_PLAIN_TURNS)
+    free_dense_tables()
+    out["beside"] = width_rows(dev, ROUTE_BESIDE, T, 8192, plain=False)
+    for M, r in out["rows"].items():
+        w = out["beside"]
+        log(f"  M={M} against M={ROUTE_BESIDE} (the split cluster of 8), "
+            f"kernel ms: " + "; ".join(
+                f"{k} {r[k]['kernel']:.3f} vs {w[k]['kernel']:.3f} "
+                f"({r[k]['kernel'] / w[k]['kernel']:.2f}x, bound "
+                f"{r[k]['bound']:.3f})" for k in r if k != "fft"))
+    for M in ROUTE_TIMES:
+        out["launches_seen"][M, 8192] = route_launches_seen(dev, M, 8192, T,
+                                                            sps)
+    log(f"  times and launches done at {time.perf_counter() - t0:.1f} s into "
+        f"the phase")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out.update(station_paths(dev, card, ROUTE_M, T, sps, loop_runs=1,
+                             witness=True, loop_plain=WIDER_PLAIN_TURNS,
+                             push=ROUTE_PUSH_HOPS * (ROUTE_M // 2),
+                             ear_hops=ROUTE_EAR_HOPS,
+                             plain_blocks=WIDER_PLAIN_BLOCKS))
+    out["paths_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    free_dense_tables()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["app"] = station_app_call(dev, card, ROUTE_M)
+    out["app"]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["app"]["reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+    out["launches"]["app"] = out["app"]["launches"]
+    out["peak_gb"] = max(out["paths_peak_gb"], out["app"]["peak_gb"])
+    log(f"  peak device memory at M={ROUTE_M} (torch.cuda.max_memory_"
+        f"allocated): the paths {out['paths_peak_gb']:.2f} GB, the app's "
+        f"call {out['app']['peak_gb']:.2f} GB ("
+        f"{out['app']['reserved_gb']:.2f} GB reserved at most, the "
+        f"allocator's default segments); phase 35 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+DIGEST_WIDTHS = (8, 1024, 2038, 4098, 8192, 16382, 16384, 32768)
 
 
 def digest(tree, widths=DIGEST_WIDTHS, Ts=(8, 32)):
@@ -3953,6 +4264,11 @@ def main() -> int:
           "path at M=16382")
     blue = phase_bluestein(dev, card, wider["rows"])
 
+    # -- phase 35: every other even width, the main path at M=32766 -------
+    stamp("phase 35: every other even width through device memory, the "
+          "main path at M=32766")
+    rt = phase_route(dev, card)
+
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
@@ -4030,6 +4346,24 @@ def main() -> int:
                 "bluestein_max_clusters": {
                     str(m): n[name] for m, n in blue["clusters"].items()},
                 "bluestein_peak_memory_gb": blue["peak_gb"],
+                "route_source": "amps_tpu_torch/csrc/route.cu",
+                "route_max_abs_err": {
+                    str(m): e for m, e in rt["errs"][name].items()},
+                "route_vs_float64": {
+                    f"{m}/T{t}": {"kernel": e[0], "plain": e[1]}
+                    for key, t in (("f64", 8), ("f64_long", ROUTE_LONG[1]))
+                    for m, e in rt[key].get(name, {}).items()},
+                **{f"route_{key}_ms": {
+                    str(m): r[name][key] for m, r in rt["rows"].items()}
+                   for key in ("kernel", "plain", "bound")},
+                "route_fft_ms": {
+                    str(m): r["fft"] for m, r in rt["rows"].items()},
+                "route_beside_ms": {
+                    str(ROUTE_BESIDE): rt["beside"][name]["kernel"]},
+                "route_launches_per_call": {
+                    f"M={m},Nh={nh}": n[name]
+                    for (m, nh), n in rt["launches_seen"].items()},
+                "route_peak_memory_gb": rt["peak_gb"],
                 **more}
 
     # the one-shot block (K3) at T=8 and T=32 on one band
@@ -4062,6 +4396,8 @@ def main() -> int:
                                     wider["launches"]["analysis"],
                                 "m16382_analyze":
                                     blue["launches"]["analysis"],
+                                "m32766_analyze":
+                                    rt["launches"]["analysis"],
                                 "t32_analyze": taps["launches"]["analysis"],
                                 "t32_sharded_step":
                                     taps["launches"]["sharded_step"][0],
@@ -4087,6 +4423,7 @@ def main() -> int:
                                 "m8192_block": widest["launches"]["block"],
                                 "m16384_block": wider["launches"]["block"],
                                 "m16382_block": blue["launches"]["block"],
+                                "m32766_block": rt["launches"]["block"],
                                 "t32_block": taps["launches"]["block"]},
               entry_ms=entry_t["kernel"], entry_plain_ms=entry_t["plain"],
               **k3_more,
@@ -4125,6 +4462,12 @@ def main() -> int:
                                     blue["launches"]["loop"][1],
                                 "m16382_station_app":
                                     blue["launches"]["app"][1],
+                                "m32766_receiver":
+                                    rt["launches"]["receiver"],
+                                "m32766_closed_loop":
+                                    rt["launches"]["loop"][1],
+                                "m32766_station_app":
+                                    rt["launches"]["app"][1],
                                 "t32_receiver": taps["launches"]["receiver"],
                                 "t32_loop": taps["launches"]["loop"][1],
                                 "supervision": sup_launches,
@@ -4173,6 +4516,12 @@ def main() -> int:
                                     blue["launches"]["loop"][0],
                                 "m16382_station_app":
                                     blue["launches"]["app"][0],
+                                "m32766_transmitter":
+                                    rt["launches"]["transmitter"],
+                                "m32766_closed_loop":
+                                    rt["launches"]["loop"][0],
+                                "m32766_station_app":
+                                    rt["launches"]["app"][0],
                                 "t32_transmitter":
                                     taps["launches"]["transmitter"],
                                 "t32_loop": taps["launches"]["loop"][0],

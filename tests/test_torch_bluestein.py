@@ -93,32 +93,43 @@ def test_bluestein_length_is_32768_exactly_at_the_unsplit_widths():
 
 
 def test_check_fft_width_takes_every_even_width_to_16384():
-    """check_fft_width takes all 8192 even widths from 2 to 16384 and
-    exactly the 3760 split widths in (16384, 32768]; every other width
-    (odd, unsplit past 16384, past 32768) raises, naming both rules;
-    FFT_WIDTHS lists the taken widths."""
-    taken = []
+    """check_fft_width takes all 8192 even widths from 2 to 16384 and,
+    past it, every even width: in shared memory exactly the 3760 split
+    widths in (16384, 32768], the others (unsplit, past 32768) through
+    device memory; odd widths and M < 2 raise, naming every rule;
+    FFT_WIDTHS lists the shared-memory widths."""
+    shared = []
     for M in range(-3, 32800):
-        ok = M > 0 and M % 2 == 0 and (M <= 16384 or
-                                       (M <= 32768 and _split(M) > 0))
-        if ok:
+        if M > 0 and M % 2 == 0:
             KA.check_fft_width(M)
-            taken.append(M)
+            if M <= 16384 or (M <= 32768 and _split(M) > 0):
+                shared.append(M)
+            else:
+                assert KA.route_length(M), M
         else:
             with pytest.raises(ValueError, match=REFUSED) as e:
                 KA.check_fft_width(M)
             assert "or M = C·N with C <= 8 and N <= 4096" in str(e.value)
-    assert sum(M <= 16384 for M in taken) == 8192
-    assert sum(M > 16384 for M in taken) == 3760
-    assert KA.FFT_WIDTHS == tuple(taken)
+    assert sum(M <= 16384 for M in shared) == 8192
+    assert sum(M > 16384 for M in shared) == 3760
+    assert KA.FFT_WIDTHS == tuple(shared)
 
 
 @pytest.mark.parametrize("M", [16388, 16396, 16402, 32770, 8193, 16383])
 def test_widths_past_both_rules_are_refused(M):
-    """16388 = 4·17·241 (the first unsplit width past 16384), 16396 =
-    4·4099, 16402 = 2·59·139, 32770 (past 32768) and odd widths raise."""
-    with pytest.raises(ValueError, match=REFUSED):
+    """Odd widths and M < 2 raise; 16388 = 4·17·241 (the first unsplit
+    width past 16384), 16396 = 4·4099, 16402 = 2·59·139 and 32770 (past
+    32768), past both shared-memory rules, are taken through device
+    memory (L = 65536, and 131072 at 32770)."""
+    if M % 2:
+        with pytest.raises(ValueError, match=REFUSED):
+            KA.check_fft_width(M)
+    else:
         KA.check_fft_width(M)
+        assert KA.route_length(M) == (65536 if M < 32768 else 131072)
+    for refused in (0, 1 - M):
+        with pytest.raises(ValueError, match=REFUSED):
+            KA.check_fft_width(refused)
 
 
 def test_bluestein_geometry_every_width():

@@ -60,6 +60,10 @@ def test_cluster_size_and_half_width_plan_every_width_past_4096():
         assert KA.fft_cluster_size(M) == 1 and KA.fft_plan_width(M) == M
     # past 8192 clusters of up to CLUSTER_SIZE = 8 (test_torch_cluster_wide)
     assert KA.MAX_FFT_WIDTH == 32768 == KA.CLUSTER_SIZE * KA.BLOCK_WIDTH
+    # past it every even width runs through device memory (the route,
+    # tests/test_torch_route.py), none on a cluster
+    assert KA.route_length(KA.MAX_FFT_WIDTH + 2) == 131072
+    assert KA.fft_cluster_size(KA.MAX_FFT_WIDTH + 2) == 0
 
 
 def test_cluster_block_shared_memory_every_width_past_4096():

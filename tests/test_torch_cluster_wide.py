@@ -83,26 +83,33 @@ def test_cluster_size_is_the_rule_at_every_even_width():
         N = KA.fft_plan_width(M)
         assert int(np.prod(KA.fft_radices(N))) == N, M
     assert KA.CLUSTER_SIZE * KA.BLOCK_WIDTH == KA.MAX_FFT_WIDTH == 32768
+    # the route's limit: every even width the clusters do not split, past
+    # 16384 and past 32768, through device memory (tests/test_torch_route.py)
+    assert KA.route_length(16388) == KA.route_length(32766) == 65536
+    assert KA.route_length(32768) == 0
 
 
 def test_check_fft_width_takes_exactly_the_rule():
-    """check_fft_width takes every even M from 2 to 8192 and, past it,
-    exactly the M = C·N the rule splits, up to 32768, and the even
-    widths up to 16384 it does not split (Bluestein's,
-    tests/test_torch_bluestein.py); every other width raises, naming the
-    rule; FFT_WIDTHS lists the taken widths."""
-    taken = []
+    """The shared-memory modes take every even M from 2 to 8192 and,
+    past it, exactly the M = C·N the rule splits, up to 32768, and the
+    even widths up to 16384 it does not split (Bluestein's,
+    tests/test_torch_bluestein.py): FFT_WIDTHS lists them.
+    check_fft_width takes every even M >= 2 (the others through device
+    memory, tests/test_torch_route.py); odd M and M < 2 raise, naming the
+    rule."""
+    shared = []
     for M in range(-2, 32800):
-        ok = M > 0 and M % 2 == 0 and M <= 32768 and (_rule(M) > 0
-                                                      or M <= 16384)
-        if ok:
+        if M > 0 and M % 2 == 0:
             KA.check_fft_width(M)
-            taken.append(M)
+            if M <= 32768 and (_rule(M) > 0 or M <= 16384):
+                shared.append(M)
         else:
             with pytest.raises(ValueError, match="or M = C·N with C <= 8"):
                 KA.check_fft_width(M)
-    assert KA.FFT_WIDTHS == tuple(taken)
-    assert taken[:4] == [2, 4, 6, 8] and taken[-1] == 32768
+    assert KA.FFT_WIDTHS == tuple(shared)
+    assert shared[:4] == [2, 4, 6, 8] and shared[-1] == 32768
+    # past 32768 every even width goes through device memory
+    assert KA.route_length(32770) == 131072
 
 
 def test_block_shared_memory_and_hops_past_8192():

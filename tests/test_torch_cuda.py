@@ -81,9 +81,12 @@ def test_kernel_rejects_what_it_cannot_run(cuda_device):
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):
         K.analyze_phases(x, 95, 8)          # odd M
-    with pytest.raises(ValueError):         # past the tile's 32768
+    with pytest.raises(ValueError):         # odd past 32768
+        K.analyze_phases(torch.zeros(((100 + 15) * 16384, 2),
+                                     device=cuda_device), 32769, 8)
+    with pytest.raises(ValueError):         # sps past the route's 16
         K.analyze_phases(torch.zeros(((100 + 15) * 16385, 2),
-                                     device=cuda_device), 32770, 8)
+                                     device=cuda_device), 32770, 8, sps=17)
     with pytest.raises(ValueError):
         K.analyze_phases(x.double(), 96, 8)
     with pytest.raises(ValueError):         # sps past the tile's hops
@@ -221,9 +224,9 @@ def test_analysis_kernel_rejects_what_it_cannot_run(cuda_device):
     with pytest.raises(ValueError):            # odd M
         KA.analyze_block(torch.zeros(((Nh + 15) * 48, 2), device=cuda_device),
                          97, T)
-    with pytest.raises(ValueError):            # unsplit past 16384
+    with pytest.raises(ValueError):            # M = 0
         KA.analyze_block(torch.zeros(((Nh + 15) * 8194, 2),
-                                     device=cuda_device), 16388, T)
+                                     device=cuda_device), 0, T)
     with pytest.raises(ValueError):            # rows that are no (n, 2) block
         KA.analyze_block(torch.zeros((2, n, 3), device=cuda_device), M, T)
     with pytest.raises(ValueError):
@@ -270,10 +273,10 @@ def test_synth_kernel_chained_calls_equal_one(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_cannot_run(cuda_device):
-    Y = torch.zeros((10, 16396, 2), device=cuda_device)
-    with pytest.raises(ValueError):            # unsplit past 16384
-        K4.synthesize_block(Y, 16396, 8, 0, torch.zeros(
-            (16396 * 8 - 8198, 2), device=cuda_device))
+    Y = torch.zeros((10, 16397, 2), device=cuda_device)
+    with pytest.raises(ValueError):            # odd past 16384
+        K4.synthesize_block(Y, 16397, 8, 0, torch.zeros(
+            (16397 * 8 - 8198, 2), device=cuda_device))
     x = torch.zeros(((100 + 15) * 48, 2), device=cuda_device)
     with pytest.raises(ValueError):            # odd M
         K2.analyze_demod(x, 95, 8, 0, torch.zeros((95, 2), device=cuda_device))
@@ -572,24 +575,26 @@ def test_small_width_synth_kernel(cuda_device, M, T, parity):
 
 @pytest.mark.cuda
 def test_widths_the_tile_cannot_take_raise(cuda_device, mixed_libraries):
-    """Odd M, M past 32768 and the widths past 16384 that no cluster of
-    at most 8 blocks of at most 4096 channels splits raise on the card,
-    naming both rules; no width reaches the plain version.  The unsplit
-    widths up to 16384 (8194, 8198) run the kernels."""
-    for M in (13, 16396, 4097, 16388, 32770):
+    """Odd M and M < 2 raise on the card, naming every rule; no width
+    reaches the plain version.  The unsplit widths up to 16384 (8194,
+    8198) run the kernels in shared memory; the unsplit widths past 16384
+    (16396, 16388) and M past 32768 (32770) run them through device
+    memory (the route), each call one launch of the wrapper."""
+    for M in (13, 16397, 4097, 16389, 32769):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
         with pytest.raises(ValueError):
             KA.analyze_block(x, M, 8)
         with pytest.raises(ValueError):
             K.analyze_phases(x, M, 8)
-    for M in (8194, 8198):
+    for M in (8194, 8198, 16396, 16388, 32770):
         x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
         before = KA.LAUNCHES
         assert torch.isfinite(KA.analyze_block(x, M, 8)).all()
         assert KA.LAUNCHES == before + 1
+        assert bool(KA.route_length(M)) == (M > 16384)
     rule = "even M from 2 to 16384 .past 8192 split, or Bluestein"
-    for M in (16396, 16388, 32770):
-        x = torch.zeros(((100 + 15) * (M // 2), 2), device=cuda_device)
+    for M in (16397, 0, 32769):
+        x = torch.zeros(((100 + 15) * max(M // 2, 1), 2), device=cuda_device)
         with pytest.raises(ValueError, match=rule):
             KA.analyze_block(x, M, 8)
         with pytest.raises(ValueError, match=rule):
@@ -626,6 +631,11 @@ WIDER = [(M, parity, planar) for M in (12294, 16384)
 # 8198 = 2·4099 and 16382 = 2·8191 (the widest, 491.46 Msps)
 BLUESTEIN = [(M, parity, planar) for M in (8194, 8198, 16382)
              for parity, planar in ((0, False), (1, True))]
+# every other even width, through device memory (the main library's
+# route): 16388 = 4·17·241 (Bluestein, L = 65536), 32770 (past 32768, L =
+# 131072) and 65536 (a power of two, direct)
+ROUTE = [(16388, 0, False), (16388, 1, True), (32770, 1, False),
+         (65536, 0, True)]
 
 
 @pytest.fixture(scope="module")
@@ -674,7 +684,7 @@ def _held_to_phase_atol(err, ref, atol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,parity,planar",
-                         MIXED + WIDE + WIDEST + WIDER + BLUESTEIN)
+                         MIXED + WIDE + WIDEST + WIDER + BLUESTEIN + ROUTE)
 def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K1 at a width that is not a power of two: atol 2e-4 on
@@ -694,7 +704,7 @@ def test_mixed_width_analysis_kernel(cuda_device, mixed_libraries, M,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,parity,planar",
-                         MIXED + WIDE + WIDEST + WIDER + BLUESTEIN)
+                         MIXED + WIDE + WIDEST + WIDER + BLUESTEIN + ROUTE)
 def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
                                      parity, planar):
     """K2 on FSK in every channel: demod within 1e-3 (fast_atan2's seam
@@ -720,7 +730,7 @@ def test_mixed_width_rx_front_kernel(cuda_device, mixed_libraries, M,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,parity,planar",
-                         MIXED + WIDE + WIDEST + WIDER + BLUESTEIN)
+                         MIXED + WIDE + WIDEST + WIDER + BLUESTEIN + ROUTE)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
                                       parity, planar, bf16):
@@ -754,7 +764,7 @@ def test_mixed_width_rx_phases_kernel(cuda_device, mixed_libraries, M,
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,parity",
                          [(M, p) for M, p, _ in
-                          MIXED + WIDE + WIDEST + WIDER + BLUESTEIN])
+                          MIXED + WIDE + WIDEST + WIDER + BLUESTEIN + ROUTE])
 def test_mixed_width_synth_kernel(cuda_device, mixed_libraries, M, parity):
     """K4 with a carry in: 1e-4 of the output RMS."""
     T, Nh = 8, 333
@@ -772,6 +782,43 @@ def test_mixed_width_synth_kernel(cuda_device, mixed_libraries, M, parity):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,parity", [(16388, 0), (16388, 1), (65536, 1)])
+def test_route_takes_one_hop(cuda_device, M, parity):
+    """On the device-memory route a block of one hop (a streaming call
+    may hand one) runs K1 and K4 in one chunk of a single row, and K2 in
+    one of two (the hop behind it): each within the mixed-width tests'
+    bounds of its plain version, K4's output and carry each of its own
+    RMS."""
+    T, P = 8, M // 2
+    x = unit_channel_band(M, T, 1, M, cuda_device)
+    y = KA.analyze_block(x, M, T, parity)
+    ry = KA.analyze_reference(x, M, T, parity)
+    assert y.shape == ry.shape == (M, 1, 2)
+    assert (y - ry).abs().max().item() <= 2e-4
+    # K2 on the hop 30 hops into an FSK band (past the bank's ramp-up)
+    band = _fsk_band(M, T, 31, M + 1, cuda_device)
+    x = band[30 * P:(31 + 2 * T - 1) * P].contiguous()
+    prev = torch.randn((M, 2), device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(M))
+    d, last, _ = K2.analyze_demod(x, M, T, parity, prev)
+    rd, rlast, _ = K2.analyze_demod_reference(x, M, T, parity, prev)
+    assert d.shape == rd.shape == (M, 1)
+    _held_to_phase_atol((d - rd).abs(), rd, 1e-3)
+    assert ((last - rlast).abs().max() / rlast.pow(2).mean().sqrt()).item() \
+        <= 1e-4
+    g = torch.Generator(cuda_device).manual_seed(M + parity)
+    Y = torch.randn((1, M, 2), device=cuda_device, generator=g)
+    carry = torch.randn((M * T - P, 2), device=cuda_device, generator=g)
+    out, c = K4.synthesize_block(Y, M, T, parity, carry)
+    rout, rc = K4.synthesize_block_reference(Y, M, T, parity, carry)
+    # each against its own RMS: one hop's output holds the filter's first
+    # taps, its carry the central ones (~20x larger at 16388)
+    for got, ref in ((out, rout), (c, rc)):
+        assert ((got - ref).abs().max() / ref.pow(2).mean().sqrt()).item() \
+            <= 1e-4
+
+
+@pytest.mark.cuda
 def test_chained_calls_equal_one_at_768(cuda_device, mixed_libraries):
     """At M=768 two chained calls (an odd first block: the parity flips)
     equal one call: K1 and K2 bit for bit; K4 within 1e-4 of the output
@@ -781,14 +828,15 @@ def test_chained_calls_equal_one_at_768(cuda_device, mixed_libraries):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [4098, 6144, 8190, 8192, 16384, 8194, 16382])
+@pytest.mark.parametrize("M", [4098, 6144, 8190, 8192, 16384, 8194, 16382,
+                               16388, 32770])
 def test_chained_calls_equal_one_at_cluster_widths(cuda_device,
                                                    mixed_libraries, M):
     """Past 4096, where a cluster of blocks shares each hop (two up to
     8192, four at 16384, with the radix-4 pass across them, eight at
-    8194 and 16382 in the Bluestein mode): two chained calls equal one
-    call, K1 and K2 bit for bit, K4 within 1e-4 of the output RMS, as at
-    768."""
+    8194 and 16382 in the Bluestein mode), and on the device-memory route
+    (16388, 32770): two chained calls equal one call, K1 and K2 bit for
+    bit, K4 within 1e-4 of the output RMS, as at 768."""
     _chained_calls_equal_one(cuda_device, M)
 
 

@@ -111,16 +111,23 @@ def test_fft_plan_and_twiddles_every_width():
 
 @pytest.mark.parametrize("M", [7, 16396, 32770, 4097, 16402, 16388, 1023])
 def test_widths_the_tile_refuses(M):
-    """Only odd M, M past 32768 and the widths past 16384 that no
-    cluster of at most 8 blocks of at most 4096 channels splits (16388 =
-    4·17·241, 16396 = 4·4099, 16402 = 2·59·139) are refused, naming both
-    rules; the unsplit widths up to 16384 (8194 = 2·17·241, 8198 =
-    2·4099) are taken, by Bluestein's chirp transform."""
-    with pytest.raises(ValueError,
-                       match="even M from 2 to 16384 .past 8192 split, or "
-                             "Bluestein's chirp transform of length 32768.,"
-                             " or M = C·N with C <= 8"):
+    """Only odd M and M < 2 are refused, naming every rule; the widths
+    past 16384 that no cluster of at most 8 blocks of at most 4096
+    channels splits (16388 = 4·17·241, 16396 = 4·4099, 16402 =
+    2·59·139) and M past 32768 (32770) are taken through device memory
+    (``route_length``), the unsplit widths up to 16384 (8194 =
+    2·17·241, 8198 = 2·4099) by Bluestein's chirp transform."""
+    rule = ("even M from 2 to 16384 .past 8192 split, or Bluestein's chirp "
+            "transform of length 32768., or M = C·N with C <= 8")
+    if M % 2:
+        with pytest.raises(ValueError, match=rule):
+            KA.check_fft_width(M)
+    else:
         KA.check_fft_width(M)
+        assert KA.route_length(M) and M not in KA.FFT_WIDTHS
+    for refused in (0, -M):
+        with pytest.raises(ValueError, match=rule):
+            KA.check_fft_width(refused)
     for taken in (8194, 8198):
         KA.check_fft_width(taken)
 
