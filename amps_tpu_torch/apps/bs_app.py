@@ -333,7 +333,7 @@ def _run_mesh(args, result: dict | None = None):
                   f"(mesh {T}x{C})")
             if result is not None:
                 result["port"] = server.port
-        tx_meter = meter("tx_wideband")
+        tx_meter = meter("tx_wideband", dev)
         loop = asyncio.get_running_loop()
         had_call = False
         for b in range(args.blocks):
@@ -438,8 +438,8 @@ def main(argv=None, _result: dict | None = None):
             if _result is not None:
                 _result["port"] = server.port
 
-        tx_meter = meter("tx_wideband")
-        rx_meter = meter("rx_wideband")
+        tx_meter = meter("tx_wideband", dev)
+        rx_meter = meter("rx_wideband", dev)
         sim_blocks = [b for b in (_sim_block(ev, spec, dev)
                                   for ev in args.simulate) if b is not None]
 

@@ -50,6 +50,7 @@ from amps_tpu_torch.rx import correlator, decoder
 from amps_tpu_torch.rx.voice import supervision_levels
 from amps_tpu_torch.tx.focc import FoccStream, focc_frame_bits
 from amps_tpu_torch.tx.recc_ms import CODED_DCC
+from amps_tpu_torch.utils import profiling
 
 # minimum-Hamming-distance decode of the 7-bit coded DCC (553 2.6.1.2)
 _DCC_CODES = np.array([CODED_DCC[d] for d in range(4)], np.int32)
@@ -243,7 +244,11 @@ def closed_loop_block(Y, st: dict, spec: MultichannelSpec,
     quality (M, K), words (M, K, 7, 36), word_ok (M, K, 7).  The hop
     parity is 0 at every block, which needs an even hop count.  Nothing
     here reads a tensor on the host, so the body can be captured as a
-    CUDA graph."""
+    CUDA graph.  The back end after the front end runs as four
+    contiguous ``utils.profiling`` stages: ``loop.phases`` (the carried
+    demod's concatenation, the bf16 cast, the phase streams),
+    ``loop.search`` (the trigger search and the fit mask),
+    ``loop.capture`` (capture and trigger gate), ``loop.decode``."""
     M, T, sps = spec.num_channels, spec.taps_per_phase, spec.chan_sps
     if Y.shape[0] % 2:
         raise ValueError(f"closed-loop blocks need an even hop count, got "
@@ -251,22 +256,28 @@ def closed_loop_block(Y, st: dict, spec: MultichannelSpec,
     x, syn_tail = synthesize(Y, M, T, 0, st["syn_carry"])
     x_ext = torch.cat([st["hist"], x], dim=0)
     demod_new, last, _ = front_end(x_ext, M, T, 0, st["prev"])
-    demod = torch.cat([st["carry"], demod_new], dim=-1)
-    dsp = demod.to(torch.bfloat16) if spec.io_bf16 else demod
-    phases = correlator.symbol_phase_streams(dsp, sps)
-    starts, valid, quality = correlator.find_bursts_phases(
-        phases, sps, max_bursts, threshold, out_bf16=spec.corr_bf16)
-    valid = valid & (starts + correlator.CAPTURE_SYMBOLS * sps
-                     <= demod.shape[-1])
-    lead = correlator.TRIGGER_SYMBOLS if spec.max_trigger_errors >= 0 else 0
-    ext = correlator.extract_from_phases(
-        phases, starts, sps,
-        hard_dtype=torch.bfloat16 if spec.io_bf16 else torch.uint8,
-        lead=lead)
-    if spec.max_trigger_errors >= 0:
-        valid = correlator.apply_trigger_gate_soft(
-            valid, ext[2], spec.max_trigger_errors, starts, sps)
-    dec = decoder.decode_bursts(ext[0], repeat_gate=spec.decode_repeat_gate)
+    with profiling.stage("loop.phases", Y.device):
+        demod = torch.cat([st["carry"], demod_new], dim=-1)
+        dsp = demod.to(torch.bfloat16) if spec.io_bf16 else demod
+        phases = correlator.symbol_phase_streams(dsp, sps)
+    with profiling.stage("loop.search", Y.device, joined=True):
+        starts, valid, quality = correlator.find_bursts_phases(
+            phases, sps, max_bursts, threshold, out_bf16=spec.corr_bf16)
+        valid = valid & (starts + correlator.CAPTURE_SYMBOLS * sps
+                         <= demod.shape[-1])
+    with profiling.stage("loop.capture", Y.device, joined=True):
+        lead = (correlator.TRIGGER_SYMBOLS if spec.max_trigger_errors >= 0
+                else 0)
+        ext = correlator.extract_from_phases(
+            phases, starts, sps,
+            hard_dtype=torch.bfloat16 if spec.io_bf16 else torch.uint8,
+            lead=lead)
+        if spec.max_trigger_errors >= 0:
+            valid = correlator.apply_trigger_gate_soft(
+                valid, ext[2], spec.max_trigger_errors, starts, sps)
+    with profiling.stage("loop.decode", Y.device, joined=True):
+        dec = decoder.decode_bursts(ext[0],
+                                    repeat_gate=spec.decode_repeat_gate)
     nc = st["carry"].shape[-1]
     keep = M * T - M // 2
     st2 = {"syn_carry": syn_tail,
@@ -307,7 +318,14 @@ def make_closed_loop_stream(spec: MultichannelSpec, nblocks: int,
     through their wrappers, so ``run`` adds each replay's kernel
     launches, as counted at capture, to the wrappers' ``LAUNCHES``.
     ``synthesize`` and ``front_end`` are the two kernel wrappers; their
-    plain versions run the plain path on any device (to compare)."""
+    plain versions run the plain path on any device (to compare).
+
+    Each ``run`` opens a call of ``utils.profiling`` with the host span
+    ``loop.entry`` (up to the first replay or step).  The block's four
+    back-end stages are captured in a second graph of the same body,
+    sharing the first one's memory pool and replayed as each call's
+    last block, so only that block carries their event nodes; after a
+    call's replays the events hold that block's device times."""
     M = spec.num_channels
     dev = resolve_device(device)
     chz.check_fold(spec.fold)
@@ -370,32 +388,44 @@ def make_closed_loop_stream(spec: MultichannelSpec, nblocks: int,
         # capture launched nothing: what it counted is one replay's share
         static["per_replay"] = (_k_synth.LAUNCHES - before[0],
                                 _k_rx_front.LAUNCHES - before[1])
+        # the same body with the back end's stage events, in the first
+        # graph's pool, replayed as a call's last block (the one read):
+        # event nodes slow every replay that has them
+        last = torch.cuda.CUDAGraph()
+        with profiling.capturing() as stages, \
+                torch.cuda.graph(last, pool=g.pool()):
+            step(static["Y"], static["st"], static["sums"], True)
+        static["graph"], static["last"], static["stages"] = g, last, stages
         _k_synth.LAUNCHES, _k_rx_front.LAUNCHES = before
-        static["graph"] = g
 
     def run(word_pairs):
-        Y = prep(word_pairs)
+        profiling.begin_call()
         if not use_graph:
-            st, sums = closed_loop_state0(spec, frames, dev), sums0()
+            with profiling.trace("loop.entry"):
+                Y = prep(word_pairs)
+                st, sums = closed_loop_state0(spec, frames, dev), sums0()
             for _ in range(nblocks):
                 st, sums = step(Y, st, sums, False)
             return sums
         with torch.cuda.device(dev):
-            if not static:
-                try:
-                    capture()
-                except BaseException:
-                    static.clear()
-                    raise
-            static["Y"].copy_(Y)
-            for v in static["st"].values():
-                v.zero_()
-            for v, v0 in zip(static["sums"], sums0()):
-                v.copy_(v0)
-            for _ in range(nblocks):
-                static["graph"].replay()
+            with profiling.trace("loop.entry"):
+                Y = prep(word_pairs)
+                if not static:
+                    try:
+                        capture()
+                    except BaseException:
+                        static.clear()
+                        raise
+                static["Y"].copy_(Y)
+                for v in static["st"].values():
+                    v.zero_()
+                for v, v0 in zip(static["sums"], sums0()):
+                    v.copy_(v0)
+            for b in range(nblocks):
+                static["last" if b == nblocks - 1 else "graph"].replay()
                 _k_synth.LAUNCHES += static["per_replay"][0]
                 _k_rx_front.LAUNCHES += static["per_replay"][1]
+            profiling.replayed(static["stages"])
         return tuple(v.clone() for v in static["sums"])
 
     return run, block_samples

@@ -29,6 +29,7 @@ from amps_tpu_torch.parallel import pipeline as pl
 from amps_tpu_torch.rx.correlator import window_power_blocks
 from amps_tpu_torch.runtime.streamer import (MultichannelReceiver,
                                              MultichannelTransmitter)
+from amps_tpu_torch.utils import profiling
 
 BRANCH_CUT_FRACTION = 1e-5
 
@@ -1368,3 +1369,56 @@ def test_zero_taps_raise(cuda_device):
     with pytest.raises(ValueError):
         K4.synthesize_block(torch.zeros((Nh, M, 2), device=cuda_device), M,
                             0, 0, torch.zeros((0, 2), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_stages_captured_in_a_graph_time_each_replay(cuda_device):
+    """Two joined ``utils.profiling`` stages captured in a CUDA graph
+    inside ``capturing()`` stamp three event nodes, a graph captured
+    outside it none; after the replays and a sync, ``collect`` reads a
+    positive device time of each, the second longer (it does four times
+    the work), and nothing is left pending."""
+    profiling.reset()
+    a = torch.randn((2048, 2048), device=cuda_device)
+    b = torch.empty_like(a)
+
+    def body():
+        with profiling.stage("t.one", cuda_device):
+            b.copy_(a @ a)
+        with profiling.stage("t.four", cuda_device, joined=True):
+            for _ in range(4):
+                b.copy_(b @ a)
+
+    with torch.cuda.device(cuda_device):
+        side = torch.cuda.Stream(device=cuda_device)
+        side.wait_stream(torch.cuda.current_stream(cuda_device))
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream(cuda_device).wait_stream(side)
+        torch.cuda.synchronize(cuda_device)
+        profiling.reset()
+        # outside capturing() a captured stage stamps nothing
+        plain = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(plain):
+            body()
+        profiling.collect()
+        assert profiling.stage_samples("t.one") == []
+        assert profiling.COUNTERS["stage_pending"] == 0
+        g = torch.cuda.CUDAGraph()
+        with profiling.capturing() as stages, \
+                torch.cuda.graph(g, pool=plain.pool()):
+            body()
+        assert [s[0] for s in stages] == ["t.one", "t.four"]
+        assert stages[0][2] is stages[1][1]         # one shared event
+        call = profiling.begin_call()
+        for _ in range(3):
+            plain.replay()
+        g.replay()
+        profiling.replayed(stages)
+        torch.cuda.synchronize(cuda_device)
+    profiling.collect()
+    one, = [ms for c, ms in profiling.stage_samples("t.one") if c == call]
+    four, = [ms for c, ms in profiling.stage_samples("t.four") if c == call]
+    assert 0 < one < four
+    assert profiling.COUNTERS["stage_pending"] == 0
+    profiling.reset()
