@@ -5,9 +5,11 @@ Every ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 processes; the objects link into one shared library with a plain C
 interface.  The main library instantiates the FFT tile at every power of
 two from 2 to 4096 and holds the device-memory route (``route.cu``,
-whose widths are runtime arguments); any other width M the tile takes
+whose widths are runtime arguments) and the trigger search
+(``trigger_search.cu``); any other width M the tile takes
 (8192 and the other cluster widths past 4096 among them) compiles into a
-small library of its own, from the same sources but the route's with
+small library of its own, from the same sources but the width-free
+ones (``MAIN_ONLY``: the route and the trigger search) with
 ``-DAMPS_FFT_WIDTH=M`` (``build(widths=...)`` builds several in one
 parallel run).  The libraries
 land in ``amps_tpu_torch/build/`` (git-ignored) under names that carry
@@ -50,17 +52,18 @@ def _nvcc() -> str:
                        "(put the CUDA toolkit's bin directory on PATH)")
 
 
-# the source of the device-memory route: the main library's alone
-ROUTE_SOURCE = "route.cu"
+# the sources that take no width, the main library's alone: the
+# device-memory route and the trigger search
+MAIN_ONLY = ("route.cu", "trigger_search.cu")
 
 
 def _sources(width=None):
     """The sources of the main library (width None), or of one width's:
-    all but the route's."""
+    all but ``MAIN_ONLY``."""
     srcs = sorted(CSRC.glob("*.cu"))
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    return [s for s in srcs if width is None or s.name != ROUTE_SOURCE]
+    return [s for s in srcs if width is None or s.name not in MAIN_ONLY]
 
 
 def _flags(width):

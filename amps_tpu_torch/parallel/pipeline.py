@@ -41,7 +41,7 @@ continuous stream.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -155,10 +155,12 @@ def rx_multichannel_block_batched(xs, spec: MultichannelSpec,
 
 
 def _rx_block(x, spec: MultichannelSpec, max_bursts: int, threshold: float,
-              policy: str, front_end):
-    """rx_multichannel_block with stages 1-3 given as ``front_end`` (the
-    kernel wrapper, or its plain version for a same-device comparison);
-    x (N, 2), planar (2, N), or G bands (G, N, 2)."""
+              policy: str, front_end,
+              search: Callable = correlator.find_bursts_phases):
+    """rx_multichannel_block with stages 1-3 given as ``front_end`` and
+    the trigger search as ``search`` (the kernel wrappers, or their plain
+    versions for a same-device comparison); x (N, 2), planar (2, N), or G
+    bands (G, N, 2)."""
     chz.check_fold(spec.fold)
     if not isinstance(x, torch.Tensor):
         raise TypeError("x must be a torch.Tensor")
@@ -173,8 +175,8 @@ def _rx_block(x, spec: MultichannelSpec, max_bursts: int, threshold: float,
     phases, chan_power, pw_blk = front_end(
         x_ext, M, T, sps, hop0_parity=0,
         out_dtype=torch.bfloat16 if spec.io_bf16 else torch.float32)
-    starts, valid, quality = correlator.find_bursts_phases(
-        phases, sps, max_bursts, threshold, out_bf16=spec.corr_bf16)
+    starts, valid, quality = search(phases, sps, max_bursts, threshold,
+                                    out_bf16=spec.corr_bf16)
     lead = correlator.TRIGGER_SYMBOLS if spec.max_trigger_errors >= 0 else 0
     ext = correlator.extract_from_phases(
         phases, starts, sps,

@@ -43,6 +43,7 @@ from amps_tpu_torch.dsp import channelizer as chz
 from amps_tpu_torch.dsp.fm import fsk_manchester_baseband
 from amps_tpu_torch.kernels import rx_front as _k_rx_front
 from amps_tpu_torch.kernels import synth as _k_synth
+from amps_tpu_torch.kernels import trigger_search as _k_search
 from amps_tpu_torch.kernels.rx_front import analyze_demod
 from amps_tpu_torch.kernels.synth import synthesize_block
 from amps_tpu_torch.parallel.pipeline import MultichannelSpec
@@ -51,6 +52,10 @@ from amps_tpu_torch.rx.voice import supervision_levels
 from amps_tpu_torch.tx.focc import FoccStream, focc_frame_bits
 from amps_tpu_torch.tx.recc_ms import CODED_DCC
 from amps_tpu_torch.utils import profiling
+
+# the kernel wrappers a closed-loop block launches through, whose
+# ``LAUNCHES`` a replay of the captured block adds to
+_LOOP_KERNELS = (_k_synth, _k_rx_front, _k_search)
 
 # minimum-Hamming-distance decode of the 7-bit coded DCC (553 2.6.1.2)
 _DCC_CODES = np.array([CODED_DCC[d] for d in range(4)], np.int32)
@@ -63,14 +68,16 @@ def decode_dcc(bits7) -> int:
 
 def _rx_stream_block(x, hist, demod_carry, prev_iq, pw_carry,
                      spec: MultichannelSpec, hop_parity: int,
-                     max_bursts: int, threshold: float, front_end):
+                     max_bursts: int, threshold: float, search,
+                     front_end):
     """One streaming receive step with carried state.
 
     x: (N, 2) new wideband samples, N a multiple of M/2.  hist: (L-P, 2)
     analyzer history.  demod_carry, pw_carry: (M, OVR) demod and
     power-series overlap of the previous window.  prev_iq: (M, 2) last
-    channel sample.  ``front_end`` is ``kernels.rx_front.analyze_demod``
-    or its plain version.  Returns a dict of the candidate planes
+    channel sample.  ``search`` is ``correlator.find_bursts_phases`` and
+    ``front_end`` ``kernels.rx_front.analyze_demod``, or their plain
+    versions.  Returns a dict of the candidate planes
     (starts, valid, quality, hard, rssi), chan_power, demod_new and the
     new state (hist, carry, prev, pw_carry)."""
     M, T, sps = spec.num_channels, spec.taps_per_phase, spec.chan_sps
@@ -96,8 +103,8 @@ def _rx_stream_block(x, hist, demod_carry, prev_iq, pw_carry,
     dsp = demod.to(torch.bfloat16) if spec.io_bf16 else demod
     phases = correlator.symbol_phase_streams(dsp, sps)
     del dsp
-    starts, valid, quality = correlator.find_bursts_phases(
-        phases, sps, max_bursts, threshold, out_bf16=spec.corr_bf16)
+    starts, valid, quality = search(phases, sps, max_bursts, threshold,
+                                    out_bf16=spec.corr_bf16)
     # only bursts whose whole capture fits this window; one cut off by
     # the block edge is found complete in the next window's overlap
     valid = valid & (starts + correlator.CAPTURE_SYMBOLS * sps
@@ -235,7 +242,8 @@ def closed_loop_state0(spec: MultichannelSpec, frames: int, device) -> dict:
 def closed_loop_block(Y, st: dict, spec: MultichannelSpec,
                       max_bursts: int = 2, threshold: float = 0.55,
                       synthesize: Callable = synthesize_block,
-                      front_end: Callable = analyze_demod):
+                      front_end: Callable = analyze_demod,
+                      search: Callable = correlator.find_bursts_phases):
     """One block of the closed loop: Y (n_hops, M, 2) channel basebands
     and the state ``st`` (``closed_loop_state0``) -> (new state, planes).
     The forward band is synthesized, analyzed and demodulated again with
@@ -261,8 +269,8 @@ def closed_loop_block(Y, st: dict, spec: MultichannelSpec,
         dsp = demod.to(torch.bfloat16) if spec.io_bf16 else demod
         phases = correlator.symbol_phase_streams(dsp, sps)
     with profiling.stage("loop.search", Y.device, joined=True):
-        starts, valid, quality = correlator.find_bursts_phases(
-            phases, sps, max_bursts, threshold, out_bf16=spec.corr_bf16)
+        starts, valid, quality = search(phases, sps, max_bursts, threshold,
+                                        out_bf16=spec.corr_bf16)
         valid = valid & (starts + correlator.CAPTURE_SYMBOLS * sps
                          <= demod.shape[-1])
     with profiling.stage("loop.capture", Y.device, joined=True):
@@ -293,7 +301,8 @@ def make_closed_loop_stream(spec: MultichannelSpec, nblocks: int,
                             threshold: float = 0.55, device=None,
                             graph: bool = True,
                             synthesize: Callable = synthesize_block,
-                            front_end: Callable = analyze_demod):
+                            front_end: Callable = analyze_demod,
+                            search: Callable = correlator.find_bursts_phases):
     """The fused full-duplex closed loop: ``nblocks`` consecutive blocks
     of ``frames`` FOCC frames through the whole TX -> RF -> RX chain
     (``closed_loop_block``) with all carried state on the device and no
@@ -317,8 +326,9 @@ def make_closed_loop_stream(spec: MultichannelSpec, nblocks: int,
     eager loop.  A replay launches the kernels without passing
     through their wrappers, so ``run`` adds each replay's kernel
     launches, as counted at capture, to the wrappers' ``LAUNCHES``.
-    ``synthesize`` and ``front_end`` are the two kernel wrappers; their
-    plain versions run the plain path on any device (to compare).
+    ``synthesize``, ``front_end`` and ``search`` are the three kernel
+    wrappers; their plain versions run the plain path on any device (to
+    compare).
 
     Each ``run`` opens a call of ``utils.profiling`` with the host span
     ``loop.entry`` (up to the first replay or step).  The block's four
@@ -353,7 +363,7 @@ def make_closed_loop_stream(spec: MultichannelSpec, nblocks: int,
         """One block; the state and the sums are updated in place (the
         graph's static buffers) or returned anew."""
         st2, pl = closed_loop_block(Y, st, spec, max_bursts, threshold,
-                                    synthesize, front_end)
+                                    synthesize, front_end, search)
         nv = torch.sum(pl["valid"])
         q = torch.max(pl["quality"].to(torch.float32))
         wok = torch.sum(pl["word_ok"])
@@ -381,13 +391,13 @@ def make_closed_loop_stream(spec: MultichannelSpec, nblocks: int,
         with torch.cuda.stream(side):
             step(static["Y"], static["st"], static["sums"], True)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = (_k_synth.LAUNCHES, _k_rx_front.LAUNCHES)
+        before = [k.LAUNCHES for k in _LOOP_KERNELS]
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             step(static["Y"], static["st"], static["sums"], True)
         # capture launched nothing: what it counted is one replay's share
-        static["per_replay"] = (_k_synth.LAUNCHES - before[0],
-                                _k_rx_front.LAUNCHES - before[1])
+        static["per_replay"] = [k.LAUNCHES - b
+                                for k, b in zip(_LOOP_KERNELS, before)]
         # the same body with the back end's stage events, in the first
         # graph's pool, replayed as a call's last block (the one read):
         # event nodes slow every replay that has them
@@ -396,7 +406,8 @@ def make_closed_loop_stream(spec: MultichannelSpec, nblocks: int,
                 torch.cuda.graph(last, pool=g.pool()):
             step(static["Y"], static["st"], static["sums"], True)
         static["graph"], static["last"], static["stages"] = g, last, stages
-        _k_synth.LAUNCHES, _k_rx_front.LAUNCHES = before
+        for k, b in zip(_LOOP_KERNELS, before):
+            k.LAUNCHES = b
 
     def run(word_pairs):
         profiling.begin_call()
@@ -423,8 +434,8 @@ def make_closed_loop_stream(spec: MultichannelSpec, nblocks: int,
                     v.copy_(v0)
             for b in range(nblocks):
                 static["last" if b == nblocks - 1 else "graph"].replay()
-                _k_synth.LAUNCHES += static["per_replay"][0]
-                _k_rx_front.LAUNCHES += static["per_replay"][1]
+                for k, n in zip(_LOOP_KERNELS, static["per_replay"]):
+                    k.LAUNCHES += n
             profiling.replayed(static["stages"])
         return tuple(v.clone() for v in static["sums"])
 
@@ -457,7 +468,9 @@ class MultichannelReceiver:
 
     ``front_end``: the receive front end, ``kernels.rx_front.
     analyze_demod``; ``analyze_demod_reference`` runs its plain version
-    on any device (to compare the two on one stream).
+    on any device (to compare the two on one stream).  ``search``: the
+    trigger search, ``rx.correlator.find_bursts_phases``, or its plain
+    version ``find_bursts_phases_reference`` in the same way.
 
     ``pipeline_depth``: blocks kept in flight.  At depth K > 1,
     ``push(block_i)`` only waits for block i-K, so the device computes
@@ -499,7 +512,8 @@ class MultichannelReceiver:
                  on_supervision: Optional[Callable] = None,
                  max_reports: int = 64,
                  device=None,
-                 front_end: Callable = analyze_demod):
+                 front_end: Callable = analyze_demod,
+                 search: Callable = correlator.find_bursts_phases):
         chz.check_fold(spec.fold)
         self.spec = spec
         M, T = spec.num_channels, spec.taps_per_phase
@@ -507,6 +521,7 @@ class MultichannelReceiver:
         self.sps = spec.chan_sps
         self.device = resolve_device(device)
         self._front_end = front_end
+        self._search = search
         self.max_bursts = max_bursts
         self.threshold = threshold
         self.min_rssi = min_rssi
@@ -573,7 +588,7 @@ class MultichannelReceiver:
         blk = _rx_stream_block(x, self._hist, self._carry, self._prev,
                                self._pw_carry, self.spec, self._parity,
                                self.max_bursts, self.threshold,
-                               self._front_end)
+                               self._search, self._front_end)
         self._hist, self._carry = blk["hist"], blk["carry"]
         self._prev, self._pw_carry = blk["prev"], blk["pw_carry"]
         dec = decoder.decode_bursts(blk["hard"], policy=self.policy,

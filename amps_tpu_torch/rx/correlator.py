@@ -6,11 +6,13 @@ sample-domain forms of the single-channel chain (``find_bursts``,
 
 Trigger search correlates the 74-symbol seizure trigger (26 dotting +
 11 word-sync bits, Manchester) against the sps symbol-rate phase
-streams as a banded Toeplitz matmul, normalizes by the window energy,
-and picks up to K peaks with greedy non-maximum suppression over the
-full capture extent.  Capture reads 3374 symbols per candidate (plus
-74 lead symbols for the trigger gate) with a direct index instead of
-the JAX package's one-hot matmul; the values are identical copies.
+streams, normalizes by the window energy, and picks up to K peaks with
+greedy non-maximum suppression over the full capture extent: on the
+CPU as the JAX package's banded Toeplitz matmul, on the card in one
+hand-written kernel (``kernels.trigger_search``) that writes no plane.
+Capture reads 3374 symbols per candidate (plus 74 lead symbols for the
+trigger gate) with a direct index instead of the JAX package's one-hot
+matmul; the values are identical copies.
 """
 
 from __future__ import annotations
@@ -127,13 +129,53 @@ def _trigger_pattern(device):
 def find_bursts_phases(phases, sps: int, max_bursts: int = 4,
                        threshold: float = 0.6, corr_block: int = 128,
                        out_bf16: bool = False):
-    """Symbol-domain burst detection on phase streams (..., sps, nsym).
+    """Symbol-domain burst detection on phase streams (..., sps, nsym),
+    bfloat16 or float32.
 
     Returns (starts (..., K) int32 in SAMPLE units — the first capture
     sample, valid (..., K) bool, quality (..., K) float32).  Greedy NMS
     masks -L..+(L+CAPTURE) symbols (in sample units, across all phases
     jointly) around each accepted peak; the flattening order
-    (phase-major, then lag) fixes which of tied maxima wins."""
+    (phase-major, then lag) fixes which of tied maxima wins.
+
+    A CUDA tensor launches the hand-written kernel
+    (``kernels.trigger_search``) or raises; a CPU tensor computes the
+    plain version, ``find_bursts_phases_reference``.  There is no
+    fallback from one to the other."""
+    x = torch.as_tensor(phases)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"phases must be bfloat16 or float32, got {x.dtype}")
+    if sps < 1 or x.ndim < 2 or x.shape[-2] != sps:
+        raise ValueError(f"phases must be (..., sps={sps}, nsym), got "
+                         f"{tuple(x.shape)}")
+    if x.shape[-1] < TRIGGER_SYMBOLS:
+        raise ValueError(f"phases hold {x.shape[-1]} symbols, the trigger "
+                         f"{TRIGGER_SYMBOLS}")
+    if max_bursts < 1:
+        raise ValueError(f"max_bursts must be at least 1, got {max_bursts}")
+    if corr_block < TRIGGER_SYMBOLS - 1:
+        raise ValueError(f"corr_block must be at least "
+                         f"{TRIGGER_SYMBOLS - 1}, got {corr_block}")
+    if x.device.type == "cpu":
+        return find_bursts_phases_reference(x, sps, max_bursts, threshold,
+                                            corr_block, out_bf16)
+    if x.device.type != "cuda":
+        raise ValueError(f"phases must lie on the CPU or a CUDA device, not "
+                         f"{x.device}")
+    # imported here: the kernel's module reads this one's constants
+    from amps_tpu_torch.kernels import trigger_search
+    return trigger_search.search(x, sps, max_bursts, threshold, corr_block,
+                                 out_bf16)
+
+
+def trigger_quality_reference(phases, corr_block: int = 128,
+                              out_bf16: bool = False):
+    """The quality plane (..., sps, no) of the plain trigger search, in
+    the accumulation dtype (bfloat16 with ``out_bf16``, else float32), on
+    any device: the JAX package's banded Toeplitz matmul of the phase
+    streams (..., sps, nsym), the window energies, and the smaller of the
+    whole trigger's and the word-sync tail's normalised correlations at
+    each lag o < no = nsym - 73."""
     x = torch.as_tensor(phases)
     if x.dtype != torch.bfloat16:
         x = x.to(torch.float32)
@@ -186,14 +228,26 @@ def find_bursts_phases(phases, sps: int, max_bursts: int = 4,
     del corr, energy
     q_ws = norm(ws_corr, ws_energy, wsnorm)
     del ws_corr, ws_energy
-    quality = torch.minimum(q_full, q_ws, out=q_full)   # (..., sps, no)
-    del q_full, q_ws
-    batch = x.shape[:-2]
+    return torch.minimum(q_full, q_ws, out=q_full)
+
+
+def find_bursts_phases_reference(phases, sps: int, max_bursts: int = 4,
+                                 threshold: float = 0.6,
+                                 corr_block: int = 128,
+                                 out_bf16: bool = False):
+    """Plain PyTorch version of ``find_bursts_phases``, on any device: the
+    quality plane (``trigger_quality_reference``) and K argmax / mask
+    rounds."""
+    quality = trigger_quality_reference(phases, corr_block, out_bf16)
+    L = TRIGGER_SYMBOLS
+    no = quality.shape[-1]
+    dev = quality.device
+    batch = quality.shape[:-2]
     q = quality.reshape(batch + (sps * no,))
     del quality
-    pos = (torch.arange(sps, device=x.device)[:, None]
-           + sps * torch.arange(no, device=x.device)[None, :]).reshape(-1)
-    neg_inf = c(float("-inf"))
+    pos = (torch.arange(sps, device=dev)[:, None]
+           + sps * torch.arange(no, device=dev)[None, :]).reshape(-1)
+    neg_inf = torch.full((), float("-inf"), dtype=q.dtype, device=dev)
     spos_l, peaks_l = [], []
     for k in range(max_bursts):
         idx = torch.argmax(q, dim=-1)

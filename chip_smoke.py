@@ -64,7 +64,10 @@ float64 at M = 16388, 32766, 32770, 65536, 1048574 and 8388610 (and at
 16388 with T=32), their times at 32766 and 65536 beside 32768, each
 wrapper's CUDA launches in one call (profiler spans, held to the
 route's count), the same main path and short app call at M=32766 (a
-982.98 Msps radio), the peak device memory --; and
+982.98 Msps radio), the peak device memory --; the trigger search
+kernel (K5) alone on the duplex loop's rows at M=1024 and 16384 against
+its plain version and its bound (phase 36, the ``trigger_search``
+line); and
 times kernels and paths against their plain versions,
 their bounds and a cuFFT yardstick, with profiler windows of one
 one-shot block, one receiver push, one transmitter superframe, one
@@ -536,17 +539,24 @@ def rx_duplex_events(M: int, T: int, total_hops: int, seed: int):
 
 
 def stream_reports(MR, spec, blocks, front_end=None, depth=2,
-                   pad_tail=True):
+                   pad_tail=True, search=None):
     """Report list of one receiver over the blocks, flushed.  The
     receiver is built without a device, so it lives on the card, where
     the blocks are."""
-    kw = {} if front_end is None else {"front_end": front_end}
+    kw = {k: f for k, f in (("front_end", front_end), ("search", search))
+          if f is not None}
     rx = MR(spec, pipeline_depth=depth, **kw)
     reps = []
     for b in blocks:
         reps += rx.push(b)
     assert rx.device == blocks[0].device, (rx.device, blocks[0].device)
     return reps + rx.flush(pad_tail=pad_tail)
+
+
+def plain_search(*a, **k):
+    """The trigger search's plain version, the plain paths' search."""
+    from amps_tpu_torch.rx.correlator import find_bursts_phases_reference
+    return find_bursts_phases_reference(*a, **k)
 
 
 def report_key(r):
@@ -653,10 +663,12 @@ def phase_tx(dev, M, T, n_random=60, witness=False):
 def phase_rx(dev, M, T, push=RX_PUSH, n_push=6):
     """Phase 8: planted RECC bursts streamed through MultichannelReceiver
     (pipeline_depth=2) in pushes of ``push`` samples, one of them not a
-    multiple of M/2; flush(pad_tail=True) completes the last burst.
+    multiple of M/2; flush(pad_tail=True) completes the last burst.  The
+    trigger search kernel runs once a window, as the front end does.
     Returns (rx_front launches, pushes)."""
     from amps_tpu_torch.eval.traffic import synthesize_reverse_band
     from amps_tpu_torch.kernels import rx_front as R
+    from amps_tpu_torch.kernels import trigger_search as KS
     from amps_tpu_torch.parallel import pipeline as pl
     from amps_tpu_torch.runtime.streamer import MultichannelReceiver
     P, sps = M // 2, 3
@@ -678,12 +690,14 @@ def phase_rx(dev, M, T, push=RX_PUSH, n_push=6):
         f"{len(events)} planted bursts (σ 0.001), pushes of {sizes} "
         f"samples; {straddle} bursts straddle a push boundary")
     assert straddle >= 3 and any(n % P for n in sizes)
-    R.LAUNCHES = 0
+    R.LAUNCHES = KS.LAUNCHES = 0
     reps = stream_reports(MultichannelReceiver, prod, blocks)
     sync(dev)
     launches = R.LAUNCHES
     log(f"  rx_front kernel launches on the main path: {launches} "
-        f"({len(blocks)} pushes + the pad_tail push)")
+        f"({len(blocks)} pushes + the pad_tail push), trigger search "
+        f"kernel launches {KS.LAUNCHES}")
+    assert KS.LAUNCHES == launches, (KS.LAUNCHES, launches)
     assert len(reps) == len(events), [report_key(r)[:2] for r in reps]
     for ev in events:
         # the capture starts after 41 bits of dotting and word sync, one
@@ -701,7 +715,8 @@ def phase_rx(dev, M, T, push=RX_PUSH, n_push=6):
     f32 = pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank")
     kern = stream_reports(MultichannelReceiver, f32, blocks)
     plain = stream_reports(MultichannelReceiver, f32, blocks,
-                           front_end=R.analyze_demod_reference)
+                           front_end=R.analyze_demod_reference,
+                           search=plain_search)
     assert [report_key(r) for r in kern] == [report_key(r) for r in plain]
     assert [report_key(r)[:3] for r in kern] == \
         [report_key(r)[:3] for r in reps]
@@ -775,7 +790,8 @@ def phase_times(dev, M, T, card, n_timed=10):
     fe["fft"] = fft_ms(M, Nh, dev)
     rxs = {"kernel": MultichannelReceiver(prod, device=dev),
            "plain": MultichannelReceiver(
-               prod, device=dev, front_end=R.analyze_demod_reference)}
+               prod, device=dev, front_end=R.analyze_demod_reference,
+               search=plain_search)}
     out["push"] = timed({k: (lambda r=r: r.push(xb)) for k, r in rxs.items()},
                         n_timed)
     profile_window(f"MultichannelReceiver.push of {n} samples, kernel "
@@ -1354,12 +1370,14 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2, witness=False):
     candidate whose trigger window reaches into the first hops after
     the zero history (angles of values under that floor) is left out.
     With ``witness`` the plain path synthesizes in float64
-    (``synth_f64_f32``), as phase 7 then does.  Returns ((K4, K2)
-    launches of the graph run, {kernel: max abs error against the plain
-    path's state})."""
+    (``synth_f64_f32``), as phase 7 then does.  The plain path searches
+    with the plain version too.  Returns ((K4, K2, K5) launches of the
+    graph run, {kernel: max abs error against the plain path's
+    state})."""
     from amps_tpu_torch.dsp.fm import fm_modulate_symbols
     from amps_tpu_torch.kernels import rx_front as R
     from amps_tpu_torch.kernels import synth as S
+    from amps_tpu_torch.kernels import trigger_search as KS
     from amps_tpu_torch.parallel import pipeline as pl
     from amps_tpu_torch.runtime import streamer as st
     from amps_tpu_torch.rx.correlator import TRIGGER_SYMBOLS
@@ -1383,30 +1401,32 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2, witness=False):
     # wrappers; run adds each replay's launches, as counted at capture
     # (one block a replay), to the wrappers' LAUNCHES.  Phase 14 holds
     # that count to the kernel spans the profiler sees in a graph run.
-    S.LAUNCHES = R.LAUNCHES = 0
+    S.LAUNCHES = R.LAUNCHES = KS.LAUNCHES = 0
     got = graphed(wp)
     sync(dev)
-    launches = (S.LAUNCHES, R.LAUNCHES)
-    S.LAUNCHES = R.LAUNCHES = 0
+    launches = (S.LAUNCHES, R.LAUNCHES, KS.LAUNCHES)
+    S.LAUNCHES = R.LAUNCHES = KS.LAUNCHES = 0
     want = eager(wp)
     sync(dev)
     C = S.chunk_launches(T)                  # synth launches a block
-    assert launches == (S.LAUNCHES, R.LAUNCHES) == (C * nblocks, nblocks), \
-        (launches, S.LAUNCHES, R.LAUNCHES)
+    eager_launches = (S.LAUNCHES, R.LAUNCHES, KS.LAUNCHES)
+    assert launches == eager_launches == (C * nblocks, nblocks, nblocks), \
+        (launches, eager_launches)
     assert all(torch.equal(a, b) for a, b in zip(got, want)), (got, want)
     nv, q, wok = int(got[0]), float(got[1]), int(got[2])
     log(f"  graph (one block a replay) = eager, bit for bit: n_valid {nv}, "
-        f"quality_max {q:.4f}, n_word_ok {wok}; synth and rx_front "
-        f"launches {launches}, {C} and one a block in both")
+        f"quality_max {q:.4f}, n_word_ok {wok}; synth, rx_front and "
+        f"trigger search launches {launches}, {C}, one and one a block in "
+        f"both")
     assert nv == 0 and np.isfinite(q) and q < 0.55, (nv, q)
     f32 = pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank")
     kern = st.make_closed_loop_stream(f32, nblocks, frames, graph=False)[0](wp)
-    S.LAUNCHES = R.LAUNCHES = 0
+    S.LAUNCHES = R.LAUNCHES = KS.LAUNCHES = 0
     plain = st.make_closed_loop_stream(
         f32, nblocks, frames, graph=False, synthesize=ref_synth,
-        front_end=R.analyze_demod_reference)[0](wp)
+        front_end=R.analyze_demod_reference, search=plain_search)[0](wp)
     sync(dev)
-    assert (S.LAUNCHES, R.LAUNCHES) == (0, 0)
+    assert (S.LAUNCHES, R.LAUNCHES, KS.LAUNCHES) == (0, 0, 0)
     dq = abs(float(kern[1]) - float(plain[1]))
     log(f"  f32 spec, kernel path vs plain path (eager"
         + (", float64 synthesis" if witness else "") + "): n_valid "
@@ -1435,7 +1455,7 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2, witness=False):
         sk, pk = st.closed_loop_block(Y0, sk, f32)
         sp, pp = st.closed_loop_block(
             Y0, sp, f32, synthesize=ref_synth,
-            front_end=R.analyze_demod_reference)
+            front_end=R.analyze_demod_reference, search=plain_search)
         # hist is the tail of the synthesized band, carry the whole of the
         # block's demod plane (carry_hops = n_hops): every sample of both
         rms = sp["hist"].pow(2).mean().sqrt().item()
@@ -1506,7 +1526,7 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2, witness=False):
     row[start: start + bb.shape[0]] = bb
     assert n_hops < start and start + bb.shape[0] > 2 * n_hops
     state = st.closed_loop_state0(prod, frames, dev)
-    S.LAUNCHES = R.LAUNCHES = 0
+    S.LAUNCHES = R.LAUNCHES = KS.LAUNCHES = 0
     found = []
     for b in range(nblocks):
         Y = Y0.clone()
@@ -1517,7 +1537,8 @@ def phase_loop_checks(dev, M, T, nblocks=4, frames=2, witness=False):
             found.append((b, int(c), int(planes["starts"][c, k]),
                           planes["word_ok"][c, k].cpu().numpy(),
                           planes["words"][c, k].cpu().numpy()))
-    assert (S.LAUNCHES, R.LAUNCHES) == (C * nblocks, nblocks)
+    assert (S.LAUNCHES, R.LAUNCHES, KS.LAUNCHES) == \
+        (C * nblocks, nblocks, nblocks)
     # The window of block b is block b-1 (the carried overlap, 5556 hops
     # at frames=2) and block b.  The burst starts 100 hops into block 1 and
     # ends in block 2: block 1's window cuts its capture (the whole-capture
@@ -1552,6 +1573,7 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5,
     readings."""
     from amps_tpu_torch.kernels import rx_front as R
     from amps_tpu_torch.kernels import synth as S
+    from amps_tpu_torch.kernels import trigger_search as KS
     from amps_tpu_torch.parallel import pipeline as pl
     from amps_tpu_torch.runtime import streamer as st
     from amps_tpu_torch.rx.correlator import window_power_blocks
@@ -1573,19 +1595,22 @@ def phase_loop_times(dev, M, T, card, nblocks=32, frames=2, n_runs=5,
         "plain": st.make_closed_loop_stream(
             prod, plain_blocks or nblocks, frames, graph=False,
             synthesize=S.synthesize_block_reference,
-            front_end=R.analyze_demod_reference)[0],
+            front_end=R.analyze_demod_reference, search=plain_search)[0],
     }
-    S.LAUNCHES = R.LAUNCHES = 0
+    S.LAUNCHES = R.LAUNCHES = KS.LAUNCHES = 0
     res = runs["graph"](wp)
     sync(dev)
-    warm = (S.LAUNCHES, R.LAUNCHES)          # + the warm-up block
-    S.LAUNCHES = R.LAUNCHES = 0
+    warm = (S.LAUNCHES, R.LAUNCHES, KS.LAUNCHES)   # + the warm-up block
+    S.LAUNCHES = R.LAUNCHES = KS.LAUNCHES = 0
     res = runs["graph"](wp)
     sync(dev)
-    launches = (S.LAUNCHES, R.LAUNCHES)
+    launches = (S.LAUNCHES, R.LAUNCHES, KS.LAUNCHES)
     C = S.chunk_launches(T)                  # synth launches a block
-    assert launches == (C * nblocks, nblocks) \
-        and warm == (C * (nblocks + 1), nblocks + 1), (launches, warm)
+    assert launches == (C * nblocks, nblocks, nblocks) \
+        and warm == (C * (nblocks + 1), nblocks + 1, nblocks + 1), \
+        (launches, warm)
+    log(f"  launches of one graph run (synth, rx_front, trigger search): "
+        f"{launches}; with the warm-up block {warm}")
     assert np.isfinite(float(res[1])) and 0 <= int(res[0]) <= 2 * M * nblocks
     log(f"  random word pairs on every channel: n_valid {int(res[0])}, "
         f"quality_max {float(res[1]):.4f}, n_word_ok {int(res[2])}")
@@ -1838,7 +1863,8 @@ def phase_batched(dev, T, card, M=128, G=8, n=1 << 22, n_timed=10):
         "g_launches": lambda: pl._rx_block(xs, prod, 2, 0.55, "first_ok",
                                            band_by_band),
         "plain": lambda: pl._rx_block(xs, prod, 2, 0.55, "first_ok",
-                                      K.analyze_phases_reference),
+                                      K.analyze_phases_reference,
+                                      plain_search),
     }, max(3, n_timed // 2))
     log(f"  on {card}: rx_phases, {G} bands: one launch "
         f"{t['one_launch']:.3f} ms, {G} launches {t['g_launches']:.3f} ms "
@@ -2934,7 +2960,8 @@ def phase_entry(dev, card):
     assert launches == 1, launches
     spec = pl.MultichannelSpec(num_channels=16, taps_per_phase=8)
     ref = pl._rx_block(x, spec, 2, 0.55, "first_ok",
-                       K.analyze_phases_reference)
+                       K.analyze_phases_reference,
+                       plain_search)
     g = {k: v.cpu().numpy() for k, v in got.items()}
     r = {k: v.cpu().numpy() for k, v in ref.items()}
     assert g["words"].shape == (16, 2, 7, 36)
@@ -2951,7 +2978,8 @@ def phase_entry(dev, card):
     assert p_rel <= POWER_RTOL, p_rel
     t = timed({"kernel": lambda: fn(x),
                "plain": lambda: pl._rx_block(x, spec, 2, 0.55, "first_ok",
-                                             K.analyze_phases_reference)},
+                                             K.analyze_phases_reference,
+                                             plain_search)},
               10)
     log(f"  rx_phases launches {launches}; kernel path vs plain path: valid "
         f"identical ({int(g['valid'].sum())} valid on noise), starts equal "
@@ -3141,7 +3169,8 @@ def station_paths(dev, card, M, T=8, sps=3, loop_runs=3, witness=False,
     block_fns = {
         "kernel": lambda: pl.rx_multichannel_block(x, prod, max_bursts=2),
         "plain": lambda: pl._rx_block(x, prod, 2, 0.55, "first_ok",
-                                      K.analyze_phases_reference)}
+                                      K.analyze_phases_reference,
+                                      plain_search)}
     if loop_plain is None:
         out["block"] = timed(block_fns, 10)
     else:
@@ -4028,6 +4057,100 @@ def digest(tree, widths=DIGEST_WIDTHS, Ts=(8, 32)):
     return 0
 
 
+def search_rows(M, sps, nsym, seed):
+    """The duplex loop's rows for the trigger search: (M, sps, nsym) bf16
+    phase streams of gaussian noise, with one trigger of amplitude 0.8
+    added at a random phase and offset of every channel."""
+    from amps_tpu_torch.rx.correlator import trigger_template
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 0.3, (M, sps, nsym)).astype(np.float32)
+    tmpl = trigger_template(1)
+    p = rng.integers(0, sps, M)
+    s0 = rng.integers(0, nsym - len(tmpl) + 1, M)
+    for c in range(M):
+        x[c, p[c], s0[c]:s0[c] + len(tmpl)] += 0.8 * tmpl
+    return torch.as_tensor(x).to(torch.bfloat16)
+
+
+def search_bound(M, sps, nsym, K):
+    """(least ms, what sets it) of the trigger search over M rows: with
+    each pair of neighbouring symbols added as one sum or difference (and
+    their squares as one sum), each (channel, phase, lag) takes 37 adds
+    for the correlation and 37 for the energies, and each symbol 4 more
+    (its square and its pair's sum, difference and sum of squares), one
+    instruction each at half the f32 flop rate; against the bf16 phases
+    read once and the picks written once at 3.35 TB/s."""
+    ops = M * sps * ((nsym - 73) * 74 + nsym * 4)
+    t_ops = ops / (F32_FLOPS / 2)
+    t_bytes = (M * sps * nsym * 2 + M * K * 9) / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+# the trigger search's rows (label, M, nsym, K, bf16 quality): the duplex
+# loop's at M = 1024 and 16384; the receiver's window of a 1<<22-sample
+# push at M = 1024 (its overlap of 10344 hops and 8192 new: 6178
+# symbols), with the production spec's bf16 quality and with f32; the
+# station app's window of 8388608 samples (8909 symbols)
+SEARCH_ROWS = (("loop", 1024, 3703, 2, True), ("loop", 16384, 3703, 2, True),
+               ("receiver", 1024, 6178, 4, True),
+               ("receiver_f32", 1024, 6178, 4, False),
+               ("station_app", 1024, 8909, 4, True))
+
+
+def phase_trigger_search(dev, card, rows=SEARCH_ROWS, n_timed=10):
+    """Phase 36: the trigger search kernel (K5, ``csrc/trigger_search.cu``)
+    alone on the rows of its callers (``SEARCH_ROWS``: M channels x 3
+    phases, threshold 0.55), on the path ``plan`` takes for them: one
+    launch a call, the first pick of every row equal to the plain
+    version's (each row's trigger decides it), and its time (CUDA events,
+    median of ``n_timed`` turns of KERNEL_REPS calls) beside the plain
+    version's and its bound."""
+    from amps_tpu_torch.kernels import trigger_search as KS
+    from amps_tpu_torch.rx import correlator as cor
+    sps, thr = 3, 0.55
+    out = {}
+    for label, M, nsym, K, bf16 in rows:
+        ph = search_rows(M, sps, nsym, seed=M + nsym).to(dev)
+        resident, nb = KS.plan(sps, nsym, 128, K, bf16)
+
+        def kernel():
+            return cor.find_bursts_phases(ph, sps, K, thr, out_bf16=bf16)
+
+        def plain():
+            return cor.find_bursts_phases_reference(ph, sps, K, thr,
+                                                    out_bf16=bf16)
+
+        KS.LAUNCHES = 0
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        assert KS.LAUNCHES == 1, KS.LAUNCHES
+        first = int((got[0][:, 0] == want[0][:, 0]).sum().item())
+        valid = int((got[1] == want[1]).sum().item())
+        qerr = (got[2] - want[2]).abs()[want[1]].max().item()
+        name = f"{label}_M{M}"
+        path = "resident" if resident else f"tiles of {nb} blocks"
+        log(f"  {name}: {M} x {sps} x {nsym} symbols, K={K}, "
+            f"{'bf16' if bf16 else 'f32'} quality, {path}: first picks "
+            f"equal on {first} of {M} rows, valid on {valid} of {M * K}, "
+            f"max |quality err| {qerr:.3e} on valid picks")
+        assert first == M and valid == M * K and qerr <= 2 ** -8
+        t = timed({"kernel": kernel, "plain": plain}, n=n_timed,
+                  reps=KERNEL_REPS)
+        b, by = search_bound(M, sps, nsym, K)
+        log(f"  {name}: kernel {t['kernel']:.4f} ms, plain "
+            f"{t['plain']:.4f} ms, bound {b:.4f} ms ({by}): "
+            f"{b / t['kernel'] * 100:.1f}% of the bound, on {card}")
+        out[name] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                     "bound_ms": b, "bound_by": by, "path": path,
+                     "first_picks_equal": first, "valid_equal": valid,
+                     "max_quality_err": qerr}
+        del ph, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the GPU",
@@ -4036,6 +4159,7 @@ def main() -> int:
     from amps_tpu_torch.eval.traffic import synthesize_reverse_band
     from amps_tpu_torch.kernels import build
     from amps_tpu_torch.kernels import rx_phases as K
+    from amps_tpu_torch.kernels import trigger_search as KS
     from amps_tpu_torch.parallel import pipeline as pl
     from amps_tpu_torch.rx.correlator import RSSI_BLOCK
 
@@ -4106,18 +4230,20 @@ def main() -> int:
     events = plant_events(M, 553)
     x = synthesize_reverse_band(events, prod, Nh, noise_sigma=0.001,
                                 device=dev)
-    K.LAUNCHES = 0
+    K.LAUNCHES = KS.LAUNCHES = 0
     out = pl.rx_multichannel_block(x, prod, max_bursts=2)
     torch.cuda.synchronize()
-    launches = K.LAUNCHES
-    log(f"  kernel launches on the main path: {launches}")
-    assert launches >= 1
+    launches, block_search = K.LAUNCHES, KS.LAUNCHES
+    log(f"  kernel launches on the main path: {launches}, trigger search "
+        f"kernel launches {block_search}")
+    assert launches >= 1 and block_search == 1
     expect = check_planted(out, events)
 
     f32 = pl.MultichannelSpec(num_channels=M, taps_per_phase=T, fold="bank")
     got = pl.rx_multichannel_block(x, f32, max_bursts=2)
     ref = pl._rx_block(x, f32, 2, 0.55, "first_ok",
-                       K.analyze_phases_reference)
+                       K.analyze_phases_reference,
+                       plain_search)
     torch.cuda.synchronize()
     gv, rv = got["valid"].cpu().numpy(), ref["valid"].cpu().numpy()
     assert np.array_equal(gv, rv) and np.array_equal(gv, expect)
@@ -4140,7 +4266,8 @@ def main() -> int:
     blk = timed({
         "kernel": lambda: pl.rx_multichannel_block(xb, prod, max_bursts=2),
         "plain": lambda: pl._rx_block(xb, prod, 2, 0.55, "first_ok",
-                                      K.analyze_phases_reference),
+                                      K.analyze_phases_reference,
+                                      plain_search),
     })
     for k, ms in blk.items():
         log(f"  whole block M={M} production spec, {k} path: {ms:.3f} ms, "
@@ -4269,6 +4396,21 @@ def main() -> int:
           "main path at M=32766")
     rt = phase_route(dev, card)
 
+    # -- phase 36: the trigger search kernel alone ------------------------
+    stamp("phase 36: the trigger search kernel on the loop's rows")
+    search = phase_trigger_search(dev, card)
+    log(json.dumps({"trigger_search": {
+        "source": "amps_tpu_torch/csrc/trigger_search.cu",
+        "replaces": "amps_tpu/rx/correlator.py::find_bursts_phases "
+                    "(no Pallas kernel: the banded Toeplitz matmul)",
+        # each path driven with the count set to 0 just before it; the
+        # loop's are those of one graph run of 32 blocks
+        "launches_by_path": {"block": block_search,
+                             "receiver": rx_launches,
+                             "loop_checks": loop_launches[2],
+                             "closed_loop": loop["launches"][2]},
+        **search}}))
+
     def entry(name, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
                 "source": f"amps_tpu_torch/csrc/{name}.cu",
@@ -4372,7 +4514,7 @@ def main() -> int:
                "taps_block_busy_ms": {str(t): v[1] for t, v in
                                       taps["block_by_t"].items()}}
 
-    assert loop_launches == (4, 4) and loop["launches"] == (32, 32)
+    assert loop_launches == (4, 4, 4) and loop["launches"] == (32, 32, 32)
 
     # each at the shape its main path hands it: a superframe for the
     # analysis (the ear) and synth (next_block) kernels, a 1<<22-sample

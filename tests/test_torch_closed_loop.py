@@ -286,6 +286,31 @@ def test_block_continues_a_jax_state():
     _assert_state_close(tst, jst, 2, chan, burst)
 
 
+@pytest.mark.parametrize("nblocks", [1, 3])
+def test_search_argument_runs_every_block(nblocks):
+    """The loop's search argument is the trigger search of every block,
+    with the loop's K and threshold; the plain search gives the default
+    loop's sums."""
+    from amps_tpu_torch.rx.correlator import find_bursts_phases_reference
+    tspec = _specs(True)[1]
+    wp = _random_pairs(nblocks)
+    calls = []
+
+    def search(phases, sps, max_bursts, threshold, **kw):
+        calls.append((tuple(phases.shape), max_bursts, threshold))
+        return find_bursts_phases_reference(phases, sps, max_bursts,
+                                            threshold, **kw)
+
+    run, _ = S.make_closed_loop_stream(tspec, nblocks, FRAMES, 3, 0.5,
+                                       device="cpu", search=search)
+    got = run(wp)
+    nsym = (2 * N_HOPS - tspec.chan_sps + 1) // tspec.chan_sps
+    assert calls == [((M, tspec.chan_sps, nsym), 3, 0.5)] * nblocks
+    want = S.make_closed_loop_stream(tspec, nblocks, FRAMES, 3, 0.5,
+                                     device="cpu")[0](wp)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_closed_loop_geometry_and_checks(monkeypatch):
     tspec = _specs()[1]
     assert S.closed_loop_geometry(tspec, 2) == (5556, 5556 * 4, 5556)

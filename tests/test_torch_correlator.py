@@ -154,3 +154,69 @@ def test_symbol_phase_streams(dtype):
     assert got.shape == want.shape == (4, SPS, 333)
     atol = 0.02 if dtype == "bf16" else 1e-6
     np.testing.assert_allclose(got.float().numpy(), want, atol=atol)
+
+
+# -- the trigger search's entry point and the kernel's tiling -------------
+
+def _bad_search_call(bad):
+    """find_bursts_phases arguments that name one fault each."""
+    x = torch.zeros((2, SPS, 400))
+    return {
+        "float64": ((x.double(), SPS), {}),
+        "float16": ((x.half(), SPS), {}),
+        "int32": ((x.int(), SPS), {}),
+        "sps_axis": ((x, 2), {}),
+        "sps_zero": ((x[..., :0, :], 0), {}),
+        "one_axis": ((x[0, 0], 1), {}),
+        "short_row": ((x[..., :73], SPS), {}),
+        "no_bursts": ((x, SPS), {"max_bursts": 0}),
+        "small_block": ((x, SPS), {"corr_block": 72}),
+        "meta_device": ((x.to("meta"), SPS), {}),
+    }[bad]
+
+
+@pytest.mark.parametrize("bad", ["float64", "float16", "int32", "sps_axis",
+                                 "sps_zero", "one_axis", "short_row",
+                                 "no_bursts", "small_block", "meta_device"])
+def test_find_bursts_phases_rejects_before_dispatch(bad, monkeypatch):
+    """Each bad argument raises ValueError before the plain version (or
+    the kernel) is reached."""
+    def reached(*a, **k):
+        raise AssertionError("dispatched")
+
+    monkeypatch.setattr(tcor, "find_bursts_phases_reference", reached)
+    args, kw = _bad_search_call(bad)
+    with pytest.raises(ValueError):
+        tcor.find_bursts_phases(*args, **kw)
+
+
+@pytest.mark.parametrize("dtype,out_bf16,max_bursts,corr_block,shape", [
+    ("f32", False, 1, 128, (6, SPS, 5200)),
+    ("bf16", True, 2, 128, (6, SPS, 5200)),
+    ("bf16", False, 4, 256, (2, 3, 1, 900)),
+    ("f32", True, 3, 100, (3, SPS, 140)),
+])
+def test_find_bursts_phases_on_cpu_is_the_plain_version(
+        dtype, out_bf16, max_bursts, corr_block, shape):
+    """A CPU tensor computes the plain version exactly, and launches no
+    kernel."""
+    from amps_tpu_torch.kernels import trigger_search as KS
+    rng = np.random.default_rng(sum(shape))
+    ph = _phases() if shape == (6, SPS, 5200) else \
+        rng.normal(0, 0.6, shape).astype(np.float32)
+    x = _to(ph, dtype)
+    before = KS.LAUNCHES
+    got = tcor.find_bursts_phases(x, shape[-2], max_bursts, 0.55,
+                                  corr_block, out_bf16)
+    want = tcor.find_bursts_phases_reference(x, shape[-2], max_bursts, 0.55,
+                                             corr_block, out_bf16)
+    assert KS.LAUNCHES == before
+    assert [t.dtype for t in got] == [torch.int32, torch.bool,
+                                     torch.float32]
+    assert got[0].shape == shape[:-2] + (max_bursts,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    q = tcor.trigger_quality_reference(x, corr_block, out_bf16)
+    assert q.shape == shape[:-1] + (shape[-1] - 73,)
+    assert q.dtype == (torch.bfloat16 if out_bf16 else torch.float32)
+    assert torch.equal(got[2][..., 0], q.flatten(-2).amax(-1).float())

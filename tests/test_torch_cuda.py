@@ -14,6 +14,8 @@ orders can put a noise-only sample on opposite sides of ±π, which moves
 one phase symbol by ~2π/3.  On random-noise input at most 1e-5 of the
 phase elements may fall outside the tolerance."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,9 @@ from amps_tpu_torch.kernels import analysis as KA
 from amps_tpu_torch.kernels import rx_front as K2
 from amps_tpu_torch.kernels import rx_phases as K
 from amps_tpu_torch.kernels import synth as K4
+from amps_tpu_torch.kernels import trigger_search as KS
 from amps_tpu_torch.parallel import pipeline as pl
+from amps_tpu_torch.rx import correlator as cor
 from amps_tpu_torch.rx.correlator import window_power_blocks
 from amps_tpu_torch.runtime.streamer import (MultichannelReceiver,
                                              MultichannelTransmitter)
@@ -1422,3 +1426,226 @@ def test_stages_captured_in_a_graph_time_each_replay(cuda_device):
     assert 0 < one < four
     assert profiling.COUNTERS["stage_pending"] == 0
     profiling.reset()
+
+
+# -- the trigger search kernel ---------------------------------------------
+
+TRIGGER = cor.trigger_template(1)
+
+
+def _search_rows(shape, O, case, seed):
+    """Phase streams (..., sps, nsym) for the trigger search.  Grid cases
+    hold values k/64, |k| < 64, and triggers of amplitude 1/2: every f32
+    sum of the correlation and of the squares (in bf16 or f32) is then
+    exact in any order, so kernel and plain version agree bit for bit.
+    ``periodic``: row 0 all zeros, row 1 of period O on every phase with
+    a trigger in phase 0 (an offset and the same offset a block later
+    tie).  ``noise``: gaussian noise with triggers of amplitude 0.8, 0.5
+    and 0.3 added, sums that round."""
+    rng = np.random.default_rng(seed)
+    sps, nsym = shape[-2], shape[-1]
+    if case == "noise":
+        x = rng.normal(0, 0.3, shape).astype(np.float32)
+    else:
+        x = (rng.integers(-63, 64, shape) / 64).astype(np.float32)
+    rows = x.reshape(-1, sps, nsym)
+    if case == "periodic":
+        rows[0] = 0
+        period = (rng.integers(-63, 64, (sps, O)) / 64).astype(np.float32)
+        period[0, 20:20 + len(TRIGGER)] = TRIGGER / 2
+        rows[1] = np.tile(period, -(-nsym // O))[:, :nsym]
+        return x
+    for r in range(rows.shape[0]):
+        for amp in (0.8, 0.5, 0.3):
+            p = int(rng.integers(0, sps))
+            s0 = int(rng.integers(0, nsym - len(TRIGGER) + 1))
+            w = rows[r, p, s0:s0 + len(TRIGGER)]
+            if case == "noise":
+                w += TRIGGER * amp
+            else:
+                w[:] = TRIGGER / 2
+    return x
+
+
+def _ulp(v, acc_t):
+    """One unit in the last place of |v| in the accumulation dtype."""
+    bits = 7 if acc_t == torch.bfloat16 else 23
+    e = torch.floor(torch.log2(v.abs().double().clamp(min=1e-30)))
+    return torch.pow(2.0, e - bits)
+
+
+def _tolerance(v, acc_t):
+    """How far two orders of the search's f32 sums may put a quality v
+    apart: one ulp of a bfloat16 quality; 32 ulp of a float32 quality,
+    which carries the sums' own rounding (on the noise rows the two
+    orders have put it at most 10 ulp apart on the H100; the worst case
+    of two orders of 74-term sums is about 180 ulp)."""
+    return _ulp(v, acc_t) * (1 if acc_t == torch.bfloat16 else 32)
+
+
+def _check_search(got, want, plane, sps, K, threshold, acc_t):
+    """starts and valid equal wherever the plain version's top value of a
+    round beats every other candidate by more than the tolerance (and
+    lies farther than it from the threshold), up to the first round that
+    does not; quality within the tolerance there.  Returns the rounds
+    checked."""
+    L, cap = len(TRIGGER), cor.CAPTURE_SYMBOLS
+    gs, gv, gq = (a.cpu().reshape(-1, K) for a in got)
+    ws, wv, wq = (a.cpu().reshape(-1, K) for a in want)
+    q = plane.cpu().double().reshape(gs.shape[0], -1)      # phase-major
+    no = q.shape[-1] // sps
+    pos = (torch.arange(sps)[:, None] + sps * torch.arange(no)).reshape(-1)
+    checked = 0
+    for r in range(q.shape[0]):
+        cand = q[r].clone()
+        for k in range(K):
+            s = int(ws[r, k]) - L * sps
+            if torch.isinf(cand).all():        # nothing left: index 0
+                assert int(gs[r, k]) == int(ws[r, k]) == L * sps
+                assert gq[r, k] == wq[r, k] == float("-inf")
+                checked += 1
+                continue
+            idx = (s % sps) * no + s // sps
+            v1 = cand[idx]
+            rest = cand.clone()
+            rest[idx] = float("-inf")
+            u = _tolerance(v1, acc_t)
+            if v1 - rest.max() <= 2 * u or abs(v1 - threshold) <= u:
+                break
+            assert int(gs[r, k]) == int(ws[r, k]), (r, k)
+            assert bool(gv[r, k]) == bool(wv[r, k]), (r, k)
+            assert abs(float(gq[r, k]) - float(wq[r, k])) <= float(u), (r, k)
+            cand[(pos > s - L * sps) & (pos < s + (L + cap) * sps)] = \
+                float("-inf")
+            checked += 1
+    return checked
+
+
+SEARCH_CASES = {   # shape, corr_block, K, data
+    "short": ((4, 1, 124), 128, 1, "grid"),     # under one block of lags
+    "loop": ((64, 3, 3703), 128, 2, "grid"),    # the duplex loop's rows
+    "tiled": ((2, 3, 20000), 256, 4, "grid"),   # past shared memory
+    "batched": ((2, 5, 3, 1500), 256, 4, "grid"),
+    "periodic": ((2, 3, 3703), 128, 2, "periodic"),
+    "noise": ((64, 3, 3703), 128, 2, "noise"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data_bf16", [False, True])
+@pytest.mark.parametrize("out_bf16", [False, True])
+@pytest.mark.parametrize("case", list(SEARCH_CASES))
+def test_trigger_search_kernel_matches_plain_version_on_card(
+        cuda_device, data_bf16, out_bf16, case):
+    """The kernel against the plain version on the card, one launch a
+    call, on the path ``plan`` chooses: equal outputs on the grid rows
+    (ties included), and on the noise rows wherever rounding cannot
+    decide a pick."""
+    shape, O, K, data = SEARCH_CASES[case]
+    sps, threshold = shape[-2], 0.55
+    ph = torch.as_tensor(_search_rows(shape, O, data, len(shape) + O + K),
+                         device=cuda_device)
+    if data_bf16:
+        ph = ph.to(torch.bfloat16)
+    assert KS.plan(sps, shape[-1], O, K, out_bf16)[0] == (case != "tiled")
+    before = KS.LAUNCHES
+    got = cor.find_bursts_phases(ph, sps, K, threshold, O, out_bf16)
+    torch.cuda.synchronize()
+    assert KS.LAUNCHES == before + 1
+    want = cor.find_bursts_phases_reference(ph, sps, K, threshold, O,
+                                            out_bf16)
+    plane = cor.trigger_quality_reference(ph, O, out_bf16)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.device == cuda_device
+    acc_t = torch.bfloat16 if out_bf16 else torch.float32
+    checked = _check_search(got, want, plane, sps, K, threshold, acc_t)
+    rows = int(np.prod(shape[:-2]))
+    if data == "noise":
+        assert checked >= rows      # every row's first pick is decided
+        return
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if data == "periodic":
+        # row 0: zeros everywhere, the first index and the first past it;
+        # row 1: the trigger's first period, then its first copy past it
+        L = len(TRIGGER)
+        first_past = -(-(L + cor.CAPTURE_SYMBOLS) * sps // sps)
+        assert got[0][0].tolist() == [L * sps, (first_past + L) * sps]
+        o2 = 20 + O * -(-first_past // O)
+        assert got[0][1].tolist() == [(20 + L) * sps, (o2 + L) * sps]
+        assert got[1][1].tolist() == [True, True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sps,nsym,O,K,out_bf16,resident", [
+    (3, 3703, 128, 2, True, True),     # the duplex loop's rows
+    (3, 3703, 128, 4, False, True),
+    (1, 124, 128, 1, False, True),     # shorter than one block of lags
+    (3, 20000, 128, 4, True, False),   # longer than shared memory: tiles
+    (1, 200000, 256, 2, False, False),
+    (3, 9000, 2000, 2, True, False),
+])
+def test_trigger_search_plan(cuda_device, sps, nsym, O, K, out_bf16,
+                             resident):
+    """The kernel keeps a row in shared memory when its symbols and
+    quality fit, else cuts it into tiles of one phase that fit, by the
+    library's layout."""
+    smem = KS._library()[1]
+    got, nb = KS.plan(sps, nsym, O, K, out_bf16)
+    nblk = -(-(nsym - 73) // O)
+    assert got == resident
+    if resident:
+        assert nb == nblk
+        assert smem(sps, nb, O, K, out_bf16) <= KS.RESIDENT_BYTES
+    else:
+        assert 1 <= nb <= min(KS.MAX_TILE_BLOCKS, nblk)
+        assert smem(1, nb, O, K, out_bf16) <= KS.RESIDENT_BYTES
+        assert nb in (KS.MAX_TILE_BLOCKS, nblk) or \
+            smem(1, nb + 1, O, K, out_bf16) > KS.RESIDENT_BYTES
+
+
+@pytest.mark.cuda
+def test_trigger_search_plan_refuses_a_block_past_shared_memory(
+        cuda_device):
+    with pytest.raises(ValueError):
+        KS.plan(1, 200000, 20000, 2, False)
+
+
+@pytest.mark.cuda
+def test_trigger_search_launches_no_gemm(cuda_device):
+    """On the card the search is the one kernel: no cuBLAS GEMM."""
+    ph = torch.as_tensor(_search_rows((256, 3, 3703), 128, "grid", 1),
+                         device=cuda_device).to(torch.bfloat16)
+    cor.find_bursts_phases(ph, 3, 2, 0.55, out_bf16=True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cor.find_bursts_phases(ph, 3, 2, 0.55, out_bf16=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("trigger_search_kernel" in n for n in names), names
+    assert not any(re.search("gemm|xmma|cutlass|cublas", n, re.I)
+                   for n in names), names
+
+
+@pytest.mark.cuda
+def test_closed_loop_graph_counts_search_launches(cuda_device):
+    """M=64: the captured block runs the search kernel once, and each
+    replay adds one launch to ``LAUNCHES``, as the eager loop does."""
+    from amps_tpu_torch.runtime.streamer import make_closed_loop_stream
+    spec = pl.MultichannelSpec(num_channels=64, taps_per_phase=8,
+                               io_bf16=True, corr_bf16=True)
+    nblocks = 3
+    eager, _ = make_closed_loop_stream(spec, nblocks, graph=False)
+    graphed, _ = make_closed_loop_stream(spec, nblocks)
+    before = KS.LAUNCHES
+    want = eager(_loop_pairs(64))
+    assert KS.LAUNCHES - before == nblocks
+    for warm_up in (1, 0):
+        before = KS.LAUNCHES
+        got = graphed(_loop_pairs(64))
+        torch.cuda.synchronize()
+        assert KS.LAUNCHES - before == nblocks + warm_up
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -119,6 +119,31 @@ def test_rx_block_bf16_decodes_same_words(M):
         assert np.array_equal(words[ev.channel, 0, :len(w)], w)
 
 
+def test_rx_block_search_argument():
+    """The block's search argument is its trigger search, called once
+    with the block's K and threshold; the plain search gives the
+    default block's planes."""
+    from amps_tpu_torch.kernels.rx_phases import analyze_phases
+    from amps_tpu_torch.parallel.pipeline import _rx_block
+    from amps_tpu_torch.rx.correlator import find_bursts_phases_reference
+    x, _ = _traffic(32)
+    _, tspec = _specs(32, True)
+    calls = []
+
+    def search(phases, sps, max_bursts, threshold, **kw):
+        calls.append((max_bursts, threshold))
+        return find_bursts_phases_reference(phases, sps, max_bursts,
+                                            threshold, **kw)
+
+    xt = torch.as_tensor(x)
+    got = _rx_block(xt, tspec, 3, 0.5, "first_ok", analyze_phases, search)
+    assert calls == [(3, 0.5)]
+    want = trx(xt, tspec, max_bursts=3, threshold=0.5)
+    assert set(got) == set(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_rx_block_planar_input_is_identical():
     x, _ = _traffic(32)
     _, tspec = _specs(32, False)

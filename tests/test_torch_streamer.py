@@ -319,6 +319,29 @@ def test_front_end_argument_runs_every_push():
     assert len(got) == len(events)
 
 
+def test_search_argument_runs_every_push():
+    """The search argument is the trigger search of every push, the
+    pad_tail push included, with the receiver's K and threshold, and the
+    plain search gives the default receiver's report list."""
+    from amps_tpu_torch.rx.correlator import find_bursts_phases_reference
+    x, events = _stream()
+    blocks = [torch.as_tensor(b) for b in _pushes(x)]
+    calls = []
+
+    def search(phases, sps, max_bursts, threshold, **kw):
+        calls.append((max_bursts, threshold))
+        return find_bursts_phases_reference(phases, sps, max_bursts,
+                                            threshold, **kw)
+
+    got = _run(TRx(_specs()[1], max_bursts=3, threshold=0.5, device="cpu",
+                   search=search), blocks)
+    assert calls == [(3, 0.5)] * (len(blocks) + 1)
+    want = _run(TRx(_specs()[1], max_bursts=3, threshold=0.5,
+                    device="cpu"), blocks)
+    assert [_key(r) for r in got] == [_key(r) for r in want]
+    assert len(got) == len(events)
+
+
 def test_receiver_rejects_other_folds():
     """Every fold name of the JAX package is taken (below); any other
     name raises."""
