@@ -52,7 +52,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import gen, roofline, trace
+from portbench import gen, kernels, trace
 from portbench.drive.rx_stream import make_spec, plane_errors
 from portbench.reference import backend, bank, focc
 
@@ -137,11 +137,11 @@ def setup(cfg: dict, mix: dict, seed: int, device):
 
 
 def window(run, pairs, mix, seconds: float, device, traced: bool,
-           calls: int = 0):
+           calls: int = 0, wrappers=()):
     """Call the loop until ``seconds`` have passed (or ``calls`` calls);
-    returns the record and, when ``traced``, the trace."""
+    returns the record and, when ``traced``, the trace, whose sub-windows
+    are checked against ``wrappers`` (``portbench.kernels.loop``)."""
     from torch.profiler import record_function
-    from amps_tpu_torch.kernels import rx_front, synth
     sums, tr = [], trace.Trace() if traced else None
     walls = []
 
@@ -172,9 +172,7 @@ def window(run, pairs, mix, seconds: float, device, traced: bool,
                     c += 1
 
             if not trace.profile(units, mix["profile_calls"], device,
-                                 {"synth_kernel": lambda: synth.LAUNCHES,
-                                  "rx_front_kernel":
-                                  lambda: rx_front.LAUNCHES}, tr, labels):
+                                 wrappers, tr, labels):
                 print(f"call {c - 1}: the profiler missed spans in "
                       f"{trace.TRIES} tries; sub-window left out",
                       file=sys.stderr)
@@ -302,7 +300,9 @@ def run(cfg: dict, mix: dict, seed: int, seconds: float, device,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         setup_s = time.perf_counter() - t_start
-        rec, tr = window(loop, pairs, mix, seconds, device, traced, calls)
+        rec, tr = window(loop, pairs, mix, seconds, device, traced, calls,
+                         kernels.loop(spec, mix["frames"],
+                                      cfg["loop"]["max_bursts"]))
     finally:
         taps.remove()
     peak = (torch.cuda.max_memory_allocated(device)
@@ -316,18 +316,11 @@ def run(cfg: dict, mix: dict, seed: int, seconds: float, device,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    M, T = spec.num_channels, spec.taps_per_phase
     out = judge(spec, cfg, pairs[rec["sums"][-1][0]], got, device,
                 control)
     length = rec["t1"] - rec["t0"]
     metrics = {"duplex_msps": rec["calls"] * mix["nblocks"] * block_samples
                / length / 1e6, "setup_s": setup_s}
-    if traced:
-        Nh = block_samples // P
-        tr.bound_s["rx_front_kernel"] = roofline.bank_bound_s(
-            M, T, Nh, roofline.rx_front_bytes(M, T, Nh))
-        tr.bound_s["synth_kernel"] = roofline.bank_bound_s(
-            M, T, Nh, roofline.synth_bytes(M, T, Nh))
     return dict(metrics=metrics, attempted=rec["calls"],
                 failed=int(out["numbers"]["slot_diff"] > 0),
                 memory_peak_bytes=peak, trace=tr, units=rec["calls"], **out)

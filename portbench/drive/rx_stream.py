@@ -40,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import gen, roofline, trace
+from portbench import gen, kernels, trace
 from portbench.reference import bank, recc
 
 
@@ -97,8 +97,9 @@ def window(spec, pool, cfg, mix, seconds: float, device, traced: bool,
     carried demod and power planes and, when ``traced``, the trace of
     its profiled sub-windows."""
     from torch.profiler import record_function
-    from amps_tpu_torch.kernels import rx_front
     rx = make_receiver(spec, cfg, device)
+    wrappers = kernels.receiver(spec, pool.push_hops, rx.ovr,
+                                rx.max_bursts)
     calls, rets, got = [], [], []
     tr = trace.Trace() if traced else None
     profiled = set()
@@ -132,8 +133,7 @@ def window(spec, pool, cfg, mix, seconds: float, device, traced: bool,
                     i += 1
 
             if not trace.profile(units, mix["profile_pushes"], device,
-                                 {"rx_front_kernel":
-                                  lambda: rx_front.LAUNCHES}, tr, labels):
+                                 wrappers, tr, labels):
                 print(f"pushes {first}..{i - 1}: the profiler missed spans "
                       f"in {trace.TRIES} tries; sub-window left out",
                       file=sys.stderr)
@@ -158,9 +158,6 @@ def window(spec, pool, cfg, mix, seconds: float, device, traced: bool,
     if traced:
         tr.host["push"] = [b - a for k, (a, b) in
                            enumerate(zip(calls, rets)) if k not in profiled]
-        M, T, H = spec.num_channels, spec.taps_per_phase, pool.push_hops
-        tr.bound_s["rx_front_kernel"] = roofline.bank_bound_s(
-            M, T, H, roofline.rx_front_bytes(M, T, H))
     carry = (rx._carry.clone(), rx._pw_carry.clone())
     del rx
     return rec, carry, tr

@@ -38,3 +38,24 @@ def synth_bytes(M: int, T: int, Nh: int) -> int:
     block (Nh·M/2 samples) and the new carry out."""
     carry = (T * M - M // 2) * 8
     return 8 * Nh * M + carry + 8 * Nh * (M // 2) + carry
+
+
+def search_work(M: int, sps: int, nsym: int, K: int):
+    """(instructions, bytes) the trigger search (K5) needs over M rows of
+    ``sps`` phase streams of ``nsym`` bfloat16 symbols with K picks: with
+    each pair of neighbouring symbols added as one sum or difference
+    (and their squares as one sum), each (row, phase, lag) takes 37 adds
+    for the 74-symbol correlation and 37 for the window energy, and each
+    symbol 4 more (its square and its pair's sum, difference and sum of
+    squares); the phases read once and the K picks (start, valid,
+    quality: 9 bytes) written once."""
+    ops = M * sps * ((nsym - 73) * 74 + nsym * 4)
+    return ops, M * sps * nsym * 2 + M * K * 9
+
+
+def search_bound_s(M: int, sps: int, nsym: int, K: int) -> float:
+    """Least seconds of one trigger search (``search_work``): its adds at
+    one instruction each, half the f32 flop rate, or its bytes at the HBM
+    rate, whichever is longer."""
+    ops, nbytes = search_work(M, sps, nsym, K)
+    return max(ops / (F32_FLOPS / 2), nbytes / HBM_BYTES_S)

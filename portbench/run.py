@@ -91,9 +91,13 @@ def forbidden_modules() -> list:
 
 def build_kernels(M: int) -> None:
     """The port's kernel libraries for width M, into its build
-    directory in the checkout (built once; later runs load them)."""
+    directory in the checkout (built once; later runs load them): the
+    main library, and a library of width M where the FFT tile takes M
+    and the main library does not hold it (the device-memory route runs
+    from the main library)."""
     from amps_tpu_torch.kernels import analysis, build
-    build.build(widths=() if M in analysis.LIBRARY_WIDTHS else (M,))
+    own = M not in analysis.LIBRARY_WIDTHS and not analysis.route_length(M)
+    build.build(widths=(M,) if own else ())
 
 
 def card_line() -> str:

@@ -6,7 +6,7 @@ import types
 
 import pytest
 
-from portbench import roofline, run, trace
+from portbench import kernels, roofline, run, trace
 
 K2 = "void rx_front_kernel<1024, 8>(float const*, int, long long)"
 GEMM = "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8"
@@ -52,7 +52,9 @@ def traced(units=2):
     tr.units = units
     tr.host["push"] = [0.004, 0.002, 0.003]
     tr.host["report"] = [0.001 * k for k in range(1, 101)]
-    tr.bound_s["rx_front_kernel"] = 30e-6
+    tr.kernels["k2"] = kernels.Kernel("k2", "tile", kernels.TILE["k2"], 1,
+                                      30e-6, "rx_front")
+    tr.kernel_calls["k2"] = 1
     return tr
 
 
@@ -91,7 +93,9 @@ def test_receiver_readers(read, value):
 def test_k4_reads_its_own_kernel():
     tr = traced()
     assert run.read_metric("k4_roofline.duplex", tr) is None
-    tr.bound_s["synth_kernel"] = 15e-6
+    tr.kernels["k4"] = kernels.Kernel("k4", "tile", kernels.TILE["k4"], 1,
+                                      15e-6, "synth")
+    tr.kernel_calls["k4"] = 2
     tr.ops["void synth_kernel<1024, 8>(float const*)"] = 60e-6
     tr.calls["void synth_kernel<1024, 8>(float const*)"] = 2
     assert run.read_metric("k4_roofline.duplex_host", tr) == \
@@ -102,6 +106,10 @@ def test_no_k2_span_reads_nothing():
     tr = traced()
     tr.ops.pop(K2)
     tr.calls.pop(K2)
+    assert run.read_metric("k2_roofline.duplex", tr) is None
+    # nor does a trace whose sub-windows recorded no call of K2
+    tr = traced()
+    tr.kernel_calls["k2"] = 0
     assert run.read_metric("k2_roofline.duplex", tr) is None
 
 

@@ -9,11 +9,13 @@ runs a few units of the cell's work between two marker kernels
 (``torch.cuda._sleep``): the window is the device's time from the start
 of the first marker to the end of the second.  One further sub-window
 records host activity as well; it only names what the host was in
-during each idle gap.  The spans of each kernel named in ``launches``
-are counted against the growth of the port's own launch counter over
-the same units; a sub-window that falls short (CUPTI has dropped
-records on this card before) is taken again, up to ``TRIES`` times, then
-left out; a traced run in which no sub-window recorded every span fails.
+during each idle gap.  The units' wrappers are entries of
+``portbench.kernels``: the spans of each entry's pattern are counted
+against the calls its wrapper's launch counter saw over the same units
+times the kernels a call launches; a sub-window that falls short (CUPTI
+has dropped records on this card before) is taken again, up to
+``TRIES`` times, then left out; a traced run in which no sub-window
+recorded every span fails.
 """
 
 from __future__ import annotations
@@ -22,16 +24,19 @@ import bisect
 import dataclasses
 import re
 import statistics
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
+
+from portbench.kernels import Kernel
 
 TRIES = 3
 WINDOW = "portbench.window"
 MARK = "spin_kernel"                     # torch.cuda._sleep's kernel
 MARK_CYCLES = 1000
-# the port's own CUDA kernels (amps_tpu_torch/csrc)
-PORT_KERNEL = re.compile(r"\b(analysis_kernel|rx_front_kernel|"
+# the port's bank kernels, K1-K4 on the FFT tile and on the device-memory
+# route (amps_tpu_torch/csrc); K5, the trigger search, is not among them
+BANK_KERNEL = re.compile(r"\b(analysis_kernel|rx_front_kernel|"
                          r"rx_phases_kernel|rx_phases_power_kernel|"
                          r"synth_kernel|synth_combine_kernel|route_\w+)")
 GEMM = re.compile(r"gemm|xmma|cutlass|cublas", re.IGNORECASE)
@@ -47,8 +52,10 @@ class Trace:
     calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     gaps: Dict[str, float] = dataclasses.field(default_factory=dict)
     tries: int = 0                       # sub-windows taken, retakes too
-    # least seconds of one launch of a port kernel, by kernel pattern
-    bound_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the units' wrappers (``portbench.kernels``) by name, and the calls
+    # of each that the kept sub-windows recorded
+    kernels: Dict[str, Kernel] = dataclasses.field(default_factory=dict)
+    kernel_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     # host-clock readings of the benchmark outside the sub-windows, in
     # seconds: push or call walls, report latencies
     host: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
@@ -119,21 +126,37 @@ def _digest(prof, out: Trace, labels: bool) -> Dict[str, int]:
     return counts
 
 
+def missing(counts: Dict[str, int], kernels: Sequence[Kernel],
+            calls: Dict[str, int]) -> Dict[str, Tuple[int, int]]:
+    """The patterns whose spans in ``counts`` (op name -> spans) fall
+    short of the kernels that ``calls`` (wrapper name -> calls) of
+    ``kernels`` launched: pattern -> (spans seen, kernels launched)."""
+    want: Dict[str, int] = {}
+    for k in kernels:
+        want[k.pattern] = want.get(k.pattern, 0) + calls[k.name] * k.launches
+    short = {}
+    for pat, n in want.items():
+        seen = sum(v for name, v in counts.items() if re.search(pat, name))
+        if seen < n:
+            short[pat] = (seen, n)
+    return short
+
+
 def profile(units: Callable[[int], None], n: int, device,
-            launches: Dict[str, Callable[[], int]], out: Trace,
+            kernels: Sequence[Kernel], out: Trace,
             labels: bool = False) -> bool:
     """Profile ``units(n)`` into ``out`` (with ``labels``, host activity
-    too, for the names of the idle gaps only), retaking a sub-window
-    whose spans of a kernel in ``launches`` (pattern -> the port's
-    launch counter) fall short of the counter's growth.  Returns whether
-    the last try recorded every launch."""
+    too, for the names of the idle gaps only), retaking a sub-window in
+    which the spans of a pattern of ``kernels`` (the units' wrappers,
+    ``portbench.kernels``) fall short of what their calls launched.
+    Returns whether the last try recorded every launch."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from torch.profiler import record_function
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if labels
                                       else [])
     for _ in range(TRIES):
         torch.cuda.synchronize(device)
-        before = {k: f() for k, f in launches.items()}
+        before = {k.name: k.calls() for k in kernels}
         with tprofile(activities=acts) as prof:
             torch.zeros(1, device=device)
             torch.cuda.synchronize(device)
@@ -145,11 +168,8 @@ def profile(units: Callable[[int], None], n: int, device,
         out.tries += 1
         trial = Trace()
         counts = _digest(prof, trial, labels)
-        ok = bool(counts)
-        for pat, f in launches.items():
-            seen = sum(v for k, v in counts.items() if re.search(pat, k))
-            ok = ok and seen >= f() - before[pat]
-        if ok:
+        calls = {k.name: k.calls() - before[k.name] for k in kernels}
+        if counts and not missing(counts, kernels, calls):
             if labels:
                 for k, v in trial.gaps.items():
                     out.gaps[k] = out.gaps.get(k, 0.0) + v
@@ -161,6 +181,10 @@ def profile(units: Callable[[int], None], n: int, device,
                 out.ops[k] = out.ops.get(k, 0.0) + v
             for k, v in trial.calls.items():
                 out.calls[k] = out.calls.get(k, 0) + v
+            for k in kernels:
+                out.kernels[k.name] = k
+                out.kernel_calls[k.name] = (out.kernel_calls.get(k.name, 0)
+                                            + calls[k.name])
             return True
     return False
 
@@ -195,13 +219,13 @@ def report_p95_ms(tr: Trace):
 
 
 def torch_ops_ms(tr: Trace):
-    """Device time a unit (push or block) of every op that is not one
-    of the port's own CUDA kernels (the RX back end's torch ops, copies
-    and fills), ms."""
+    """Device time a unit (push or block) of every op but the bank
+    kernels (``BANK_KERNEL``): the RX back end's torch ops, copies and
+    fills, K5 (the trigger search) included, ms."""
     if not tr.units:
         return None
-    port, _ = tr.op_seconds(PORT_KERNEL)
-    return (sum(tr.ops.values()) - port) / tr.units * 1e3
+    bank, _ = tr.op_seconds(BANK_KERNEL)
+    return (sum(tr.ops.values()) - bank) / tr.units * 1e3
 
 
 def backend_gemm_ms(tr: Trace):
@@ -211,23 +235,44 @@ def backend_gemm_ms(tr: Trace):
     return s / tr.units * 1e3 if n and tr.units else None
 
 
-def _roofline(tr: Trace, kernel: str):
-    s, n = tr.op_seconds(rf"\b{kernel}")
-    bound = tr.bound_s.get(kernel)
-    return 100.0 * n * bound / s if n and s > 0 and bound else None
+def _share(tr: Trace, pick: Callable[[Kernel], bool]):
+    """The share of their roofline, %, of the wrappers of the trace that
+    ``pick`` takes: their calls' least time over the device time of
+    every kernel of their patterns."""
+    ks = [k for k in tr.kernels.values() if pick(k)]
+    least = sum(tr.kernel_calls.get(k.name, 0) * k.bound_s for k in ks)
+    s = sum(tr.op_seconds(p)[0] for p in {k.pattern for k in ks})
+    return 100.0 * least / s if least > 0 and s > 0 else None
 
 
 def k2_roofline(tr: Trace):
-    """K2's share of its roofline, %: the least time of its launches
-    (the bank pass's FFT and fold flops against the FP32 peak, or its
-    interface bytes against HBM, ``roofline.bank_bound_s``) over their
-    profiled device time."""
-    return _roofline(tr, "rx_front_kernel")
+    """K2's share of its roofline on the FFT tile, %: the least time of
+    its calls (the bank pass's FFT and fold flops against the FP32 peak,
+    or its interface bytes against HBM, ``roofline.bank_bound_s``) over
+    the profiled device time of its kernels; None on the route."""
+    return _share(tr, lambda k: k.name == "k2" and k.path == "tile")
 
 
 def k4_roofline(tr: Trace):
-    """K4's share of its roofline, %, as ``k2_roofline``'s."""
-    return _roofline(tr, "synth_kernel")
+    """K4's share of its roofline on the FFT tile, %, as
+    ``k2_roofline``'s: past 16 taps a call is several launches and the
+    combine kernel, all of them counted."""
+    return _share(tr, lambda k: k.name == "k4" and k.path == "tile")
+
+
+def route_roofline(tr: Trace):
+    """The device-memory route's share of its roofline, %: the least
+    time of the K2 and K4 calls that took the route over the profiled
+    device time of every ``route_*`` kernel (``route_pass_kernel`` serves
+    both wrappers, so the trace cannot part them)."""
+    return _share(tr, lambda k: k.path == "route")
+
+
+def k5_roofline(tr: Trace):
+    """K5's share of its roofline, %: the least time of its calls (the
+    trigger search's adds at the FP32 instruction rate, or its bytes,
+    ``roofline.search_bound_s``) over their profiled device time."""
+    return _share(tr, lambda k: k.name == "k5")
 
 
 def device_idle_pct(tr: Trace):
